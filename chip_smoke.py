@@ -31,12 +31,31 @@ each printing lines of its own; any failure exits non-zero:
 5. times    phase wall times, each kernel's time from CUDA events over
             many launches beside its bound and the plain version's time,
             and peak device memory, each beside the card's name and
-            power limit.
+            power limit;
+6. serve    the batched serve solve of one bucket of 8 requests, each a
+            north-star-geometry tile (62 stations, 113,460 rows) with its
+            own LSM sky of 8 point clusters and its own true gains:
+            batched kernels #5/#6 against their plain version at that
+            width (Gaussian and robust with per-lane nu, f32 and bf16
+            coherencies, and 6 valid lanes of 8; bars as in phase 3,
+            bit-identical repeat, exactly zero pad lanes); the requests
+            built from files, one bucket, routed to "fused_batch" by
+            ``choose_batched_path`` and solved by ``sagefit_packed_batch``
+            (mode 3, 3 EM passes, max_iter 2, max_lbfgs 10; every lane
+            res_1 < res_0; both batched kernels launched, the solo ones
+            not; counts set to 0 just before); batched vs sequential
+            ``solve_tile`` solves/s; then, with torch's deterministic
+            algorithms on (the EM's ``index_add_`` scatters otherwise
+            use atomics, and two runs of one route differ by more than
+            the bar), the same bucket on the per-lane torch-op route
+            (res_1 within 5e-3) and a ragged bucket of 6 padded to 8
+            (real lanes within 1e-5 of the full bucket's); the batched
+            kernels' times beside their bounds.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``,
 the line before the last is nvidia-smi's ``name, power.limit``, and the
-last line is ``{"ok": true, "device": {...}}``.  EM and LBFGS depth can
-be cut with the options below; the widths cannot.
+last line is ``{"ok": true, "device": {...}}``.  The main path's EM and
+LBFGS depth can be cut with the options below; the widths cannot.
 """
 
 import argparse
@@ -65,10 +84,21 @@ COST_TOL = 1e-5
 GRAD_TOL = 1e-5
 RES1_TOL = 5e-3
 
+# serve bucket: the reference's ServeConfig.batch default, requests of
+# 8 point clusters each on the north-star geometry
+SERVE_B, SERVE_CLUSTERS, SERVE_RAGGED = 8, 8, 6
+# the serve defaults' depth: mode 3, 3 EM passes, max_iter 2, max_lbfgs 10
+SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 3, 2, 10
+SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
+
 SOURCE = "sagecal_tpu_torch/csrc/fused_cost.cu"
+KERNELS = ("fused_cost_fwd", "fused_cost_bwd", "fused_cost_batch_fwd",
+           "fused_cost_batch_bwd")
 REPLACES = {
     "fused_cost_fwd": "sagecal_tpu/ops/rime_kernel.py:842",
     "fused_cost_bwd": "sagecal_tpu/ops/rime_kernel.py:877",
+    "fused_cost_batch_fwd": "sagecal_tpu/ops/rime_kernel.py:1250",
+    "fused_cost_batch_bwd": "sagecal_tpu/ops/rime_kernel.py:1273",
 }
 
 
@@ -143,15 +173,16 @@ def phase_parity():
     return worst
 
 
-def write_sky(dirname: str, seed: int = 7):
-    """An LSM sky of NCLUSTERS point sources within ~2 degrees of the
+def write_sky(dirname: str, seed: int = 7, nclusters: int = NCLUSTERS,
+              name: str = "sky"):
+    """An LSM sky of ``nclusters`` point sources within ~2 degrees of the
     phase centre, one per cluster, and its cluster file."""
     rng = np.random.default_rng(seed)
-    sky, clus = os.path.join(dirname, "sky.txt"), os.path.join(
-        dirname, "sky.txt.cluster")
+    sky = os.path.join(dirname, f"{name}.txt")
+    clus = sky + ".cluster"
     with open(sky, "w") as fs, open(clus, "w") as fc:
         fs.write("# name h m s d m s I Q U V si RM eX eY eP f0\n")
-        for k in range(NCLUSTERS):
+        for k in range(nclusters):
             dec = DEC0 + math.radians(rng.uniform(-2.0, 2.0))
             ra = RA0 + math.radians(rng.uniform(-2.0, 2.0)) / math.cos(DEC0)
             hrs, deg = math.degrees(ra) / 15.0, math.degrees(dec)
@@ -165,21 +196,16 @@ def write_sky(dirname: str, seed: int = 7):
     return sky, clus
 
 
-def phase_main(args, dirname: str):
-    from sagecal_tpu_torch.core.types import jones_to_params, params_to_jones
+def main_tile(dirname: str):
+    """The main path's tile as a user builds it from files: sky and
+    cluster file -> observed visibilities -> coherencies.  Returns
+    (VisData, ClusterData, p0, seconds spent on the coherencies)."""
+    from sagecal_tpu_torch.core.types import jones_to_params
     from sagecal_tpu_torch.io.simulate import (
         corrupt_and_observe, make_visdata, random_jones,
     )
     from sagecal_tpu_torch.io.skymodel import load_sky
-    from sagecal_tpu_torch.io.solutions import (
-        append_solutions, read_solutions, write_header,
-    )
-    from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
-    )
-    from sagecal_tpu_torch.solvers.sage import (
-        SM_OSLM_OSRLM_RLBFGS, SageConfig, build_cluster_data, solve_tile,
-    )
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
 
     sky, clus = write_sky(dirname)
     clusters, cdefs, _ = load_sky(sky, clus, RA0, DEC0)
@@ -193,10 +219,29 @@ def phase_main(args, dirname: str):
     cdata = build_cluster_data(data, clusters, [c.nchunk for c in cdefs])
     coh_s = sync_clock() - t
     p0 = jones_to_params(random_jones(NCLUSTERS, NSTATIONS, seed=9, amp=0.0))
-    p0 = p0[:, None, :]
-    cfg = SageConfig(solver_mode=SM_OSLM_OSRLM_RLBFGS, use_fused_predict=True,
-                     max_emiter=args.max_emiter, max_iter=args.max_iter,
-                     max_lbfgs=args.max_lbfgs)
+    return data, cdata, p0[:, None, :], coh_s
+
+
+def main_config(args):
+    from sagecal_tpu_torch.solvers.sage import SM_OSLM_OSRLM_RLBFGS, SageConfig
+
+    return SageConfig(solver_mode=SM_OSLM_OSRLM_RLBFGS, use_fused_predict=True,
+                      max_emiter=args.max_emiter, max_iter=args.max_iter,
+                      max_lbfgs=args.max_lbfgs)
+
+
+def phase_main(args, dirname: str):
+    from sagecal_tpu_torch.core.types import params_to_jones
+    from sagecal_tpu_torch.io.solutions import (
+        append_solutions, read_solutions, write_header,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+    )
+    from sagecal_tpu_torch.solvers.sage import solve_tile
+
+    data, cdata, p0, coh_s = main_tile(dirname)
+    cfg = main_config(args)
 
     torch.cuda.reset_peak_memory_stats()
     fused_cost_fwd_cuda.launches = 0
@@ -304,26 +349,300 @@ def phase_times(nu: float):
     cost = fused_cost_packed_plain(a, b, *prob.inputs, nu_arr)
     out["fused_cost_bwd"]["plain_ms"] = cuda_ms(
         lambda: torch.autograd.grad(cost, (a, b), retain_graph=True), 10)
-    for name, (nbytes, flops) in (("fused_cost_fwd",
-                                   fused_cost_work(prob)["fwd"]),
-                                  ("fused_cost_bwd",
-                                   fused_cost_work(prob)["bwd"])):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
-        out[name].update(bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bytes=nbytes, flops=flops)
+    work = fused_cost_work(prob)
+    for name, key in (("fused_cost_fwd", "fwd"), ("fused_cost_bwd", "bwd")):
+        out[name].update(bound(*work[key]))
     return out
 
 
-def main():
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def serve_parity():
+    """Batched kernels #5 and #6 against their plain version at the serve
+    width (B lanes of SERVE_CLUSTERS clusters at the north-star tile)."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_batch_with_plain, random_cost_problem_batch,
+    )
+
+    worst = {"fused_cost_batch_fwd": 0.0, "fused_cost_batch_bwd": 0.0}
+    per_lane_nu = torch.linspace(2.0, 12.0, SERVE_B, device="cuda")
+    cases = [(nu, dt, None) for nu in (None, per_lane_nu)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((per_lane_nu, torch.float32, SERVE_RAGGED))
+    for nu, dt, nvalid in cases:
+        prob = random_cost_problem_batch(SERVE_B, SERVE_CLUSTERS, NSTATIONS,
+                                         NCHAN, ROWS, coh_dtype=dt, seed=3,
+                                         nvalid=nvalid, device="cuda")
+        out = compare_batch_with_plain(prob, nu)
+        del prob
+        torch.cuda.empty_cache()
+        case = (f"{'robust per-lane nu' if nu is not None else 'gaussian'} "
+                f"coh={str(dt).split('.')[-1]} valid lanes="
+                f"{SERVE_B if nvalid is None else nvalid}/{SERVE_B}")
+        ok = (out["cost_rel"] <= COST_TOL and out["grad_rel"] <= GRAD_TOL
+              and out["bitwise_repeat"] and out["pad_lanes_zero"])
+        print(f"[serve-parity] {case}: cost_rel={out['cost_rel']:.3e} "
+              f"grad_rel={out['grad_rel']:.3e} "
+              f"bitwise_repeat={out['bitwise_repeat']} "
+              f"pad_lanes_zero={out['pad_lanes_zero']} "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"batched kernel parity {case}: {out}")
+        worst["fused_cost_batch_fwd"] = max(worst["fused_cost_batch_fwd"],
+                                            out["cost_abs_err"])
+        worst["fused_cost_batch_bwd"] = max(worst["fused_cost_batch_bwd"],
+                                            out["grad_max_abs_err"])
+    return worst
+
+
+def serve_requests(dirname: str):
+    """SERVE_B requests as a user builds them: each its own LSM sky of
+    SERVE_CLUSTERS point clusters and its own true gains, on the shared
+    north-star geometry -> (VisData, ClusterData, p0) per request."""
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import (
+        corrupt_and_observe, make_visdata, random_jones,
+    )
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    p0 = jones_to_params(random_jones(SERVE_CLUSTERS, NSTATIONS, seed=9,
+                                      amp=0.0))[:, None, :]
+    reqs = []
+    for b in range(SERVE_B):
+        sky, clus = write_sky(dirname, seed=100 + b,
+                              nclusters=SERVE_CLUSTERS, name=f"req{b}")
+        clusters, cdefs, _ = load_sky(sky, clus, RA0, DEC0)
+        data = make_visdata(nstations=NSTATIONS, tilesz=TILESZ, nchan=NCHAN,
+                            dec0=DEC0, seed=0)
+        truth = random_jones(SERVE_CLUSTERS, NSTATIONS, seed=200 + b,
+                             amp=0.2)
+        data = corrupt_and_observe(data, clusters, jones=truth,
+                                   noise_sigma=1e-3, seed=300 + b,
+                                   fdelta=data.deltaf)
+        cdata = build_cluster_data(data, clusters, [c.nchunk for c in cdefs])
+        reqs.append((data, cdata, p0.clone()))
+    return reqs
+
+
+def _reset_launches():
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    for k in KERNELS:
+        getattr(rk, k + "_cuda").launches = 0
+
+
+def _read_launches() -> dict:
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    return {k: getattr(rk, k + "_cuda").launches for k in KERNELS}
+
+
+def serve_config():
+    from sagecal_tpu_torch.solvers.sage import SM_OSLM_OSRLM_RLBFGS, SageConfig
+
+    return SageConfig(solver_mode=SM_OSLM_OSRLM_RLBFGS, use_fused_predict=True,
+                      max_emiter=SERVE_MAX_EMITER, max_iter=SERVE_MAX_ITER,
+                      max_lbfgs=SERVE_MAX_LBFGS)
+
+
+def serve_solve(reqs, idx, config, valid=None, fused=True):
+    """Requests ``idx`` stacked into one bucket and solved by
+    ``sagefit_packed_batch`` (lane generators from SEED and the request
+    ids) -> (result, wall seconds)."""
+    from sagecal_tpu_torch.solvers.batched import (
+        derive_lane_generators, sagefit_packed_batch, stack_lanes,
+    )
+
+    data, cdata, p0 = stack_lanes([reqs[i] for i in idx])
+    t0 = sync_clock()
+    res = sagefit_packed_batch(
+        data, cdata, data.vis.real, data.vis.imag, cdata.coh.real,
+        cdata.coh.imag, p0, config, derive_lane_generators(SEED, idx),
+        valid, batched_fused=fused)
+    return res, sync_clock() - t0
+
+
+def phase_serve(dirname: str):
+    """The batched serve solve of one bucket (module doc, phase 6)."""
+    from sagecal_tpu_torch.serve import bucket_of, pad_indices
+    from sagecal_tpu_torch.solvers.batched import (
+        choose_batched_path, derive_lane_generators, stack_lanes,
+    )
+    from sagecal_tpu_torch.solvers.sage import solve_tile
+
+    cfg = serve_config()
+    t = time.perf_counter()
+    reqs = serve_requests(dirname)
+    build_s = sync_clock() - t
+    buckets = {bucket_of(*r) for r in reqs}
+    if len(buckets) != 1:
+        fail(f"serve requests fall in {len(buckets)} buckets: {buckets}")
+    bucket = buckets.pop()
+    print(f"[serve] bucket {bucket.short()} x {SERVE_B} requests, built in "
+          f"{build_s:.3f} s; mode {cfg.solver_mode} emiter {cfg.max_emiter} "
+          f"max_iter {cfg.max_iter} max_lbfgs {cfg.max_lbfgs}", flush=True)
+
+    def solve(idx, valid=None, config=cfg, fused=True):
+        return serve_solve(reqs, idx, config, valid, fused)
+
+    lanes = list(range(SERVE_B))
+    data_b, cdata_b, p0_b = stack_lanes(reqs)
+    path, reason = choose_batched_path(data_b, cdata_b, p0_b, cfg)
+    del data_b, cdata_b
+    print(f"[serve] route: {path} ({reason})", flush=True)
+    if path != "fused_batch":
+        fail(f"serve bucket routed to {path!r}: {reason}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res, wall = solve(lanes)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    r0, r1 = res.res_0.double().cpu(), res.res_1.double().cpu()
+    print(f"[serve] fused_batch: {wall:.3f} s (EM "
+          f"{res.phase_seconds['em']:.3f} s, LBFGS "
+          f"{res.phase_seconds['lbfgs']:.3f} s), LBFGS iterations "
+          f"{res.lbfgs_iterations}, peak {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[serve] res_0 {[f'{x:.4e}' for x in r0.tolist()]}", flush=True)
+    print(f"[serve] res_1 {[f'{x:.4e}' for x in r1.tolist()]}", flush=True)
+    print(f"[serve] launches in the batched solve: {launches}", flush=True)
+    if not (torch.isfinite(r1).all() and (r1 < r0).all()):
+        fail("a serve lane did not reduce its residual to a finite value")
+    if not torch.isfinite(res.p).all():
+        fail("non-finite serve solutions")
+    for k in ("fused_cost_batch_fwd", "fused_cost_batch_bwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serve path")
+    for k in ("fused_cost_fwd", "fused_cost_bwd"):
+        if launches[k] != 0:
+            fail(f"solo kernel {k} launched {launches[k]} times in the "
+                 f"batched solve")
+
+    gens = derive_lane_generators(SEED, lanes)
+    t0 = sync_clock()
+    for b in lanes:
+        solve_tile(*reqs[b], cfg, gens[b])
+    wall_seq = sync_clock() - t0
+    res2, wall2 = solve(lanes)
+    spread = rel_max(res2.res_1, res.res_1)
+    print(f"[serve] solves/s: fused_batch {SERVE_B / wall:.4f} and "
+          f"{SERVE_B / wall2:.4f}, sequential solve_tile (fused) "
+          f"{SERVE_B / wall_seq:.4f}; batched/sequential "
+          f"{wall_seq / wall:.3f} and {wall_seq / wall2:.3f}", flush=True)
+    print(f"[serve] two default-mode fused_batch runs: worst res_1 rel diff "
+          f"{spread:.3e} (the EM's index_add_ scatters use atomics)",
+          flush=True)
+
+    # The route comparisons need the EM to give both routes the same
+    # start: with torch's deterministic algorithms the EM is
+    # bit-reproducible, so what differs is only the joint cost's route.
+    torch.use_deterministic_algorithms(True)
+    try:
+        res_d, wall_d = solve(lanes)
+        res_u, wall_u = solve(lanes,
+                              config=cfg.replace(use_fused_predict=False),
+                              fused=False)
+        idx, valid = pad_indices(SERVE_RAGGED, SERVE_B)
+        res_r, wall_r = solve(idx, valid=valid)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rel_u = rel_max(res_d.res_1, res_u.res_1)
+    print(f"[serve] deterministic mode: fused_batch {wall_d:.3f} s, "
+          f"per-lane torch-op route {wall_u:.3f} s, worst res_1 rel diff "
+          f"{rel_u:.3e} (bar {RES1_TOL})", flush=True)
+    if not rel_u <= RES1_TOL:
+        fail(f"fused_batch vs torch-op res_1 differ by {rel_u}")
+    real = slice(0, SERVE_RAGGED)
+    rel_r = rel_max(res_r.res_1[real], res_d.res_1[real])
+    bitwise = bool(torch.equal(res_r.res_1[real], res_d.res_1[real])
+                   and torch.equal(res_r.p[real], res_d.p[real]))
+    print(f"[serve] ragged bucket {SERVE_RAGGED} padded to {SERVE_B} "
+          f"(lanes {idx}): {wall_r:.3f} s, worst real-lane res_1 rel diff "
+          f"vs the full bucket {rel_r:.3e} (bar 1e-5), bit-identical "
+          f"{bitwise}", flush=True)
+    if not rel_r <= 1e-5:
+        fail(f"ragged bucket's real lanes differ by {rel_r}")
+    return {
+        "bucket": bucket.short(), "route": path, "launches": launches,
+        "lbfgs_iterations": res.lbfgs_iterations,
+        "em_s": res.phase_seconds["em"], "lbfgs_s": res.phase_seconds["lbfgs"],
+        "wall_s": [wall, wall2], "sequential_s": wall_seq,
+        "default_mode_spread": spread, "deterministic_s": wall_d,
+        "torch_op_s": wall_u, "ragged_s": wall_r, "peak_bytes": peak,
+        "res_0": r0.tolist(), "res_1": r1.tolist(),
+        "res_1_deterministic": res_d.res_1.tolist(),
+        "res_1_torch_op": res_u.res_1.tolist(), "torch_op_rel": rel_u,
+        "ragged_rel": rel_r, "ragged_bitwise": bitwise,
+        "requests_s": build_s,
+    }
+
+
+def rel_max(a, b) -> float:
+    """Worst per-lane |a - b| / |b|."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs() / b.abs()).max().item()
+
+
+def serve_times():
+    """Batched kernel and plain-version times at the serve shapes (f32
+    coherencies, robust cost with per-lane nu, as mode 3 runs it)."""
+    from sagecal_tpu_torch.kernels.parity import (
+        fused_cost_batch_work, random_cost_problem_batch,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        _nu_lanes, fused_cost_batch_bwd_cuda, fused_cost_batch_fwd_cuda,
+        fused_cost_packed_batch_plain,
+    )
+
+    prob = random_cost_problem_batch(SERVE_B, SERVE_CLUSTERS, NSTATIONS,
+                                     NCHAN, ROWS, seed=4, device="cuda")
+    nu = _nu_lanes(torch.linspace(2.0, 12.0, SERVE_B), SERVE_B, "cuda")
+    args = (prob.tab_re, prob.tab_im, *prob.inputs, nu, True)
+    out = {
+        "fused_cost_batch_fwd": {"ms": cuda_ms(
+            lambda: fused_cost_batch_fwd_cuda(*args), 50)},
+        "fused_cost_batch_bwd": {"ms": cuda_ms(
+            lambda: fused_cost_batch_bwd_cuda(*args), 20)},
+    }
+    with torch.no_grad():
+        out["fused_cost_batch_fwd"]["plain_ms"] = cuda_ms(
+            lambda: fused_cost_packed_batch_plain(
+                prob.tab_re, prob.tab_im, *prob.inputs, nu), 10)
+    a = prob.tab_re.clone().requires_grad_(True)
+    b = prob.tab_im.clone().requires_grad_(True)
+    costs = fused_cost_packed_batch_plain(a, b, *prob.inputs, nu)
+    ones = torch.ones_like(costs)
+    out["fused_cost_batch_bwd"]["plain_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(costs, (a, b), ones, retain_graph=True),
+        10)
+    work = fused_cost_batch_work(prob)
+    for name, key in (("fused_cost_batch_fwd", "fwd"),
+                      ("fused_cost_batch_bwd", "bwd")):
+        out[name].update(bound(*work[key]))
+    return out
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--max-emiter", type=int, default=2)
     ap.add_argument("--max-iter", type=int, default=6)
     ap.add_argument("--max-lbfgs", type=int, default=10)
     ap.add_argument("--json-out", default=None,
                     help="also write every number printed to this file")
-    args = ap.parse_args()
+    return ap.parse_args(argv)
+
+
+def main():
+    args = parse_args()
     t_start = time.perf_counter()
 
     name, count, card = phase_device()
@@ -347,11 +666,31 @@ def main():
               f"{main_out['launches'][k] / max(main_out['lbfgs_iterations'], 1):.2f}"
               f" launches per LBFGS iteration", flush=True)
 
+    worst.update(serve_parity())
+    with tempfile.TemporaryDirectory() as d:
+        serve_out = phase_serve(d)
+    serve_t = serve_times()
+    times.update(serve_t)
+    iters = max(max(serve_out["lbfgs_iterations"]), 1)
+    print(f"[times] ({card}) serve bucket: EM {serve_out['em_s']:.3f} s, "
+          f"joint LBFGS (fused_batch) {serve_out['lbfgs_s']:.3f} s over "
+          f"{serve_out['lbfgs_iterations']} iterations, peak device memory "
+          f"{serve_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    for k, v in serve_t.items():
+        print(f"[times] ({card}) {k}: {v['ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}: {v['bytes']} B, "
+              f"{v['flops']} flop), plain {v['plain_ms']:.4f} ms, "
+              f"{serve_out['launches'][k] / iters:.2f} launches per LBFGS "
+              f"iteration", flush=True)
+
+    launches = dict(main_out["launches"])
+    launches.update({k: serve_out["launches"][k]
+                     for k in ("fused_cost_batch_fwd", "fused_cost_batch_bwd")})
     kernels = []
-    for k in ("fused_cost_fwd", "fused_cost_bwd"):
+    for k in KERNELS:
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[k], "launches": main_out["launches"][k],
+            "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": worst[k], "ms": times[k]["ms"],
             "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
             "bound_by": times[k]["bound_by"], "library_ms": None,
@@ -359,8 +698,8 @@ def main():
         })
     if args.json_out:
         with open(args.json_out, "w") as fh:
-            json.dump({"card": card, "main": main_out, "times": times,
-                       "kernels": kernels,
+            json.dump({"card": card, "main": main_out, "serve": serve_out,
+                       "times": times, "kernels": kernels,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

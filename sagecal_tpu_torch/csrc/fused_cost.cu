@@ -1,6 +1,7 @@
 // Fused calibration objective for NVIDIA Hopper (sm_90a): forward and
-// backward of the joint-LBFGS cost, hand-written CUDA with a plain C
-// interface (loaded with ctypes by sagecal_tpu_torch/kernels/build.py).
+// backward of the joint-LBFGS cost, solo and batched over B lanes,
+// hand-written CUDA with a plain C interface (loaded with ctypes by
+// sagecal_tpu_torch/kernels/build.py).
 //
 // Replaces the Pallas kernels of sagecal_tpu/ops/rime_kernel.py:
 //   forward  _fused_cost_fwd_impl (:842; bodies _obj_fwd_kernel :768,
@@ -8,6 +9,10 @@
 //   backward _fused_cost_bwd_impl (:877; bodies _obj_bwd_kernel :815,
 //            _obj_bwd_kernel_hybrid :828, _g_from_residual :791,
 //            _bwd_accumulate :305, _bwd_store :359)
+//   batched forward  _fused_cost_batch_fwd_impl (:1250; body
+//            _obj_fwd_kernel_batch :1202)
+//   batched backward _fused_cost_batch_bwd_impl (:1273; body
+//            _obj_bwd_kernel_batch :1237)
 //
 // What they compute, per row r and channel f of one tile:
 //   V(f,r) = sum_m Jp_m C_m(f,r) Jq_m^H          (gains of row r's stations)
@@ -22,6 +27,14 @@
 //   component axis [re XX, re XY, re YX, re YY, im XX, ..., im YY];
 //   ant_p/ant_q (rowsp,) int32; cmap (mp, rowsp) int32 (nc > 1 only);
 //   vis (F, 8, rowsp) f32; mask (F, rowsp) f32; nu (1,) f32 on the device.
+// Batched (B lanes, nc = 1): tables (4, B*mp, npad), lane b's clusters on
+//   rows [b*mp, (b+1)*mp); coh (B*mp, F, 8, rowsp); vis (B, F, 8, rowsp);
+//   mask (B, F, rowsp); nu (B,) on the device (one per lane, never a
+//   host float); ant_p/ant_q shared by every lane.  The grid's y index
+//   is the lane; each kernel body first moves its pointers to its lane
+//   (64-bit offsets: B*mp*F*8*rowsp passes 2^31 at serve shapes); the
+//   solo kernels are the same bodies compiled without the lane offsets.  A lane whose mask is
+//   all zero gives a cost of exactly 0 and a cotangent of exactly 0.
 //
 // Design.  One thread per row, 256 rows per block.  Each thread reads its
 // row's station indices (and chunk index when nc > 1) and loads Jp, Jq
@@ -32,7 +45,7 @@
 // here; no tile, cluster or station padding is required.
 //
 // Forward: each block writes one partial sum (fixed-order tree reduction
-// in shared memory); the caller sums the (n_blocks,) partials.
+// in shared memory); the caller sums the (B, n_blocks) partials per lane.
 //
 // Backward, deterministic with no floating-point atomics: phase 1
 // re-forms V and the model cotangent g = -2 mask d (Gaussian) or
@@ -40,16 +53,18 @@
 // loops over clusters again, forms each row's dJp and dJq (summed over
 // channels), and combines the block's rows per (chunk, station) in a
 // fixed order — rows are sorted by station once per block (a stable
-// counting sort of the 2*256 (row, role) keys) — into a per-block
-// partial table.  A second kernel sums the partial tables over blocks in
-// block order.  Two calls on the same inputs give bit-identical tables.
+// counting sort of the 2*256 (row, role) keys) — into a per-(lane, block)
+// partial table.  A second kernel sums each lane's partial tables over
+// blocks in block order.  Two calls on the same inputs give bit-identical
+// tables.  Scratch: B x n_blocks x 8 x mp*nc x npad floats.
 //
 // Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32 non-tensor):
 // bytes.  At the north-star tile (62 stations, 100 clusters, 60 x 2)
 // the coherency stack is 100 x 2 x 8 x 113,460 x 4 B = 726 MB in f32,
-// ~0.22 ms a pass, against ~2.7 GFLOP (forward) = 0.04 ms.  The forward
-// reads the stack once.  Known cost of this simple design: the backward
-// reads it twice (phase 1 and phase 2), because the cluster axis does
+// ~0.22 ms a pass, against ~2.7 GFLOP (forward) = 0.04 ms; a serve
+// bucket of 8 such tiles with 8 clusters each moves ~531 MB, ~0.16 ms.
+// The forward reads the stack once.  Known cost of this simple design:
+// the backward reads it twice (phase 1 and phase 2), because the cluster axis does
 // not fit in a row's registers the way it fitted in the TPU's VMEM; the
 // gain tables are gathered per (row, cluster) from L1/L2.  Shared-memory
 // staging, splitting the cluster axis and TMA are later work.
@@ -76,17 +91,30 @@ struct Tile {
   const float* vis;
   const float* mask;
   int mp, nc, npad, F, rowsp;
+  int lanes;     // B
+  size_t plane;  // floats per table component plane: lanes * mp * nc * npad
 };
+
+// Move the tile's per-lane pointers (tables, visibilities, mask) to lane
+// b and return lane b's coherencies; indices and the chunk map are shared.
+template <typename CT>
+__device__ __forceinline__ const CT* to_lane(Tile& t, const CT* coh, int b) {
+  const size_t lane_rows = (size_t)b * t.mp * t.nc;
+  t.tab_re += lane_rows * t.npad;
+  t.tab_im += lane_rows * t.npad;
+  t.vis += (size_t)b * t.F * 8 * t.rowsp;
+  t.mask += (size_t)b * t.F * t.rowsp;
+  return coh + (size_t)b * t.mp * t.F * 8 * t.rowsp;
+}
 
 // Gains of (cluster-chunk row `mrow`, station `st`): 4 components re/im.
 __device__ __forceinline__ void load_gain(const Tile& t, int mrow, int st,
                                           float re[4], float im[4]) {
-  const size_t plane = (size_t)t.mp * t.nc * t.npad;
   const size_t off = (size_t)mrow * t.npad + st;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    re[k] = ld(t.tab_re + k * plane + off);
-    im[k] = ld(t.tab_im + k * plane + off);
+    re[k] = ld(t.tab_re + k * t.plane + off);
+    im[k] = ld(t.tab_im + k * t.plane + off);
   }
 }
 
@@ -167,17 +195,20 @@ __device__ void model_row(const CT* coh, const Tile& t, int f, int r, int ap,
   }
 }
 
-template <typename CT>
+template <typename CT, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 fused_cost_fwd_kernel(Tile t, const CT* __restrict__ coh,
                       const float* __restrict__ nu_ptr, int robust,
                       float* __restrict__ partial) {
   __shared__ float red[kThreads];
+  // the solo kernels (kBatched false) compile without the lane offsets
+  const int b = kBatched ? (int)blockIdx.y : 0;
+  if (kBatched) coh = to_lane(t, coh, b);
   const int r = blockIdx.x * kThreads + threadIdx.x;
   float part = 0.f;
   if (r < t.rowsp) {
     const int ap = t.ant_p[r], aq = t.ant_q[r];
-    const float nu = robust ? *nu_ptr : 1.f;
+    const float nu = robust ? nu_ptr[b] : 1.f;
     for (int f = 0; f < t.F; ++f) {
       float vr[4], vi[4];
       model_row(coh, t, f, r, ap, aq, vr, vi);
@@ -198,7 +229,9 @@ fused_cost_fwd_kernel(Tile t, const CT* __restrict__ coh,
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) partial[blockIdx.x] = red[0];
+  if (threadIdx.x == 0)
+    partial[kBatched ? (size_t)b * gridDim.x + blockIdx.x : blockIdx.x] =
+        red[0];
 }
 
 // Dynamic shared-memory layout of the backward kernel (floats then ints).
@@ -216,7 +249,7 @@ __host__ __device__ inline size_t bwd_smem_bytes(int F, int npad) {
          sizeof(int) * (4 * kThreads + (size_t)(npad + 2) + kThreads);
 }
 
-template <typename CT>
+template <typename CT, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
                       const float* __restrict__ nu_ptr, int robust,
@@ -231,6 +264,9 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
   s.seg = s.order + 2 * T;
   s.cm = s.seg + (t.npad + 2);
 
+  // the solo kernels (kBatched false) compile without the lane offsets
+  const int b = kBatched ? (int)blockIdx.y : 0;
+  if (kBatched) coh = to_lane(t, coh, b);
   const int tid = threadIdx.x;
   const int r = blockIdx.x * T + tid;
   const bool valid = r < t.rowsp;
@@ -238,7 +274,7 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
   const int aq = valid ? t.ant_q[r] : 0;
 
   // ---- phase 1: model cotangent g of this row, every channel
-  const float nu = robust ? *nu_ptr : 1.f;
+  const float nu = robust ? nu_ptr[b] : 1.f;
   for (int f = 0; f < t.F; ++f) {
     float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
     if (valid) {
@@ -290,8 +326,9 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
 
   // ---- phase 2: per cluster, per-row dJp / dJq, combined per station
   const size_t mrows = (size_t)t.mp * t.nc;
-  const size_t tabsz = mrows * t.npad;  // one component plane
-  float* part_b = partial + (size_t)blockIdx.x * 8 * tabsz;
+  const size_t tabsz = mrows * t.npad;  // one lane's component plane
+  float* part_b =
+      partial + ((size_t)b * gridDim.x + blockIdx.x) * 8 * tabsz;
   for (int m = 0; m < t.mp; ++m) {
     float djp_r[4] = {0.f, 0.f, 0.f, 0.f}, djp_i[4] = {0.f, 0.f, 0.f, 0.f};
     float djq_r[4] = {0.f, 0.f, 0.f, 0.f}, djq_i[4] = {0.f, 0.f, 0.f, 0.f};
@@ -393,21 +430,26 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
   }
 }
 
-// out[e] = sum over blocks b (in order) of partial[b][e].
+// Per lane b (grid y): sum over blocks k (in order) of partial[b][k][e],
+// e = (j, row, station) of the lane's (8, mrows, npad) table, written to
+// out (8, lanes * mrows, npad) at component j, row b * mrows + row.
 __global__ void __launch_bounds__(kThreads)
 sum_partials_kernel(const float* __restrict__ partial, int nblocks,
-                    size_t n, float* __restrict__ out) {
+                    size_t tabsz, float* __restrict__ out) {
+  const size_t n = 8 * tabsz;
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= n) return;
+  const size_t b = blockIdx.y;
+  const float* p = partial + b * nblocks * n + e;
   float acc = 0.f;
-  for (int b = 0; b < nblocks; ++b) acc += partial[(size_t)b * n + e];
-  out[e] = acc;
+  for (int k = 0; k < nblocks; ++k) acc += p[(size_t)k * n];
+  out[((e / tabsz) * gridDim.y + b) * tabsz + e % tabsz] = acc;
 }
 
 Tile make_tile(const float* tab_re, const float* tab_im, const int* ant_p,
                const int* ant_q, const int* cmap, const float* vis,
                const float* mask, int mp, int nc, int npad, int F,
-               int rowsp) {
+               int rowsp, int lanes) {
   Tile t;
   t.tab_re = tab_re;
   t.tab_im = tab_im;
@@ -421,7 +463,59 @@ Tile make_tile(const float* tab_re, const float* tab_im, const int* ant_p,
   t.npad = npad;
   t.F = F;
   t.rowsp = rowsp;
+  t.lanes = lanes;
+  t.plane = (size_t)lanes * mp * nc * npad;
   return t;
+}
+
+template <bool kBatched>
+int launch_fwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
+               int robust, float* partial, void* stream) {
+  if (t.lanes < 1 || t.lanes > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((t.rowsp + kThreads - 1) / kThreads, t.lanes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (coh_bf16)
+    fused_cost_fwd_kernel<__nv_bfloat16, kBatched><<<grid, kThreads, 0, st>>>(
+        t, static_cast<const __nv_bfloat16*>(coh), nu, robust, partial);
+  else
+    fused_cost_fwd_kernel<float, kBatched><<<grid, kThreads, 0, st>>>(
+        t, static_cast<const float*>(coh), nu, robust, partial);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT, bool kBatched>
+int launch_bwd_kernel(const Tile& t, const CT* coh, const float* nu,
+                      int robust, float* partial, cudaStream_t st) {
+  const size_t smem = bwd_smem_bytes(t.F, t.npad);
+  const int err = (int)cudaFuncSetAttribute(
+      fused_cost_bwd_kernel<CT, kBatched>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const dim3 grid((t.rowsp + kThreads - 1) / kThreads, t.lanes);
+  fused_cost_bwd_kernel<CT, kBatched><<<grid, kThreads, smem, st>>>(
+      t, coh, nu, robust, partial);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBatched>
+int launch_bwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
+               int robust, float* partial, float* out, void* stream) {
+  if (t.lanes < 1 || t.lanes > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err =
+      coh_bf16
+          ? launch_bwd_kernel<__nv_bfloat16, kBatched>(
+                t, static_cast<const __nv_bfloat16*>(coh), nu, robust,
+                partial, st)
+          : launch_bwd_kernel<float, kBatched>(
+                t, static_cast<const float*>(coh), nu, robust, partial, st);
+  if (err) return err;
+  const int nblocks = (t.rowsp + kThreads - 1) / kThreads;
+  const size_t tabsz = (size_t)t.mp * t.nc * t.npad;
+  const dim3 grid((unsigned)((8 * tabsz + kThreads - 1) / kThreads), t.lanes);
+  sum_partials_kernel<<<grid, kThreads, 0, st>>>(partial, nblocks, tabsz,
+                                                 out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -440,16 +534,8 @@ int fused_cost_fwd(const float* tab_re, const float* tab_im, const void* coh,
                    const float* nu, int mp, int nc, int npad, int F,
                    int rowsp, int robust, float* partial, void* stream) {
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, vis, mask, mp,
-                           nc, npad, F, rowsp);
-  const dim3 grid(fused_cost_num_blocks(rowsp));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (coh_bf16)
-    fused_cost_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        t, static_cast<const __nv_bfloat16*>(coh), nu, robust, partial);
-  else
-    fused_cost_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        t, static_cast<const float*>(coh), nu, robust, partial);
-  return (int)cudaGetLastError();
+                           nc, npad, F, rowsp, 1);
+  return launch_fwd<false>(t, coh, coh_bf16, nu, robust, partial, stream);
 }
 
 // Backward: partial (num_blocks, 8, mp*nc, npad) scratch, out
@@ -462,33 +548,35 @@ int fused_cost_bwd(const float* tab_re, const float* tab_im, const void* coh,
                    int rowsp, int robust, float* partial, float* out,
                    void* stream) {
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, vis, mask, mp,
-                           nc, npad, F, rowsp);
-  const int nblocks = fused_cost_num_blocks(rowsp);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = bwd_smem_bytes(F, npad);
-  int err;
-  if (coh_bf16) {
-    err = (int)cudaFuncSetAttribute(
-        fused_cost_bwd_kernel<__nv_bfloat16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    fused_cost_bwd_kernel<__nv_bfloat16><<<nblocks, kThreads, smem, st>>>(
-        t, static_cast<const __nv_bfloat16*>(coh), nu, robust, partial);
-  } else {
-    err = (int)cudaFuncSetAttribute(
-        fused_cost_bwd_kernel<float>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    fused_cost_bwd_kernel<float><<<nblocks, kThreads, smem, st>>>(
-        t, static_cast<const float*>(coh), nu, robust, partial);
-  }
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const size_t n = (size_t)8 * mp * nc * npad;
-  const unsigned sum_blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  sum_partials_kernel<<<sum_blocks, kThreads, 0, st>>>(partial, nblocks, n,
-                                                       out);
-  return (int)cudaGetLastError();
+                           nc, npad, F, rowsp, 1);
+  return launch_bwd<false>(t, coh, coh_bf16, nu, robust, partial, out,
+                           stream);
+}
+
+// Batched forward over B lanes (nc = 1): partial (B, num_blocks) f32.
+int fused_cost_batch_fwd(const float* tab_re, const float* tab_im,
+                         const void* coh, int coh_bf16, const int* ant_p,
+                         const int* ant_q, const float* vis,
+                         const float* mask, const float* nu, int lanes,
+                         int mp, int npad, int F, int rowsp, int robust,
+                         float* partial, void* stream) {
+  const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, nullptr, vis, mask,
+                           mp, 1, npad, F, rowsp, lanes);
+  return launch_fwd<true>(t, coh, coh_bf16, nu, robust, partial, stream);
+}
+
+// Batched backward: partial (B, num_blocks, 8, mp, npad) scratch, out
+// (8, B*mp, npad) = [d tab_re (4 planes); d tab_im (4 planes)], each
+// lane's d cost_b / d tables on its own rows.
+int fused_cost_batch_bwd(const float* tab_re, const float* tab_im,
+                         const void* coh, int coh_bf16, const int* ant_p,
+                         const int* ant_q, const float* vis,
+                         const float* mask, const float* nu, int lanes,
+                         int mp, int npad, int F, int rowsp, int robust,
+                         float* partial, float* out, void* stream) {
+  const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, nullptr, vis, mask,
+                           mp, 1, npad, F, rowsp, lanes);
+  return launch_bwd<true>(t, coh, coh_bf16, nu, robust, partial, out, stream);
 }
 
 }  // extern "C"

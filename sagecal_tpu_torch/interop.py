@@ -3,8 +3,10 @@
 :func:`tile_from_numpy` turns a tile given as numpy arrays (what
 ``np.asarray`` of the JAX package's ``VisData``, ``ClusterData`` and
 ``p0`` yields) into the port's :class:`VisData`, :class:`ClusterData`
-and ``p0`` on a chosen device; :func:`result_to_numpy` turns a port
-:class:`SageResult` back into numpy.  Numpy only in, numpy only out:
+and ``p0`` on a chosen device; :func:`batch_from_numpy` does the same
+for a serve bucket (a list of tiles, or one dict of stacked arrays);
+:func:`result_to_numpy` turns a port :class:`SageResult`, solo or
+batched, back into numpy.  Numpy only in, numpy only out:
 this module does not import ``sagecal_tpu``.
 """
 
@@ -47,6 +49,21 @@ def tile_from_numpy(arrays: dict, device=None):
     cdata = ClusterData(**{k: _tensor(k, arrays[k], dev)
                            for k in ("coh", "chunk_map", "nchunk")})
     return data, cdata, _tensor("p0", arrays["p0"], dev)
+
+
+def batch_from_numpy(arrays, device=None):
+    """numpy batch -> the port's stacked (VisData, ClusterData, p0) on
+    ``device``, as ``solvers/batched.py`` takes them.
+
+    ``arrays`` is a list of per-lane tile dicts (:func:`tile_from_numpy`'s
+    contract; their static fields must agree) or one such dict whose
+    arrays already carry a leading lane axis (``p0`` (B, M, nchunk_max,
+    8N))."""
+    if isinstance(arrays, dict):
+        return tile_from_numpy(arrays, device)
+    from sagecal_tpu_torch.solvers.batched import stack_lanes
+
+    return stack_lanes([tile_from_numpy(a, device) for a in arrays])
 
 
 def result_to_numpy(res: SageResult) -> dict:

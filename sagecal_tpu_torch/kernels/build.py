@@ -40,6 +40,13 @@ SIGNATURES = {
         # ... partial, out, stream
         "fused_cost_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+        # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, vis, mask, nu,
+        # lanes, mp, npad, F, rowsp, robust, partial, stream
+        "fused_cost_batch_fwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P, _P], _I),
+        # ... partial, out, stream
+        "fused_cost_batch_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     },
 }
 

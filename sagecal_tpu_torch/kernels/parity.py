@@ -1,7 +1,8 @@
 """Hold the fused-objective kernels against their plain PyTorch version.
 
 Shared by the ``cuda``-marked tests and ``chip_smoke.py``: one seeded
-random problem in the kernels' packed layout, and one comparison —
+random problem in the kernels' packed layout (solo, and batched over B
+lanes), and one comparison each —
 cost relative error, gradient error relative to the gradient's norm
 (elementwise f32 gradient checks fail on summation order alone), and
 whether two backward launches give bit-identical tables.
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.ops.rime_kernel import (
-    _nu_cell, fused_cost_bwd_cuda, fused_cost_packed,
+    _nu_cell, _nu_lanes, fused_cost_batch_bwd_cuda, fused_cost_bwd_cuda,
+    fused_cost_packed, fused_cost_packed_batch, fused_cost_packed_batch_plain,
     fused_cost_packed_hybrid, fused_cost_packed_plain, pack_gain_tables,
 )
 
@@ -138,6 +140,120 @@ def fused_cost_work(prob: CostProblem) -> dict:
     cells, rows = mp * F * rowsp, F * rowsp
     return {
         "fwd": (inputs + 4, _MODEL_FLOPS * cells + _RESIDUAL_FLOPS * rows),
+        "bwd": (inputs + tables,
+                _BWD_FLOPS * cells + 2 * _RESIDUAL_FLOPS * rows),
+    }
+
+
+# ------------------------------------------------------ batched objective
+
+
+@dataclasses.dataclass
+class BatchCostProblem:
+    tab_re: torch.Tensor  # (4, B*M, N)
+    tab_im: torch.Tensor
+    coh_ri: torch.Tensor  # (B*M, F, 8, rows)
+    ant_p: torch.Tensor  # (1, rows) shared by every lane
+    ant_q: torch.Tensor
+    vis_ri: torch.Tensor  # (B, F, 8, rows)
+    mask_p: torch.Tensor  # (B, F, rows); padded lanes all zero
+    valid: np.ndarray  # (B,) bool
+
+    @property
+    def inputs(self):
+        return (self.coh_ri, self.ant_p, self.ant_q, self.vis_ri, self.mask_p)
+
+
+def random_cost_problem_batch(B: int, M: int, N: int, F: int, rows: int,
+                              coh_dtype=torch.float32, seed: int = 0,
+                              nvalid: Optional[int] = None, drop: float = 0.1,
+                              device="cuda") -> BatchCostProblem:
+    """Seeded batch in the batched kernels' layout (no padding): B lanes
+    sharing lane 0's baseline geometry, each with its own gains,
+    coherencies, visibilities and mask.  ``nvalid`` < B zeroes the masks of the last
+    B - nvalid lanes (the ragged-lane guard)."""
+    lanes = [random_cost_problem(M, N, F, rows, seed=seed + b, drop=drop,
+                                 device="cpu") for b in range(B)]
+    valid = np.arange(B) < (B if nvalid is None else nvalid)
+    mask = torch.stack([p.mask_p for p in lanes])
+    mask = mask * torch.as_tensor(valid, dtype=torch.float32)[:, None, None]
+    to = lambda x: x.to(device).contiguous()
+    return BatchCostProblem(
+        tab_re=to(torch.cat([p.tab_re for p in lanes], dim=1)),
+        tab_im=to(torch.cat([p.tab_im for p in lanes], dim=1)),
+        coh_ri=to(torch.cat([p.coh_ri for p in lanes]).to(coh_dtype)),
+        ant_p=to(lanes[0].ant_p), ant_q=to(lanes[0].ant_q),
+        vis_ri=to(torch.stack([p.vis_ri for p in lanes])), mask_p=to(mask),
+        valid=valid,
+    )
+
+
+def lane_weights(B: int, seed: int = 0) -> torch.Tensor:
+    """Seeded per-lane upstream cotangents in [0.5, 1.5)."""
+    return torch.as_tensor(np.random.default_rng(seed).uniform(0.5, 1.5, B),
+                           dtype=torch.float32)
+
+
+def value_and_grad_batch(prob: BatchCostProblem, nu=None, weights=None,
+                         plain: bool = False):
+    """((B,) costs, d sum(w * costs) / d tab_re, ... / d tab_im) through
+    the wrapper (kernels on CUDA tensors) or the plain version."""
+    a = prob.tab_re.detach().clone().requires_grad_(True)
+    b = prob.tab_im.detach().clone().requires_grad_(True)
+    fn = fused_cost_packed_batch_plain if plain else fused_cost_packed_batch
+    costs = fn(a, b, *prob.inputs, nu)
+    w = torch.ones_like(costs) if weights is None else weights.to(costs)
+    ga, gb = torch.autograd.grad(costs, (a, b), w)
+    return costs.detach(), ga, gb
+
+
+def compare_batch_with_plain(prob: BatchCostProblem, nu=None) -> dict:
+    """Batched kernels vs plain version on the same inputs, with seeded
+    per-lane cotangents: {"cost_rel" (worst lane), "cost_abs_err",
+    "grad_rel", "grad_max_abs_err", "bitwise_repeat", "pad_lanes_zero"}
+    (the last: every padded lane's cost and table rows exactly 0)."""
+    B = prob.vis_ri.shape[0]
+    w = lane_weights(B)
+    ck, gka, gkb = value_and_grad_batch(prob, nu, w)
+    cp, gpa, gpb = value_and_grad_batch(prob, nu, w, plain=True)
+    real = torch.as_tensor(prob.valid)
+    ckd, cpd = ck.double().cpu(), cp.double().cpu()
+    gk = torch.cat([gka.reshape(-1), gkb.reshape(-1)]).double()
+    gp = torch.cat([gpa.reshape(-1), gpb.reshape(-1)]).double()
+    args = (prob.tab_re, prob.tab_im, *prob.inputs,
+            _nu_lanes(nu, B, prob.tab_re.device), nu is not None)
+    r1 = fused_cost_batch_bwd_cuda(*args)
+    r2 = fused_cost_batch_bwd_cuda(*args)
+    mp = prob.tab_re.shape[1] // B
+    pad_zero = True
+    for lane in np.flatnonzero(~prob.valid):
+        rows = slice(lane * mp, (lane + 1) * mp)
+        pad_zero &= bool(ck[lane] == 0 and (gka[:, rows] == 0).all()
+                         and (gkb[:, rows] == 0).all())
+    return {
+        "cost_rel": float(((ckd - cpd).abs() / cpd.abs())[real].max()),
+        "cost_abs_err": float((ckd - cpd).abs().max()),
+        "grad_rel": float(torch.linalg.norm(gk - gp) / torch.linalg.norm(gp)),
+        "grad_max_abs_err": float((gk - gp).abs().max()),
+        "bitwise_repeat": bool(torch.equal(r1[0], r2[0])
+                               and torch.equal(r1[1], r2[1])),
+        "pad_lanes_zero": pad_zero,
+    }
+
+
+def fused_cost_batch_work(prob: BatchCostProblem) -> dict:
+    """Bytes and operations of the batched kernels for this batch, as
+    :func:`fused_cost_work`: {"fwd": (bytes, flops), "bwd": ...}.  The
+    per-lane nu is B floats; the forward writes B costs."""
+    mrows, F, _, rowsp = prob.coh_ri.shape
+    B = prob.vis_ri.shape[0]
+    nbytes = lambda t: t.numel() * t.element_size()
+    inputs = sum(nbytes(t) for t in (prob.tab_re, prob.tab_im,
+                                     *prob.inputs)) + 4 * B
+    tables = 2 * nbytes(prob.tab_re)
+    cells, rows = mrows * F * rowsp, B * F * rowsp
+    return {
+        "fwd": (inputs + 4 * B, _MODEL_FLOPS * cells + _RESIDUAL_FLOPS * rows),
         "bwd": (inputs + tables,
                 _BWD_FLOPS * cells + 2 * _RESIDUAL_FLOPS * rows),
     }

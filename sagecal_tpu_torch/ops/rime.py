@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from sagecal_tpu_torch.core.types import complex_dtype_of
+from sagecal_tpu_torch.device import resolve_device
 
 ST_POINT = 0
 ST_GAUSSIAN = 1
@@ -79,7 +80,9 @@ class SourceBatch:
 
 def point_source_batch(ll, mm, flux, f0=150e6, dtype=torch.float32,
                        device=None) -> SourceBatch:
-    """Unpolarized point sources (testing / simulation)."""
+    """Unpolarized point sources (testing / simulation), on ``device``
+    (CUDA unless ``device="cpu"``)."""
+    device = resolve_device(device)
     ll = torch.as_tensor(ll, dtype=dtype, device=device)
     mm = torch.as_tensor(mm, dtype=dtype, device=device)
     S = ll.shape[0]

@@ -25,6 +25,10 @@ visibilities and mask are constants of the solve).
   against it.
 - :func:`fused_cost_fwd_cuda` / :func:`fused_cost_bwd_cuda` launch the
   kernels; each counts its launches in a ``launches`` attribute.
+- The batched objective of B lanes (a serve bucket), its plain version,
+  launchers and packing, counterparts of ``fused_cost_packed_batch`` and
+  kernels ``_fused_cost_batch_fwd_impl`` :1250 /
+  ``_fused_cost_batch_bwd_impl`` :1273, form the last section.
 
 Layouts are the JAX package's, with the TPU paddings made parameters
 (default: none): tables ``(4, mp*nc, npad)`` component-major f32,
@@ -154,11 +158,27 @@ def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
 # -------------------------------------------------------------- kernels
 
 
-def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                       nu_arr, cmap, nc):
-    dev = tab_re.device
+def _check_tensors(dev, want: dict):
+    """Raise ValueError unless every ``name: (tensor, shape, dtypes)`` of
+    ``want`` is a contiguous tensor on ``dev`` (CUDA) of that shape and
+    one of those dtypes."""
     if dev.type != "cuda":
         raise ValueError(f"fused cost kernels need CUDA tensors, got {dev}")
+    for name, (x, shape, dtypes) in want.items():
+        if x is None:
+            raise ValueError(f"fused cost kernels: {name} is required")
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, tables on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)}, want {shape}")
+        if x.dtype not in dtypes:
+            raise ValueError(f"{name} dtype {x.dtype}, want one of {dtypes}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
+                       nu_arr, cmap, nc):
     mp, F, eight, rowsp = coh_ri.shape
     mrows, npad = mp * nc, tab_re.shape[2]
     want = {
@@ -173,17 +193,7 @@ def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
     }
     if nc > 1:
         want["cmap"] = (cmap, (mp, rowsp), (torch.int32,))
-    for name, (x, shape, dtypes) in want.items():
-        if x is None:
-            raise ValueError(f"fused cost kernels: {name} is required")
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, tables on {dev}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)}, want {shape}")
-        if x.dtype not in dtypes:
-            raise ValueError(f"{name} dtype {x.dtype}, want one of {dtypes}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensors(tab_re.device, want)
 
 
 def _launch_args(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
@@ -301,3 +311,216 @@ def fused_cost_packed_hybrid(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
     (cluster, chunk); ``cmap`` (mp, rowsp) selects each row's chunk."""
     return _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                        nu, cmap, nc)
+
+
+# ---------------------------------------------------- batched objective
+#
+# Counterpart of the batched part of sagecal_tpu/ops/rime_kernel.py
+# (``fused_cost_packed_batch`` :1342, kernels ``_fused_cost_batch_fwd_impl``
+# :1250 and ``_fused_cost_batch_bwd_impl`` :1273): the objective of B
+# independent same-shape lanes (a serve bucket) in one launch, giving the
+# (B,) per-lane costs.  Lane-major layouts, nc = 1 only: tables
+# (4, B*mp, npad) with lane b on rows [b*mp, (b+1)*mp); coherencies
+# (B*mp, F, 8, rowsp) f32 or bf16; ``vis_ri`` (B, F, 8, rowsp); ``mask_p``
+# (B, F, rowsp); ``ant_p``/``ant_q`` (1, rowsp) shared by every lane; nu
+# per lane as a (B,) f32 device tensor.  A lane whose mask is zero (the
+# ``valid`` guard of :func:`pack_cost_inputs_batch`) costs exactly 0 and
+# gets an exactly-zero cotangent.
+
+
+def pack_gain_tables_batch(jones_b, mp=None, npad=None):
+    """(B, M, N, 2, 2) complex Jones -> lane-major component-major tables
+    (tab_re, tab_im), each (4, B*mp, npad) f32: lane b's clusters occupy
+    rows [b*mp, (b+1)*mp) of every component plane.  ``mp``/``npad``
+    default to M and N (no padding).  Differentiable."""
+    B, M, N = jones_b.shape[0], jones_b.shape[1], jones_b.shape[2]
+    mp = M if mp is None else mp
+    npad = N if npad is None else npad
+    tab = jones_b.reshape(B, M, N, 4).permute(3, 0, 1, 2)  # (4, B, M, N)
+    pads = (0, npad - N, 0, mp - M)
+    return tuple(tfn.pad(part, pads).reshape(4, B * mp, npad).float()
+                 .contiguous() for part in (tab.real, tab.imag))
+
+
+def pack_cost_inputs_batch(vis_b, mask_b, coh_b, ant_p, ant_q,
+                           row_pad: int = 1, cluster_pad: int = 1,
+                           valid=None):
+    """Pack a batch of same-shape lanes into the batched kernels' layout:
+    complex ``vis_b`` (B, F, 4, rows) -> ``vis_ri`` (B, F, 8, rowsp);
+    ``mask_b`` (B, F, rows) -> ``mask_p`` (B, F, rowsp); complex ``coh_b``
+    (B, M, F, 4, rows) -> ``coh_ri`` (B*mp, F, 8, rowsp) lane-major;
+    shared ``ant_p``/``ant_q`` (rows,) -> (1, rowsp) int32.  Rows are
+    padded to a multiple of ``row_pad`` and clusters to ``cluster_pad``
+    (both 1 = none; the JAX package's 128 and 8 give its layout, whose
+    ``chunked_rowsp`` equals ``pad_to(rows, 128)`` up to 32,768 rows).
+    ``valid`` (B,) zeroes whole lanes' masks: the ragged-lane guard.
+    Returns (vis_ri, mask_p, coh_ri, antp, antq)."""
+    lanes = [pack_predict_inputs(vis_b[b], mask_b[b], coh_b[b], ant_p, ant_q,
+                                 None, row_pad, cluster_pad)
+             for b in range(coh_b.shape[0])]
+    mask_p = torch.stack([lane[1] for lane in lanes])
+    if valid is not None:
+        keep = torch.as_tensor(valid, device=mask_p.device)
+        mask_p = mask_p * keep.to(torch.float32)[:, None, None]
+    return (torch.stack([lane[0] for lane in lanes]), mask_p.contiguous(),
+            torch.cat([lane[2] for lane in lanes]), lanes[0][3], lanes[0][4])
+
+
+def unpack_gain_grads_batch(dre, dim, B: int, M: int, N: int):
+    """Inverse of :func:`pack_gain_tables_batch` for cotangents:
+    (4, B*mp, npad) pair -> (B, M, N, 2, 2) re / im pair."""
+    mp, npad = dre.shape[1] // B, dre.shape[2]
+    return tuple(d.reshape(4, B, mp, npad)[:, :, :M, :N].permute(1, 2, 3, 0)
+                 .reshape(B, M, N, 2, 2) for d in (dre, dim))
+
+
+def _nu_lanes(nu, B: int, device) -> torch.Tensor:
+    """Per-lane nu as a (B,) f32 tensor on ``device`` (the counterpart of
+    ``_nu_rows``, :1330).  None (Gaussian) gives ones, never read; a
+    scalar is broadcast; a (B,) tensor stays on the device (no host
+    read)."""
+    if nu is None:
+        return torch.ones((B,), dtype=torch.float32, device=device)
+    nu = torch.as_tensor(nu, device=device).to(torch.float32)
+    return nu.reshape(-1).expand(B).contiguous()
+
+
+def fused_cost_packed_batch_plain(tab_re, tab_im, coh_ri, ant_p, ant_q,
+                                  vis_ri, mask_p, nu=None):
+    """The plain PyTorch version of the batched objective: lane b's cost
+    is :func:`fused_cost_packed_plain` on lane b's tables, coherencies,
+    visibilities, mask and nu (``index_select`` gathers, autograd).
+    Returns the (B,) per-lane costs."""
+    B = vis_ri.shape[0]
+    mp = tab_re.shape[1] // B
+    nus = None if nu is None else _nu_lanes(nu, B, tab_re.device)
+    return torch.stack([
+        fused_cost_packed_plain(
+            tab_re[:, b * mp:(b + 1) * mp], tab_im[:, b * mp:(b + 1) * mp],
+            coh_ri[b * mp:(b + 1) * mp], ant_p, ant_q, vis_ri[b], mask_p[b],
+            None if nus is None else nus[b])
+        for b in range(B)])
+
+
+def _check_cuda_inputs_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                             mask_p, nu_lanes):
+    B, F, _, rowsp = vis_ri.shape
+    mrows, npad = tab_re.shape[1], tab_re.shape[2]
+    if not 1 <= B <= 65535 or mrows % B:
+        raise ValueError(f"batched fused cost: B={B} lanes (1..65535) must "
+                         f"divide the {mrows} table rows")
+    coh_dtypes = (torch.float32, torch.bfloat16)
+    _check_tensors(tab_re.device, {
+        "tab_re": (tab_re, (4, mrows, npad), (torch.float32,)),
+        "tab_im": (tab_im, (4, mrows, npad), (torch.float32,)),
+        "coh_ri": (coh_ri, (mrows, F, 8, rowsp), coh_dtypes),
+        "ant_p": (ant_p, (1, rowsp), (torch.int32,)),
+        "ant_q": (ant_q, (1, rowsp), (torch.int32,)),
+        "vis_ri": (vis_ri, (B, F, 8, rowsp), (torch.float32,)),
+        "mask_p": (mask_p, (B, F, rowsp), (torch.float32,)),
+        "nu": (nu_lanes, (B,), (torch.float32,)),
+    })
+
+
+def _launch_args_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
+                       nu_lanes, robust):
+    B, F, _, rowsp = vis_ri.shape
+    return [
+        tab_re.data_ptr(), tab_im.data_ptr(), coh_ri.data_ptr(),
+        int(coh_ri.dtype == torch.bfloat16), ant_p.data_ptr(),
+        ant_q.data_ptr(), vis_ri.data_ptr(), mask_p.data_ptr(),
+        nu_lanes.data_ptr(), B, tab_re.shape[1] // B, tab_re.shape[2], F,
+        rowsp, int(robust),
+    ]
+
+
+def fused_cost_batch_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                              mask_p, nu_lanes, robust: bool):
+    """Launch the batched forward kernel: (B, n_blocks) f32 partial
+    costs (each lane's row sum is its cost).  Replaces
+    ``_fused_cost_batch_fwd_impl``."""
+    from sagecal_tpu_torch.kernels.build import load
+
+    _check_cuda_inputs_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                             mask_p, nu_lanes)
+    lib = load("fused_cost")
+    B = vis_ri.shape[0]
+    nb = lib.fused_cost_num_blocks(vis_ri.shape[3])
+    partial = torch.empty((B, nb), dtype=torch.float32, device=tab_re.device)
+    args = _launch_args_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                              mask_p, nu_lanes, robust)
+    stream = torch.cuda.current_stream(tab_re.device).cuda_stream
+    _raise_on(lib.fused_cost_batch_fwd(*args, partial.data_ptr(), stream),
+              "fused_cost_batch_fwd")
+    fused_cost_batch_fwd_cuda.launches += 1
+    return partial
+
+
+def fused_cost_batch_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                              mask_p, nu_lanes, robust: bool):
+    """Launch the batched backward kernels: (d tab_re, d tab_im), each
+    (4, B*mp, npad), lane b's d cost_b / d tables on its own rows;
+    bit-identical on repeat.  Replaces ``_fused_cost_batch_bwd_impl``."""
+    from sagecal_tpu_torch.kernels.build import load
+
+    _check_cuda_inputs_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                             mask_p, nu_lanes)
+    lib = load("fused_cost")
+    dev = tab_re.device
+    nb = lib.fused_cost_num_blocks(vis_ri.shape[3])
+    n = 8 * tab_re.shape[1] * tab_re.shape[2]  # = B * (8 * mp * npad)
+    partial = torch.empty((nb * n,), dtype=torch.float32, device=dev)
+    out = torch.empty((8,) + tuple(tab_re.shape[1:]), dtype=torch.float32,
+                      device=dev)
+    args = _launch_args_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                              mask_p, nu_lanes, robust)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.fused_cost_batch_bwd(*args, partial.data_ptr(),
+                                       out.data_ptr(), stream),
+              "fused_cost_batch_bwd")
+    fused_cost_batch_bwd_cuda.launches += 1
+    return out[:4], out[4:]
+
+
+fused_cost_batch_fwd_cuda.launches = 0
+fused_cost_batch_bwd_cuda.launches = 0
+
+
+class _FusedCostBatch(torch.autograd.Function):
+    """The batched objective on CUDA: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
+                nu_lanes, robust):
+        ctx.save_for_backward(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                              mask_p, nu_lanes)
+        ctx.robust = robust
+        return fused_cost_batch_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q,
+                                         vis_ri, mask_p, nu_lanes,
+                                         robust).sum(1)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        saved = ctx.saved_tensors
+        dre, dim = fused_cost_batch_bwd_cuda(*saved, ctx.robust)
+        # the kernel gives d cost_b / d tables; the per-lane upstream
+        # cotangent (B,) scales each lane's row block here (:1318-1324)
+        B = saved[5].shape[0]
+        scale = gbar.repeat_interleave(dre.shape[1] // B)[None, :, None]
+        return (scale * dre, scale * dim) + (None,) * 7
+
+
+def fused_cost_packed_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                            mask_p, nu=None):
+    """Per-lane calibration objectives (B,) for a batch of lanes (section
+    comment above), ``nu`` None for the Gaussian cost or a float / (B,)
+    tensor for the Student's-t cost.  Differentiable with respect to
+    ``tab_re``/``tab_im`` only.  CUDA tensors launch the batched kernels
+    (or raise); CPU tensors, and only those, take the plain version."""
+    if not tab_re.is_cuda:
+        return fused_cost_packed_batch_plain(tab_re, tab_im, coh_ri, ant_p,
+                                             ant_q, vis_ri, mask_p, nu)
+    nu_lanes = _nu_lanes(nu, vis_ri.shape[0], tab_re.device)
+    return _FusedCostBatch.apply(
+        tab_re.contiguous(), tab_im.contiguous(), coh_ri, ant_p, ant_q,
+        vis_ri, mask_p, nu_lanes, nu is not None)

@@ -15,7 +15,9 @@ reference's ``lbfgs_fit`` / ``lbfgs_fit_minibatch``:
   running dtype).
 
 The JAX ``while_loop``/``cond`` become Python control flow reading one
-scalar per decision.
+scalar per decision.  :func:`lbfgs_fit_batched` runs B independent fits
+in lock-step (one batched cost and gradient call per step, per-lane
+masks), the driver of the batched fused objective.
 """
 
 from __future__ import annotations
@@ -186,4 +188,217 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
         done = (not step_ok) or (not grad_ok)
         ck += 1
     return LBFGSResult(p=x, memory=memory, cost=f, gradnorm=gradnrm,
+                       iterations=ck)
+
+
+# ------------------------------------------------- batched (lock-step) LBFGS
+
+
+def _bdot(a, b):
+    """Per-lane dot: (B, n) x (B, n) -> (B,)."""
+    return (a * b).sum(-1)
+
+
+def _bnorm(a):
+    return torch.sqrt(_bdot(a, a))
+
+
+def batched_memory(B: int, n: int, M: int = 7, dtype=torch.float32,
+                   device=None) -> LBFGSMemory:
+    """Fresh :class:`LBFGSMemory` whose every field carries a leading
+    batch axis ``B``: ``s``/``y`` (B, M, n), ``rho`` (B, M), and
+    ``vacant``/``nfilled``/``niter`` as (B,) int64 tensors — the per-lane
+    curvature store of :func:`lbfgs_fit_batched`."""
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    zi = torch.zeros((B,), dtype=torch.int64, device=device)
+    return LBFGSMemory(s=z(B, M, n), y=z(B, M, n), rho=z(B, M),
+                       vacant=zi, nfilled=zi.clone(), niter=zi.clone(),
+                       running_avg=z(B, n), running_avg_sq=z(B, n))
+
+
+def _two_loop_direction_batched(g, mem: LBFGSMemory):
+    """Per-lane -H_k g: the two-loop recursion with a leading batch axis
+    on ``g`` (B, n) and on every memory field, all lanes in lock-step
+    over the M slots (newest first, then oldest first); each lane's
+    circular slots are gathered by index and its unfilled slots masked."""
+    B, M, _ = mem.s.shape
+    k = torch.arange(M, device=g.device)
+    newest_first = torch.remainder(mem.vacant[:, None] - 1 - k[None, :], M)
+    valid = k[None, :] < mem.nfilled[:, None]  # (B, M)
+    s = torch.gather(mem.s, 1, newest_first[:, :, None].expand_as(mem.s))
+    y = torch.gather(mem.y, 1, newest_first[:, :, None].expand_as(mem.y))
+    rho = torch.gather(mem.rho, 1, newest_first)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    q, alphas = g, []
+    for i in range(M):
+        a = torch.where(valid[:, i], rho[:, i] * _bdot(s[:, i], q), zero)
+        q = q - a[:, None] * y[:, i]
+        alphas.append(a)
+    y0, s0 = y[:, 0], s[:, 0]
+    yy = _bdot(y0, y0)
+    gamma = torch.where((mem.nfilled > 0) & (yy > 0.0),
+                        _bdot(s0, y0) / torch.clamp(yy, min=1e-30),
+                        torch.ones_like(yy))
+    r = gamma[:, None] * q
+    for i in reversed(range(M)):  # oldest -> newest
+        beta = torch.where(valid[:, i], rho[:, i] * _bdot(y[:, i], r), zero)
+        r = r + s[:, i] * torch.where(valid[:, i], alphas[i] - beta,
+                                      zero)[:, None]
+    return -r
+
+
+def _armijo_bad_batched(f_new, fold, alpha, product):
+    return torch.isnan(f_new) | (f_new > fold + alpha * product)
+
+
+def _armijo_rest_batched(cost_fn, x, p, a0, fold, f_a0, product, live):
+    """Per-lane Armijo halving: each live lane halves while its own test
+    fails (at most 15 times), frozen once it passes; the loop runs while
+    any live lane still fails (one host read per round).  Returns
+    (alpha (B,), halvings (B,))."""
+    ci = torch.zeros(a0.shape, dtype=torch.int64, device=a0.device)
+    alpha, fnew = a0, f_a0
+    while True:
+        bad = live & (ci < 15) & _armijo_bad_batched(fnew, fold, alpha,
+                                                     product)
+        if not bool(bad.any()):
+            return alpha, ci
+        alpha = torch.where(bad, alpha * 0.5, alpha)
+        with torch.no_grad():
+            f1 = cost_fn(x + alpha[:, None] * p)
+        ci = torch.where(bad, ci + 1, ci)
+        fnew = torch.where(bad, f1, fnew)
+
+
+def _batched_value_and_grad(cost_fn):
+    """(B, n) -> ((B,) costs, (B, n) gradient): the pullback of ones,
+    per-lane exact because lane b's cost depends on row b only."""
+    def vg(x):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            costs = cost_fn(xg)
+            (g,) = torch.autograd.grad(costs, xg, torch.ones_like(costs))
+        return costs.detach(), g
+    return vg
+
+
+def _where_lanes(mask, a, b):
+    """Per-lane select of two (B, ...) tensors by a (B,) mask."""
+    return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+
+def _select_memory(mask, a: LBFGSMemory, b: LBFGSMemory) -> LBFGSMemory:
+    return LBFGSMemory(**{f.name: _where_lanes(mask, getattr(a, f.name),
+                                               getattr(b, f.name))
+                          for f in dataclasses.fields(LBFGSMemory)})
+
+
+@true_f32
+def lbfgs_fit_batched(cost_fn: Callable, p0, itmax: int = 50, M: int = 7,
+                      memory: Optional[LBFGSMemory] = None,
+                      minibatch: bool = False,
+                      vg_fn: Optional[Callable] = None) -> LBFGSResult:
+    """``B`` independent LBFGS fits advancing in lock-step, so that every
+    cost and gradient evaluation is one batched call (counterpart of the
+    reference's ``lbfgs_fit_batched``, the driver of the batched fused
+    objective).
+
+    ``cost_fn``: (B, n) -> (B,) per-lane costs; lane b's cost must depend
+    on row b only.  ``p0``: (B, n).  ``memory``: per-lane
+    :class:`LBFGSMemory` (:func:`batched_memory`).  Per lane the
+    predicates are those of :func:`lbfgs_fit`: backtracking only when a
+    live lane fails its Armijo test (halvings applied only to failing
+    lanes, at most 15); the store / curvature / step / gradient tests and
+    ``y += 1e-6 s`` when ||g|| > 1e-3 per lane; a lane whose own test
+    ends it keeps its whole carry while the others run.  The loop reads
+    ``any(active)`` and ``any(need_bt)`` from the device once each per
+    iteration.  ``iterations`` of the result is a (B,) tensor."""
+    B, n = p0.shape
+    if vg_fn is None:
+        vg_fn = _batched_value_and_grad(cost_fn)
+    if memory is None:
+        memory = batched_memory(B, n, M, p0.dtype, p0.device)
+    else:
+        memory = dataclasses.replace(memory)
+    x = p0.detach()
+    f, g = vg_fn(x)
+    gradnrm = _bnorm(g)
+
+    if minibatch:
+        batch_changed = memory.niter > 0
+        g_min_rold = g - memory.running_avg
+        ravg = memory.running_avg + g_min_rold / (memory.niter + 1).to(
+            p0.dtype)[:, None]
+        ravg_sq = memory.running_avg_sq + g_min_rold * (g - ravg)
+        memory.running_avg = _where_lanes(batch_changed, ravg,
+                                          memory.running_avg)
+        memory.running_avg_sq = _where_lanes(batch_changed, ravg_sq,
+                                             memory.running_avg_sq)
+        alphabar = torch.where(
+            batch_changed,
+            10.0 / (1.0 + memory.running_avg_sq.abs().sum(-1)
+                    / (torch.clamp(memory.niter, min=1).to(p0.dtype)
+                       * torch.clamp(gradnrm, min=1e-30))),
+            torch.ones_like(gradnrm))
+    else:
+        batch_changed = torch.zeros((B,), dtype=torch.bool, device=x.device)
+        alphabar = torch.ones((B,), dtype=p0.dtype, device=x.device)
+
+    eps = torch.finfo(p0.dtype).eps
+    zero = torch.zeros((), dtype=p0.dtype, device=x.device)
+    reg = torch.full((), 1e-6, dtype=p0.dtype, device=x.device)
+    ck = torch.zeros((B,), dtype=torch.int64, device=x.device)
+    done = ~(torch.isfinite(gradnrm) & (gradnrm > CLM_STOP_THRESH))
+    mem = memory
+    nslots = mem.s.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    while True:
+        active = (ck < itmax) & ~done
+        if not bool(active.any()):
+            break
+        pk = _two_loop_direction_batched(g, mem)
+        a0 = alphabar
+        f_t, g_t = vg_fn(x + a0[:, None] * pk)
+        product = ARMIJO_C * _bdot(pk, g)
+        need_bt = active & _armijo_bad_batched(f_t, f, a0, product)
+        if bool(need_bt.any()):
+            alphak, _ = _armijo_rest_batched(cost_fn, x, pk, a0, f, f_t,
+                                             product, need_bt)
+            fb, gb = vg_fn(x + alphak[:, None] * pk)
+            f1 = torch.where(need_bt, fb, f_t)
+            g1 = _where_lanes(need_bt, gb, g_t)
+        else:
+            alphak, f1, g1 = a0, f_t, g_t
+        step_ok = torch.isfinite(alphak) & (alphak.abs() >= CLM_EPSILON)
+        x1 = x + alphak[:, None] * pk
+        gradnrm1 = _bnorm(g1)
+        grad_ok = torch.isfinite(gradnrm1) & (gradnrm1 > CLM_STOP_THRESH)
+
+        sk = x1 - x
+        yk = g1 - g
+        yk = yk + torch.where(gradnrm1 > 1e-3, reg, zero)[:, None] * sk
+        ys = _bdot(yk, sk)
+        curv_ok = ys > eps * _bnorm(yk) * _bnorm(sk)
+        store = step_ok & ~(batch_changed & (ck == 0)) & curv_ok
+        rho_k = torch.where(curv_ok, 1.0 / torch.clamp(ys, min=1e-38), zero)
+        slot = mem.vacant
+        stored = dataclasses.replace(
+            mem, s=mem.s.clone(), y=mem.y.clone(), rho=mem.rho.clone(),
+            vacant=torch.remainder(slot + 1, nslots),
+            nfilled=torch.clamp(mem.nfilled + 1, max=nslots))
+        stored.s[bidx, slot] = sk
+        stored.y[bidx, slot] = yk
+        stored.rho[bidx, slot] = rho_k
+        mem1 = _select_memory(store, stored, mem)
+        mem1.niter = mem.niter + 1
+        # frozen lanes keep their whole carry
+        mem = _select_memory(active, mem1, mem)
+        adv = active & step_ok
+        x = _where_lanes(adv, x1, x)
+        f = torch.where(adv, f1, f)
+        g = _where_lanes(adv, g1, g)
+        gradnrm = torch.where(adv, gradnrm1, gradnrm)
+        done = torch.where(active, ~step_ok | ~grad_ok, done)
+        ck = torch.where(active, ck + 1, ck)
+    return LBFGSResult(p=x, memory=mem, cost=f, gradnorm=gradnrm,
                        iterations=ck)

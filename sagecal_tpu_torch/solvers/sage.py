@@ -15,6 +15,12 @@ previous cost reduction, alternating with equal allocation when
 LM-family modes, the mean Student's-t nu carried to the joint LBFGS;
 OS acceleration on the earlier passes; res_0/res_1 bookkeeping.
 
+:func:`sagefit_batched_fused` solves a serve bucket of B same-shape
+tiles: the EM passes lane by lane, then one joint LBFGS of all lanes in
+lock-step on the batched fused-objective kernels
+(:func:`_make_fused_joint_cost_batch`); ``solvers/batched.py`` routes a
+bucket to it.
+
 Ported solver modes: 0 (OS-LM + LBFGS), 1 (LM + LBFGS), 2 (robust LM +
 robust LBFGS), 3 (OS-LM, OS robust LM, robust LBFGS: the CLI default).
 Modes 4-6 (RTR/NSD), ``param_bound > 0`` (LBFGS-B), ``collect_telemetry``
@@ -28,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,7 +45,7 @@ from sagecal_tpu_torch.ops.rime import (
     SourceBatch, _check_point_only, _predict_coherencies, pad_source_batch,
     predict_coherencies,
 )
-from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit
+from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit, lbfgs_fit_batched
 from sagecal_tpu_torch.solvers.lm import LMConfig, lm_solve, os_lm_solve
 from sagecal_tpu_torch.solvers.robust import robust_lm_solve
 from sagecal_tpu_torch.utils.precision import true_f32
@@ -103,15 +109,28 @@ class ClusterData:
 
 @dataclasses.dataclass
 class SageResult:
+    """One tile's result; a batched solve gives the same fields with a
+    leading lane axis B on every tensor and a list of B iteration
+    counts."""
+
     p: torch.Tensor  # (M, nchunk_max, 8N) solved parameters
     res_0: torch.Tensor  # initial residual norm / n
     res_1: torch.Tensor  # final residual norm / n
     mean_nu: torch.Tensor
     diverged: torch.Tensor  # bool, res_1 > res_0
     # wall seconds of the EM passes and the joint LBFGS, each ending in a
-    # device synchronize; LBFGS iterations taken
+    # device synchronize; LBFGS iterations taken (per lane when batched)
     phase_seconds: dict = dataclasses.field(default_factory=dict)
-    lbfgs_iterations: int = 0
+    lbfgs_iterations: Union[int, List[int]] = 0
+
+
+def lane_of(obj, b: int):
+    """Lane ``b`` of a batched :class:`VisData` or :class:`ClusterData`
+    (every tensor field indexed on its leading axis; static fields
+    kept)."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name)[b] for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
 def _chunk_maps(data: VisData, nchunks: Sequence[int]) -> torch.Tensor:
@@ -222,6 +241,22 @@ def _res_norm(res, mask, nreal):
     return torch.sqrt((r.abs() ** 2).sum()) / nreal
 
 
+def _fused_cost_prologue(vis, ant_p, ant_q, n8, coh_dtype):
+    """The fused kernels' input rules, shared by the solo and batched
+    joint costs: f32 data, ``coh_dtype`` "f32" or "bf16", stations within
+    the ``n8 // 8`` columns of the gain tables.  Returns the dtype the
+    packed coherency stack is stored in."""
+    if vis.real.dtype != torch.float32:
+        raise ValueError(
+            "the fused joint cost requires float32 data (the kernels "
+            "compute in f32); use the torch-op path for f64")
+    if coh_dtype not in ("f32", "bf16"):
+        raise ValueError(f"coh_dtype must be 'f32' or 'bf16', got {coh_dtype!r}")
+    if int(torch.maximum(ant_p.max(), ant_q.max())) >= n8 // 8:
+        raise ValueError("station index out of range of the gain tables")
+    return torch.bfloat16 if coh_dtype == "bf16" else torch.float32
+
+
 def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
                            coh_dtype="f32"):
     """Joint-LBFGS cost through the fused-objective kernels: predict,
@@ -235,20 +270,12 @@ def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
         pack_predict_inputs,
     )
 
-    if data.vis.real.dtype != torch.float32:
-        raise ValueError(
-            "use_fused_predict requires float32 data (the fused kernels "
-            "compute in f32); use the torch-op path for f64")
-    if coh_dtype not in ("f32", "bf16"):
-        raise ValueError(f"coh_dtype must be 'f32' or 'bf16', got {coh_dtype!r}")
-    N = n8 // 8
-    if int(torch.maximum(data.ant_p.max(), data.ant_q.max())) >= N:
-        raise ValueError("station index out of range of the gain tables")
+    coh_store = _fused_cost_prologue(data.vis, data.ant_p, data.ant_q, n8,
+                                     coh_dtype)
     vis_ri, mask_p, coh_ri, antp, antq, cmap = pack_predict_inputs(
         data.vis, data.mask, cdata.coh, data.ant_p, data.ant_q,
         cdata.chunk_map if nchunk_max > 1 else None)
-    if coh_dtype == "bf16":
-        coh_ri = coh_ri.to(torch.bfloat16)
+    coh_ri = coh_ri.to(coh_store)
     nu_c = mean_nu if robust else None
 
     def cost_fn(pflat):
@@ -261,6 +288,37 @@ def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
         tre, tim = pack_gain_tables(jones[:, 0], M)
         return fused_cost_packed(tre, tim, coh_ri, antp, antq, vis_ri, mask_p,
                                  nu_c)
+
+    return cost_fn
+
+
+def _make_fused_joint_cost_batch(data, cdata, B, M, n8, robust, mean_nu_b,
+                                 coh_dtype="f32", valid=None):
+    """Batched joint-LBFGS cost: the fused objective of B lanes in one
+    launch of the batched kernels (``fused_cost_packed_batch``), (B, M*8N)
+    parameters -> (B,) per-lane costs.  ``data``/``cdata`` carry a leading
+    lane axis; every lane shares lane 0's ``ant_p``/``ant_q`` (the router
+    checks it).  ``mean_nu_b``: (B,) per-lane nu on the device.
+    ``valid``: optional (B,) lane mask zeroing padded lanes' cost and
+    cotangent.  f32 data only; ``coh_dtype="bf16"`` stores the coherency
+    stack as bfloat16 (f32 math)."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_packed_batch, pack_cost_inputs_batch,
+        pack_gain_tables_batch,
+    )
+
+    ant_p, ant_q = data.ant_p[0], data.ant_q[0]
+    coh_store = _fused_cost_prologue(data.vis, ant_p, ant_q, n8, coh_dtype)
+    vis_ri, mask_p, coh_ri, antp, antq = pack_cost_inputs_batch(
+        data.vis, data.mask, cdata.coh, ant_p, ant_q, valid=valid)
+    coh_ri = coh_ri.to(coh_store)
+    nu_c = mean_nu_b if robust else None
+
+    def cost_fn(pflat_b):
+        jones = params_to_jones(pflat_b.reshape(B, M, n8).float())
+        tre, tim = pack_gain_tables_batch(jones)
+        return fused_cost_packed_batch(tre, tim, coh_ri, antp, antq, vis_ri,
+                                       mask_p, nu_c)
 
     return cost_fn
 
@@ -412,3 +470,77 @@ def solve_tile(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageC
     if isinstance(p0, np.ndarray):
         p0 = torch.from_numpy(p0)
     return sagefit(data, cdata, p0, config, generator, device=device)
+
+
+@true_f32
+def sagefit_batched_fused(data: VisData, cdata: ClusterData, p0,
+                          config: SageConfig = SageConfig(),
+                          generators: Optional[Sequence[torch.Generator]] = None,
+                          valid=None, device=None) -> SageResult:
+    """B independent tile solves whose joint LBFGS runs all lanes in
+    lock-step on the batched fused-objective kernels.
+
+    ``data``/``cdata``: every tensor field carries a leading lane axis B,
+    and all lanes share one baseline geometry (``choose_batched_path``
+    checks it); ``p0`` is (B, M, 1, 8N).  ``generators``: one CPU
+    ``torch.Generator`` per lane (``derive_lane_generators``; default
+    lanes 0..B-1 of seed 0).  ``valid``: optional (B,) lane mask; padded
+    lanes run the EM phase on their replicated data, but their mask is
+    zeroed in the LBFGS pack, so they add exactly zero cost and
+    cotangent there.
+
+    The EM phase is :func:`_em_phase` run lane by lane, each with its own
+    generator (the reference vmaps it; the port's EM reads the host,
+    which ``torch.func.vmap`` cannot trace).  The joint LBFGS is
+    :func:`lbfgs_fit_batched` over ``fused_cost_packed_batch``: one
+    batched kernel launch per cost or gradient for the whole bucket.
+    ``_finalize`` runs per lane.  Returns a :class:`SageResult` with a
+    leading B on every tensor, ``phase_seconds`` {"em", "lbfgs"} and the
+    per-lane LBFGS iteration counts."""
+    B, M, nchunk_max, n8 = p0.shape
+    if nchunk_max != 1:
+        raise ValueError(
+            "sagefit_batched_fused requires nchunk_max == 1 (the batched "
+            "kernel has no hybrid-chunk selection); use the per-lane path")
+    if config.param_bound > 0.0 or config.collect_telemetry:
+        raise ValueError(
+            "batched fused path supports neither param_bound nor "
+            "telemetry traces; use the per-lane path")
+    if config.collect_quality:
+        raise NotImplementedError(
+            "collect_quality is not ported to sagecal_tpu_torch yet "
+            "(ROADMAP.md Queue A, A3)")
+    _check_supported(config)
+    dev = resolve_device(device)
+    data = data if data.device == dev else data.to(dev)
+    cdata = cdata if cdata.coh.device == dev else cdata.to(dev)
+    p0 = torch.as_tensor(p0).to(dev)
+    if generators is None:
+        from sagecal_tpu_torch.solvers.batched import derive_lane_generators
+        generators = derive_lane_generators(0, range(B))
+    robust = config.solver_mode in _ROBUST_MODES
+    lanes = [(lane_of(data, b), lane_of(cdata, b)) for b in range(B)]
+
+    t0 = _clock(dev)
+    em = [_em_phase(d, c, p0[b], config, generators[b])
+          for b, (d, c) in enumerate(lanes)]
+    p_b = torch.stack([e[0] for e in em])
+    mean_nu_b = torch.stack([e[1] for e in em])
+    t1 = _clock(dev)
+    iterations = [0] * B
+    if config.max_lbfgs > 0:
+        cost_fn = _make_fused_joint_cost_batch(
+            data, cdata, B, M, n8, robust, mean_nu_b, config.coh_dtype, valid)
+        fit = lbfgs_fit_batched(cost_fn, p_b.reshape(B, -1),
+                                itmax=config.max_lbfgs, M=config.lbfgs_m)
+        p_b = fit.p.reshape(B, M, nchunk_max, n8).to(p0.dtype)
+        iterations = fit.iterations.tolist()
+    t2 = _clock(dev)
+    fins = [_finalize(d, c, p_b[b], em[b][2], mean_nu_b[b])
+            for b, (d, c) in enumerate(lanes)]
+    return SageResult(
+        p=p_b, res_0=torch.stack([r.res_0 for r in fins]),
+        res_1=torch.stack([r.res_1 for r in fins]), mean_nu=mean_nu_b,
+        diverged=torch.stack([r.diverged for r in fins]),
+        phase_seconds={"em": t1 - t0, "lbfgs": t2 - t1},
+        lbfgs_iterations=iterations)

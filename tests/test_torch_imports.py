@@ -21,6 +21,9 @@ MODULES = (
     "sagecal_tpu_torch.io.skymodel", "sagecal_tpu_torch.io.solutions",
     "sagecal_tpu_torch.io.simulate", "sagecal_tpu_torch.interop",
     "sagecal_tpu_torch.kernels.build", "sagecal_tpu_torch.kernels.parity",
+    "sagecal_tpu_torch.solvers.batched", "sagecal_tpu_torch.solvers.lbfgs",
+    "sagecal_tpu_torch.serve", "sagecal_tpu_torch.serve.bucket",
+    "sagecal_tpu_torch.tools.reproducibility",
 )
 
 

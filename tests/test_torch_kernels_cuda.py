@@ -1,4 +1,5 @@
-"""Fused-objective CUDA kernels vs their plain PyTorch version, on the card.
+"""Fused-objective CUDA kernels (solo and batched) vs their plain PyTorch
+version, on the card.
 
 Marked ``cuda``: each test needs an NVIDIA GPU and skips without one
 (decided in the fixture, never at import).  This file imports torch
@@ -11,7 +12,9 @@ Tolerances: cost relative error <= 1e-5 and gradient error <= 1e-5 of
 the gradient's norm — both versions compute in f32 and differ only in
 summation order (cluster sum per row, block tree, then block sum in the
 kernels; torch's reductions in the plain version).  The backward must be
-bit-identical on repeat: it uses no floating-point atomics.
+bit-identical on repeat: it uses no floating-point atomics.  A batched
+lane whose mask is zero (a ragged bucket's pad) must give exactly zero
+cost and cotangent.
 """
 
 import pytest
@@ -90,3 +93,70 @@ def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
         fused_cost_packed(prob.tab_re, prob.tab_im, prob.coh_ri,
                           prob.ant_p.cpu(), prob.ant_q, prob.vis_ri,
                           prob.mask_p)
+
+
+# ------------------------------------------- batched objective (#5, #6)
+
+BATCH_MID = dict(B=5, M=8, N=30, F=2, rows=435 * 20)  # 8,700 rows a lane
+
+
+@pytest.mark.parametrize("nvalid", [None, 3], ids=["full", "ragged"])
+@pytest.mark.parametrize("coh_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nu", [None, 5.0, "per-lane"],
+                         ids=["gaussian", "robust", "robust-per-lane"])
+def test_batched_kernels_match_plain(cuda, nu, coh_dtype, nvalid):
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_batch_with_plain, random_cost_problem_batch,
+    )
+
+    prob = random_cost_problem_batch(**BATCH_MID, coh_dtype=coh_dtype,
+                                     seed=2, nvalid=nvalid, device=cuda)
+    if nu == "per-lane":
+        nu = torch.linspace(2.0, 12.0, BATCH_MID["B"], device=cuda)
+    out = compare_batch_with_plain(prob, nu)
+    assert out["cost_rel"] <= 1e-5, out
+    assert out["grad_rel"] <= 1e-5, out
+    assert out["bitwise_repeat"], out
+    assert out["pad_lanes_zero"], out
+
+
+def test_batched_kernels_count_launches_and_solo_ones_do_not(cuda):
+    from sagecal_tpu_torch.kernels.parity import (
+        random_cost_problem_batch, value_and_grad_batch,
+    )
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    prob = random_cost_problem_batch(3, 3, 7, 2, 333, device=cuda)
+    counts = lambda: (rk.fused_cost_batch_fwd_cuda.launches,
+                      rk.fused_cost_batch_bwd_cuda.launches,
+                      rk.fused_cost_fwd_cuda.launches,
+                      rk.fused_cost_bwd_cuda.launches)
+    before = counts()
+    value_and_grad_batch(prob, 5.0)
+    assert counts() == (before[0] + 1, before[1] + 1) + before[2:]
+    value_and_grad_batch(prob, 5.0, plain=True)
+    assert counts() == (before[0] + 1, before[1] + 1) + before[2:]
+
+
+def test_batched_wrapper_rejects_bad_inputs_on_cuda(cuda):
+    from sagecal_tpu_torch.kernels.parity import random_cost_problem_batch
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_batch_fwd_cuda, fused_cost_packed_batch,
+    )
+
+    prob = random_cost_problem_batch(3, 3, 7, 2, 333, device=cuda)
+    coh, antp, antq, vis, mask = prob.inputs
+    bad = [
+        (coh.double(), antp, antq, vis, mask),  # dtype
+        (coh, antp.long(), antq, vis, mask),  # index dtype
+        (coh[:6], antp, antq, vis, mask),  # cluster rows vs tables
+        (coh, antp, antq, vis[:2], mask),  # lanes vs tables
+        (coh, antp.cpu(), antq, vis, mask),  # device
+    ]
+    for inputs in bad:
+        with pytest.raises(ValueError):
+            fused_cost_packed_batch(prob.tab_re, prob.tab_im, *inputs, 5.0)
+    with pytest.raises(ValueError):  # nu must be one f32 per lane
+        fused_cost_batch_fwd_cuda(prob.tab_re, prob.tab_im, *prob.inputs,
+                                  torch.ones(2, device=cuda), True)

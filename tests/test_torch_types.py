@@ -117,6 +117,19 @@ def test_extended_sources_refuse_not_silently_point():
         tr.predict_coherencies(u, u, u, f, src)
 
 
+def test_point_source_batch_without_device_raises_when_cuda_absent(
+        monkeypatch):
+    """Like every other entry point, no device means CUDA: without a
+    card the call raises and names the explicit CPU request."""
+    from sagecal_tpu_torch.ops import rime as tr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tr.point_source_batch([0.0], [0.0], [1.0])
+    src = tr.point_source_batch([0.0], [0.0], [1.0], device="cpu")
+    assert src.ll.device.type == "cpu" and src.sI0.device.type == "cpu"
+
+
 @pytest.mark.parametrize("sizes", [[1, 1, 1], [1, 9, 1]],
                          ids=["batched", "per-cluster"])
 def test_build_cluster_data_matches_jax(sizes):
