@@ -13,26 +13,41 @@ each printing lines of its own; any failure exits non-zero:
 2. build    ``nvcc`` builds every kernel source of
             ``sagecal_tpu_torch/csrc`` (one process per source, started
             together) and prints the ptxas register/shared-memory report;
-3. parity   the fused-objective kernels against their plain PyTorch
-            version at the north-star tile (62 stations, 100 clusters,
-            60 timeslots x 2 channels = 113,460 rows): Gaussian and
-            robust (nu = 5), nc 1 and 2, f32 and bf16 coherencies; cost
-            relative error <= 1e-5, gradient error <= 1e-5 of its norm,
-            backward bit-identical on repeat;
+3. parity   the fused kernels against their plain PyTorch versions at
+            the north-star tile (62 stations, 100 clusters, 60 timeslots
+            x 2 channels = 113,460 rows), nc 1 and 2, f32 and bf16
+            coherencies: the objective #3/#4 Gaussian and robust (nu = 5),
+            cost relative error <= 1e-5, gradient error <= 1e-5 of its
+            norm; the predict #1/#2 under a random upstream cotangent,
+            model error <= 1e-5 of its max abs, gain cotangent <= 1e-5 of
+            its norm, and FusedSkyGradientError raised for a coherency
+            gradient; every backward bit-identical on repeat;
 4. main     the port's main path from files, as a user runs it: an LSM
             sky of 100 point clusters and its cluster file -> ``load_sky``
             -> ``make_visdata`` -> ``corrupt_and_observe`` (noise 1e-3) ->
             ``build_cluster_data`` -> ``solve_tile`` (mode
             SM_OSLM_OSRLM_RLBFGS, fused joint cost) -> ``append_solutions``
-            and ``read_solutions``; then ``solve_tile`` again with the
-            torch-op joint cost.  Checks res_1 < res_0, fused and
-            unfused res_1 within 5e-3, and that both kernels launched
-            during the fused run (launch counts set to 0 just before it);
-5. times    phase wall times, each kernel's time from CUDA events over
-            many launches beside its bound and the plain version's time,
-            and peak device memory, each beside the card's name and
+            and ``read_solutions``; ``solve_tile`` again, then twice with
+            the torch-op joint cost, all in torch's default mode.  Checks
+            res_1 < res_0, each route's two runs bit-identical in ``p`` and
+            res_1, fused and torch-op res_1 within 5e-3, and that both
+            objective kernels launched during the first fused run (launch
+            counts set to 0 just before it); then the residual step on the
+            solution: ``calculate_residuals`` launches kernel #1 exactly
+            once, its ``residual_norm`` is res_1 within 1e-5, it matches
+            ``vis - predict_full_model`` within 1e-5 of that's max abs,
+            ``simulate_visibilities`` modes 1-3 agree with their
+            definitions and the ``ccid_index`` correction runs;
+5. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
+            fused predict, the composed robust cost on it, its gradient
+            and a 20-iteration LBFGS that must lower the cost; kernels #1
+            and #2 must launch (counts set to 0 just before); then
+            ``kdiag.py``'s three rungs for kernel #1;
+6. times    phase wall times, each solo kernel's time from CUDA events
+            over many launches beside its bound and the plain version's
+            time, and peak device memory, each beside the card's name and
             power limit;
-6. serve    the batched serve solve of one bucket of 8 requests, each a
+7. serve    the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
@@ -44,13 +59,11 @@ each printing lines of its own; any failure exits non-zero:
             (mode 3, 3 EM passes, max_iter 2, max_lbfgs 10; every lane
             res_1 < res_0; both batched kernels launched, the solo ones
             not; counts set to 0 just before); batched vs sequential
-            ``solve_tile`` solves/s; then, with torch's deterministic
-            algorithms on (the EM's ``index_add_`` scatters otherwise
-            use atomics, and two runs of one route differ by more than
-            the bar), the same bucket on the per-lane torch-op route
-            (res_1 within 5e-3) and a ragged bucket of 6 padded to 8
-            (real lanes within 1e-5 of the full bucket's); the batched
-            kernels' times beside their bounds.
+            ``solve_tile`` solves/s; a second fused_batch run bit-identical
+            to the first; the same bucket on the per-lane torch-op route
+            (res_1 within 5e-3) and a ragged bucket of 6 padded to 8 (real
+            lanes within 1e-5 of the full bucket's), all in default mode;
+            the batched kernels' times beside their bounds.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``,
 the line before the last is nvidia-smi's ``name, power.limit``, and the
@@ -76,12 +89,9 @@ NSTATIONS, NCLUSTERS, TILESZ, NCHAN = 62, 100, 60, 2
 ROWS = NSTATIONS * (NSTATIONS - 1) // 2 * TILESZ  # 113,460
 RA0, DEC0 = math.pi / 6, 0.9
 
-# published peaks of one H100 SXM (NVIDIA data sheet, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
 COST_TOL = 1e-5
 GRAD_TOL = 1e-5
+MODEL_TOL = 1e-5  # predict parity and the residual step, relative
 RES1_TOL = 5e-3
 
 # serve bucket: the reference's ServeConfig.batch default, requests of
@@ -92,9 +102,11 @@ SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 3, 2, 10
 SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
 
 SOURCE = "sagecal_tpu_torch/csrc/fused_cost.cu"
-KERNELS = ("fused_cost_fwd", "fused_cost_bwd", "fused_cost_batch_fwd",
-           "fused_cost_batch_bwd")
+KERNELS = ("fused_predict_fwd", "fused_predict_bwd", "fused_cost_fwd",
+           "fused_cost_bwd", "fused_cost_batch_fwd", "fused_cost_batch_bwd")
 REPLACES = {
+    "fused_predict_fwd": "sagecal_tpu/ops/rime_kernel.py:265",
+    "fused_predict_bwd": "sagecal_tpu/ops/rime_kernel.py:407",
     "fused_cost_fwd": "sagecal_tpu/ops/rime_kernel.py:842",
     "fused_cost_bwd": "sagecal_tpu/ops/rime_kernel.py:877",
     "fused_cost_batch_fwd": "sagecal_tpu/ops/rime_kernel.py:1250",
@@ -145,31 +157,45 @@ def phase_build():
 
 def phase_parity():
     from sagecal_tpu_torch.kernels.parity import (
-        compare_with_plain, random_cost_problem,
+        compare_predict_with_plain, compare_with_plain, random_cost_problem,
     )
 
-    worst = {"fused_cost_fwd": 0.0, "fused_cost_bwd": 0.0}
-    for nu, nc, dt in itertools.product((None, 5.0), (1, 2),
-                                        (torch.float32, torch.bfloat16)):
+    worst = {k: 0.0 for k in KERNELS[:4]}
+    for nc, dt in itertools.product((1, 2), (torch.float32, torch.bfloat16)):
         prob = random_cost_problem(NCLUSTERS, NSTATIONS, NCHAN, ROWS, nc=nc,
                                    coh_dtype=dt, seed=1, device="cuda")
-        out = compare_with_plain(prob, nu)
-        del prob
-        torch.cuda.empty_cache()
-        case = (f"{'robust' if nu else 'gaussian'} nc={nc} "
-                f"coh={str(dt).split('.')[-1]}")
-        ok = (out["cost_rel"] <= COST_TOL and out["grad_rel"] <= GRAD_TOL
-              and out["bitwise_repeat"])
-        print(f"[parity] {case}: cost_rel={out['cost_rel']:.3e} "
+        case = f"nc={nc} coh={str(dt).split('.')[-1]}"
+        out = compare_predict_with_plain(prob, seed=5)
+        ok = (out["model_rel"] <= MODEL_TOL and out["grad_rel"] <= GRAD_TOL
+              and out["bitwise_repeat"] and out["sky_error_raised"])
+        print(f"[parity] predict {case}: model_rel={out['model_rel']:.3e} "
               f"grad_rel={out['grad_rel']:.3e} "
               f"bitwise_repeat={out['bitwise_repeat']} "
+              f"sky_error_raised={out['sky_error_raised']} "
               f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
-            fail(f"kernel parity {case}: {out}")
-        worst["fused_cost_fwd"] = max(worst["fused_cost_fwd"],
-                                      out["cost_abs_err"])
-        worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
-                                      out["grad_max_abs_err"])
+            fail(f"predict kernel parity {case}: {out}")
+        worst["fused_predict_fwd"] = max(worst["fused_predict_fwd"],
+                                         out["model_max_abs_err"])
+        worst["fused_predict_bwd"] = max(worst["fused_predict_bwd"],
+                                         out["grad_max_abs_err"])
+        for nu in (None, 5.0):
+            out = compare_with_plain(prob, nu)
+            ok = (out["cost_rel"] <= COST_TOL and out["grad_rel"] <= GRAD_TOL
+                  and out["bitwise_repeat"])
+            print(f"[parity] objective {'robust' if nu else 'gaussian'} "
+                  f"{case}: cost_rel={out['cost_rel']:.3e} "
+                  f"grad_rel={out['grad_rel']:.3e} "
+                  f"bitwise_repeat={out['bitwise_repeat']} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                fail(f"objective kernel parity {case} nu={nu}: {out}")
+            worst["fused_cost_fwd"] = max(worst["fused_cost_fwd"],
+                                          out["cost_abs_err"])
+            worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
+                                          out["grad_max_abs_err"])
+        del prob
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -230,7 +256,12 @@ def main_config(args):
                       max_lbfgs=args.max_lbfgs)
 
 
-def phase_main(args, dirname: str):
+def bitwise(a, b) -> bool:
+    """Two solves gave the same bits in ``p`` and res_1."""
+    return bool(torch.equal(a.p, b.p) and torch.equal(a.res_1, b.res_1))
+
+
+def phase_main(args, dirname: str, data, cdata, p0):
     from sagecal_tpu_torch.core.types import params_to_jones
     from sagecal_tpu_torch.io.solutions import (
         append_solutions, read_solutions, write_header,
@@ -240,9 +271,7 @@ def phase_main(args, dirname: str):
     )
     from sagecal_tpu_torch.solvers.sage import solve_tile
 
-    data, cdata, p0, coh_s = main_tile(dirname)
     cfg = main_config(args)
-
     torch.cuda.reset_peak_memory_stats()
     fused_cost_fwd_cuda.launches = 0
     fused_cost_bwd_cuda.launches = 0
@@ -260,7 +289,11 @@ def phase_main(args, dirname: str):
     meta, back = read_solutions(sol)
     sol_err = float(np.abs(back[0] - jones).max() / np.abs(jones).max())
 
-    res_u = solve_tile(data, cdata, p0, cfg.replace(use_fused_predict=False))
+    res2 = solve_tile(data, cdata, p0, cfg)
+    unfused = cfg.replace(use_fused_predict=False)
+    res_u = solve_tile(data, cdata, p0, unfused)
+    res_u2 = solve_tile(data, cdata, p0, unfused)
+    same_fused, same_u = bitwise(res, res2), bitwise(res_u, res_u2)
 
     r0, r1, r1u = float(res.res_0), float(res.res_1), float(res_u.res_1)
     floor = 1e-3 / math.sqrt(ROWS * NCHAN * 8)  # res of the noise alone
@@ -273,7 +306,9 @@ def phase_main(args, dirname: str):
           f"(noise alone would give {floor:.3e})", flush=True)
     print(f"[main] torch-op joint cost: res_0={float(res_u.res_0):.6e} "
           f"res_1={r1u:.6e} rel diff fused vs torch-op="
-          f"{abs(r1 - r1u) / r1u:.3e}", flush=True)
+          f"{abs(r1 - r1u) / r1u:.3e} (bar {RES1_TOL})", flush=True)
+    print(f"[main] default mode, two runs each: fused bit-identical "
+          f"{same_fused}, torch-op bit-identical {same_u}", flush=True)
     print(f"[main] solutions file: {meta['nclus_eff']} columns x "
           f"{meta['nstations']} stations, max rel diff on read-back "
           f"{sol_err:.2e}", flush=True)
@@ -289,80 +324,159 @@ def phase_main(args, dirname: str):
         fail("torch-op run did not reduce the residual")
     if abs(r1 - r1u) / r1u > RES1_TOL:
         fail(f"fused vs torch-op res_1 differ by more than {RES1_TOL}")
+    if not (same_fused and same_u):
+        fail("two default-mode runs of one route gave different bits")
     if back.shape != (1, NCLUSTERS, NSTATIONS, 2, 2) or sol_err > 1e-5:
         fail("solutions file did not read back")
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    residual = phase_residual(data, cdata, res)
     return {
         "launches": launches, "lbfgs_iterations": res.lbfgs_iterations,
-        "coherencies_s": coh_s, "em_s": res.phase_seconds["em"],
+        "em_s": [res.phase_seconds["em"], res2.phase_seconds["em"]],
         "lbfgs_s": res.phase_seconds["lbfgs"],
-        "em_s_torch_op": res_u.phase_seconds["em"],
+        "em_s_torch_op": [res_u.phase_seconds["em"],
+                          res_u2.phase_seconds["em"]],
         "lbfgs_s_torch_op": res_u.phase_seconds["lbfgs"],
-        "peak_bytes": peak, "nu": float(res.mean_nu),
+        "peak_bytes": peak, "nu": float(res.mean_nu), "res_0": r0,
+        "res_1": r1, "res_1_torch_op": r1u, "bitwise_fused": same_fused,
+        "bitwise_torch_op": same_u, "residual": residual,
     }
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def phase_residual(data, cdata, res):
+    """The residual step on the main path's solution (module doc, phase 4)."""
+    from sagecal_tpu_torch.ops.residual import (
+        SIMUL_ADD, SIMUL_ONLY, SIMUL_SUB, apply_correction,
+        calculate_residuals, correction_jones, residual_norm,
+        simulate_visibilities,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import fused_predict_fwd_cuda
+    from sagecal_tpu_torch.solvers.sage import predict_full_model
+
+    p = res.p
+    fused_predict_fwd_cuda.launches = 0
+    t = sync_clock()
+    xres = calculate_residuals(data, cdata, p)
+    secs = sync_clock() - t
+    launches = fused_predict_fwd_cuda.launches
+    rnorm = float(residual_norm(xres, data.mask))
+    norm_rel = abs(rnorm - float(res.res_1)) / float(res.res_1)
+    with torch.no_grad():
+        ref = data.vis - predict_full_model(p, cdata, data)
+    err = float((xres - ref).abs().max())
+    ref_max = float(ref.abs().max())
+    model = simulate_visibilities(data, cdata, p, SIMUL_ONLY)
+    modes_ok = bool(
+        torch.equal(simulate_visibilities(data, cdata, p, SIMUL_ADD),
+                    data.vis + model)
+        and torch.equal(simulate_visibilities(data, cdata, p, SIMUL_SUB),
+                        xres)
+        and torch.equal(data.vis - model, xres))
+    corrected = calculate_residuals(data, cdata, p, ccid_index=0)
+    want = apply_correction(xres, correction_jones(p[0]), data.ant_p,
+                            data.ant_q, cdata.chunk_map[0])
+    corr_err = float((corrected - want).abs().max() / want.abs().max())
+    print(f"[residual] calculate_residuals: {secs * 1e3:.3f} ms, kernel #1 "
+          f"launches {launches}; residual_norm {rnorm:.6e} vs res_1 "
+          f"{float(res.res_1):.6e} (rel {norm_rel:.2e}); max abs error vs "
+          f"vis - predict_full_model {err:.3e} of max abs {ref_max:.3e}",
+          flush=True)
+    print(f"[residual] simulate_visibilities modes 1-3 agree with their "
+          f"definitions: {modes_ok}; ccid_index=0 correction rel error "
+          f"{corr_err:.2e}, finite {bool(torch.isfinite(corrected).all())}",
+          flush=True)
+    if launches != 1:
+        fail(f"calculate_residuals launched kernel #1 {launches} times")
+    if not norm_rel <= MODEL_TOL:
+        fail(f"residual_norm differs from res_1 by {norm_rel}")
+    if not err <= MODEL_TOL * ref_max:
+        fail(f"residual differs from vis - predict_full_model by {err}")
+    if not modes_ok:
+        fail("simulate_visibilities modes disagree with their definitions")
+    if not (torch.isfinite(corrected).all() and corr_err <= MODEL_TOL):
+        fail(f"ccid_index correction: rel error {corr_err}")
+    return {"seconds": secs, "launches": launches, "norm_rel": norm_rel,
+            "max_abs_err": err, "ref_max_abs": ref_max,
+            "correction_rel": corr_err}
+
+
+def phase_predict(data, cdata, p0, card: str):
+    """The predict path: ``tools/profile_kernel``'s profile (phase 5)."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_predict_bwd_cuda, fused_predict_fwd_cuda,
+    )
+    from sagecal_tpu_torch.tools.profile_kernel import profile
+
+    fused_predict_fwd_cuda.launches = 0
+    fused_predict_bwd_cuda.launches = 0
+    out = profile(data, cdata, p0.to(data.device), card)
+    out["launches"] = {"fused_predict_fwd": fused_predict_fwd_cuda.launches,
+                       "fused_predict_bwd": fused_predict_bwd_cuda.launches}
+    print(f"[predict] launches on the predict path: {out['launches']}",
+          flush=True)
+    for k, n in out["launches"].items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the predict path")
+    if not out["lbfgs_cost1"] < out["lbfgs_cost0"]:
+        fail("the LBFGS on the composed predict cost did not lower it")
+    return out
 
 
 def phase_times(nu: float):
     """Kernel and plain-version times at the main path's shapes (nc = 1,
-    f32 coherencies, robust cost as the default mode runs it)."""
+    f32 coherencies; the objective robust as the default mode runs it,
+    the predict under a random upstream cotangent)."""
     from sagecal_tpu_torch.kernels.parity import (
-        fused_cost_work, random_cost_problem,
+        fused_cost_work, fused_predict_work, model_cotangent,
+        random_cost_problem, roofline,
     )
     from sagecal_tpu_torch.ops.rime_kernel import (
         _nu_cell, fused_cost_bwd_cuda, fused_cost_fwd_cuda,
-        fused_cost_packed_plain,
+        fused_cost_packed_plain, fused_predict_bwd_cuda,
+        fused_predict_fwd_cuda, fused_predict_packed_plain,
     )
+    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms
 
     prob = random_cost_problem(NCLUSTERS, NSTATIONS, NCHAN, ROWS, nc=1,
                                seed=2, device="cuda")
     nu_arr = _nu_cell(nu, "cuda")
     args = (prob.tab_re, prob.tab_im, *prob.inputs, nu_arr, True)
+    model_args = (prob.coh_ri, prob.ant_p, prob.ant_q)
+    g = model_cotangent(prob, seed=6)
     out = {
+        "fused_predict_fwd": {"ms": cuda_ms(lambda: fused_predict_fwd_cuda(
+            prob.tab_re, prob.tab_im, *model_args), 50)},
+        "fused_predict_bwd": {"ms": cuda_ms(lambda: fused_predict_bwd_cuda(
+            prob.tab_re, prob.tab_im, *model_args, g), 20)},
         "fused_cost_fwd": {"ms": cuda_ms(lambda: fused_cost_fwd_cuda(*args),
                                          50)},
         "fused_cost_bwd": {"ms": cuda_ms(lambda: fused_cost_bwd_cuda(*args),
                                          20)},
     }
     with torch.no_grad():
+        out["fused_predict_fwd"]["plain_ms"] = cuda_ms(
+            lambda: fused_predict_packed_plain(prob.tab_re, prob.tab_im,
+                                               *model_args), 10)
         out["fused_cost_fwd"]["plain_ms"] = cuda_ms(
             lambda: fused_cost_packed_plain(prob.tab_re, prob.tab_im,
                                             *prob.inputs, nu_arr), 10)
     a = prob.tab_re.clone().requires_grad_(True)
     b = prob.tab_im.clone().requires_grad_(True)
+    model = fused_predict_packed_plain(a, b, *model_args)
+    out["fused_predict_bwd"]["plain_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(model, (a, b), g, retain_graph=True), 10)
+    del model
     cost = fused_cost_packed_plain(a, b, *prob.inputs, nu_arr)
     out["fused_cost_bwd"]["plain_ms"] = cuda_ms(
         lambda: torch.autograd.grad(cost, (a, b), retain_graph=True), 10)
-    work = fused_cost_work(prob)
-    for name, key in (("fused_cost_fwd", "fwd"), ("fused_cost_bwd", "bwd")):
-        out[name].update(bound(*work[key]))
+    work = {"fused_cost": fused_cost_work(prob),
+            "fused_predict": fused_predict_work(prob)}
+    for name in out:
+        family, key = name.rsplit("_", 1)
+        out[name].update(roofline(*work[family][key]))
     return out
-
-
-def bound(nbytes: int, flops: int) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the f32 peak, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
 
 
 def serve_parity():
@@ -472,7 +586,7 @@ def serve_solve(reqs, idx, config, valid=None, fused=True):
 
 
 def phase_serve(dirname: str):
-    """The batched serve solve of one bucket (module doc, phase 6)."""
+    """The batched serve solve of one bucket (module doc, phase 7)."""
     from sagecal_tpu_torch.serve import bucket_of, pad_indices
     from sagecal_tpu_torch.solvers.batched import (
         choose_batched_path, derive_lane_generators, stack_lanes,
@@ -533,55 +647,45 @@ def phase_serve(dirname: str):
         solve_tile(*reqs[b], cfg, gens[b])
     wall_seq = sync_clock() - t0
     res2, wall2 = solve(lanes)
-    spread = rel_max(res2.res_1, res.res_1)
+    same = bitwise(res, res2)
     print(f"[serve] solves/s: fused_batch {SERVE_B / wall:.4f} and "
           f"{SERVE_B / wall2:.4f}, sequential solve_tile (fused) "
           f"{SERVE_B / wall_seq:.4f}; batched/sequential "
           f"{wall_seq / wall:.3f} and {wall_seq / wall2:.3f}", flush=True)
-    print(f"[serve] two default-mode fused_batch runs: worst res_1 rel diff "
-          f"{spread:.3e} (the EM's index_add_ scatters use atomics)",
-          flush=True)
+    print(f"[serve] two default-mode fused_batch runs bit-identical in p and "
+          f"res_1: {same}", flush=True)
+    if not same:
+        fail("two default-mode fused_batch runs gave different bits")
 
-    # The route comparisons need the EM to give both routes the same
-    # start: with torch's deterministic algorithms the EM is
-    # bit-reproducible, so what differs is only the joint cost's route.
-    torch.use_deterministic_algorithms(True)
-    try:
-        res_d, wall_d = solve(lanes)
-        res_u, wall_u = solve(lanes,
-                              config=cfg.replace(use_fused_predict=False),
-                              fused=False)
-        idx, valid = pad_indices(SERVE_RAGGED, SERVE_B)
-        res_r, wall_r = solve(idx, valid=valid)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    rel_u = rel_max(res_d.res_1, res_u.res_1)
-    print(f"[serve] deterministic mode: fused_batch {wall_d:.3f} s, "
-          f"per-lane torch-op route {wall_u:.3f} s, worst res_1 rel diff "
-          f"{rel_u:.3e} (bar {RES1_TOL})", flush=True)
+    res_u, wall_u = solve(lanes, config=cfg.replace(use_fused_predict=False),
+                          fused=False)
+    idx, valid = pad_indices(SERVE_RAGGED, SERVE_B)
+    res_r, wall_r = solve(idx, valid=valid)
+    rel_u = rel_max(res.res_1, res_u.res_1)
+    print(f"[serve] per-lane torch-op route {wall_u:.3f} s, worst res_1 rel "
+          f"diff vs fused_batch {rel_u:.3e} (bar {RES1_TOL})", flush=True)
     if not rel_u <= RES1_TOL:
         fail(f"fused_batch vs torch-op res_1 differ by {rel_u}")
     real = slice(0, SERVE_RAGGED)
-    rel_r = rel_max(res_r.res_1[real], res_d.res_1[real])
-    bitwise = bool(torch.equal(res_r.res_1[real], res_d.res_1[real])
-                   and torch.equal(res_r.p[real], res_d.p[real]))
+    rel_r = rel_max(res_r.res_1[real], res.res_1[real])
+    ragged_bits = bool(torch.equal(res_r.res_1[real], res.res_1[real])
+                       and torch.equal(res_r.p[real], res.p[real]))
     print(f"[serve] ragged bucket {SERVE_RAGGED} padded to {SERVE_B} "
           f"(lanes {idx}): {wall_r:.3f} s, worst real-lane res_1 rel diff "
           f"vs the full bucket {rel_r:.3e} (bar 1e-5), bit-identical "
-          f"{bitwise}", flush=True)
+          f"{ragged_bits}", flush=True)
     if not rel_r <= 1e-5:
         fail(f"ragged bucket's real lanes differ by {rel_r}")
     return {
         "bucket": bucket.short(), "route": path, "launches": launches,
         "lbfgs_iterations": res.lbfgs_iterations,
-        "em_s": res.phase_seconds["em"], "lbfgs_s": res.phase_seconds["lbfgs"],
+        "em_s": [res.phase_seconds["em"], res2.phase_seconds["em"]],
+        "lbfgs_s": res.phase_seconds["lbfgs"],
         "wall_s": [wall, wall2], "sequential_s": wall_seq,
-        "default_mode_spread": spread, "deterministic_s": wall_d,
-        "torch_op_s": wall_u, "ragged_s": wall_r, "peak_bytes": peak,
-        "res_0": r0.tolist(), "res_1": r1.tolist(),
-        "res_1_deterministic": res_d.res_1.tolist(),
+        "bitwise_repeat": same, "torch_op_s": wall_u, "ragged_s": wall_r,
+        "peak_bytes": peak, "res_0": r0.tolist(), "res_1": r1.tolist(),
         "res_1_torch_op": res_u.res_1.tolist(), "torch_op_rel": rel_u,
-        "ragged_rel": rel_r, "ragged_bitwise": bitwise,
+        "ragged_rel": rel_r, "ragged_bitwise": ragged_bits,
         "requests_s": build_s,
     }
 
@@ -596,12 +700,13 @@ def serve_times():
     """Batched kernel and plain-version times at the serve shapes (f32
     coherencies, robust cost with per-lane nu, as mode 3 runs it)."""
     from sagecal_tpu_torch.kernels.parity import (
-        fused_cost_batch_work, random_cost_problem_batch,
+        fused_cost_batch_work, random_cost_problem_batch, roofline,
     )
     from sagecal_tpu_torch.ops.rime_kernel import (
         _nu_lanes, fused_cost_batch_bwd_cuda, fused_cost_batch_fwd_cuda,
         fused_cost_packed_batch_plain,
     )
+    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms
 
     prob = random_cost_problem_batch(SERVE_B, SERVE_CLUSTERS, NSTATIONS,
                                      NCHAN, ROWS, seed=4, device="cuda")
@@ -627,7 +732,7 @@ def serve_times():
     work = fused_cost_batch_work(prob)
     for name, key in (("fused_cost_batch_fwd", "fwd"),
                       ("fused_cost_batch_bwd", "bwd")):
-        out[name].update(bound(*work[key]))
+        out[name].update(roofline(*work[key]))
     return out
 
 
@@ -641,6 +746,14 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def print_times(card: str, times: dict, launches: dict, path: str):
+    for k, v in times.items():
+        print(f"[times] ({card}) {k}: {v['ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}: {v['bytes']} B, "
+              f"{v['flops']} flop), plain {v['plain_ms']:.4f} ms, "
+              f"{launches[k]} launches on {path[k]}", flush=True)
+
+
 def main():
     args = parse_args()
     t_start = time.perf_counter()
@@ -649,43 +762,43 @@ def main():
     phase_build()
     worst = phase_parity()
     with tempfile.TemporaryDirectory() as d:
-        main_out = phase_main(args, d)
+        data, cdata, p0, coh_s = main_tile(d)
+        main_out = phase_main(args, d, data, cdata, p0)
+    pred_out = phase_predict(data, cdata, p0, card)
+    del data, cdata
+    torch.cuda.empty_cache()
     times = phase_times(main_out["nu"])
 
-    print(f"[times] ({card}) coherencies {main_out['coherencies_s']:.3f} s, "
-          f"EM {main_out['em_s']:.3f} s, joint LBFGS (fused) "
-          f"{main_out['lbfgs_s']:.3f} s over {main_out['lbfgs_iterations']} "
-          f"iterations, joint LBFGS (torch-op) "
-          f"{main_out['lbfgs_s_torch_op']:.3f} s", flush=True)
+    em, em_u = main_out["em_s"], main_out["em_s_torch_op"]
+    print(f"[times] ({card}) coherencies {coh_s:.3f} s, EM {em[0]:.3f} and "
+          f"{em[1]:.3f} s (fused runs), {em_u[0]:.3f} and {em_u[1]:.3f} s "
+          f"(torch-op runs), joint LBFGS (fused) {main_out['lbfgs_s']:.3f} s "
+          f"over {main_out['lbfgs_iterations']} iterations, joint LBFGS "
+          f"(torch-op) {main_out['lbfgs_s_torch_op']:.3f} s", flush=True)
     print(f"[times] ({card}) peak device memory of the fused solve "
           f"{main_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
-    for k, v in times.items():
-        print(f"[times] ({card}) {k}: {v['ms']:.4f} ms, bound "
-              f"{v['bound_ms']:.4f} ms ({v['bound_by']}: {v['bytes']} B, "
-              f"{v['flops']} flop), plain {v['plain_ms']:.4f} ms, "
-              f"{main_out['launches'][k] / max(main_out['lbfgs_iterations'], 1):.2f}"
-              f" launches per LBFGS iteration", flush=True)
+    launches = dict(main_out["launches"])
+    launches.update(pred_out["launches"])
+    path = {k: f"the predict path ({pred_out['lbfgs_iterations']} LBFGS "
+               f"iterations)" for k in KERNELS[:2]}
+    path.update({k: f"the main path ({main_out['lbfgs_iterations']} LBFGS "
+                    f"iterations)" for k in KERNELS[2:4]})
+    print_times(card, times, launches, path)
 
     worst.update(serve_parity())
     with tempfile.TemporaryDirectory() as d:
         serve_out = phase_serve(d)
     serve_t = serve_times()
     times.update(serve_t)
-    iters = max(max(serve_out["lbfgs_iterations"]), 1)
-    print(f"[times] ({card}) serve bucket: EM {serve_out['em_s']:.3f} s, "
-          f"joint LBFGS (fused_batch) {serve_out['lbfgs_s']:.3f} s over "
+    print(f"[times] ({card}) serve bucket: EM {serve_out['em_s'][0]:.3f} and "
+          f"{serve_out['em_s'][1]:.3f} s, joint LBFGS (fused_batch) "
+          f"{serve_out['lbfgs_s']:.3f} s over "
           f"{serve_out['lbfgs_iterations']} iterations, peak device memory "
           f"{serve_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
-    for k, v in serve_t.items():
-        print(f"[times] ({card}) {k}: {v['ms']:.4f} ms, bound "
-              f"{v['bound_ms']:.4f} ms ({v['bound_by']}: {v['bytes']} B, "
-              f"{v['flops']} flop), plain {v['plain_ms']:.4f} ms, "
-              f"{serve_out['launches'][k] / iters:.2f} launches per LBFGS "
-              f"iteration", flush=True)
+    launches.update({k: serve_out["launches"][k] for k in KERNELS[4:]})
+    path.update({k: "the serve path" for k in KERNELS[4:]})
+    print_times(card, serve_t, launches, path)
 
-    launches = dict(main_out["launches"])
-    launches.update({k: serve_out["launches"][k]
-                     for k in ("fused_cost_batch_fwd", "fused_cost_batch_bwd")})
     kernels = []
     for k in KERNELS:
         kernels.append({
@@ -698,8 +811,9 @@ def main():
         })
     if args.json_out:
         with open(args.json_out, "w") as fh:
-            json.dump({"card": card, "main": main_out, "serve": serve_out,
-                       "times": times, "kernels": kernels,
+            json.dump({"card": card, "main": main_out, "predict": pred_out,
+                       "serve": serve_out, "times": times, "kernels": kernels,
+                       "coherencies_s": coh_s,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

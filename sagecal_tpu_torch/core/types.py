@@ -13,7 +13,9 @@ the two packages' arrays compare directly:
 
 The JAX package gathered per-row gains with a one-hot matmul because
 gathers were slow on the TPU; here :func:`gather_jones_rows` indexes the
-table directly, which is exact and cheap on a GPU.
+table directly, which is exact and cheap on a GPU, and its backward sums
+in a fixed order (``core/segment.py``), so gradients through it are
+bit-identical on repeat on CUDA.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from sagecal_tpu_torch.core.segment import gather_rows
 
 # Speed of light (m/s); u, v, w are stored in seconds (metres / c).
 C0 = 299792458.0
@@ -136,7 +140,7 @@ def gather_jones_rows(jones: torch.Tensor, ant: torch.Tensor,
         N = jones.shape[1]
         tab = jones.reshape(-1, 4)
         idx = chunk_map * N + ant if chunk_map is not None else ant
-    v = tab.index_select(0, idx)  # (rows, 4) row-major [00, 01, 10, 11]
+    v = gather_rows(tab, idx)  # (rows, 4) row-major [00, 01, 10, 11]
     return v[:, 0], v[:, 1], v[:, 2], v[:, 3]
 
 
@@ -145,8 +149,15 @@ def corrupt_flat(jones, coh, ant_p, ant_q, chunk_map=None):
 
     jones: (N, 2, 2) or (nchunk, N, 2, 2) complex; coh: (..., F, 4, rows);
     ant_p/ant_q/chunk_map: (rows,).  Returns (..., F, 4, rows)."""
-    pa, pb, pc, pd = gather_jones_rows(jones, ant_p, chunk_map)
-    qa, qb, qc, qd = gather_jones_rows(jones, ant_q, chunk_map)
+    return corrupt_flat_2sided(jones, jones, coh, ant_p, ant_q, chunk_map)
+
+
+def corrupt_flat_2sided(jones_p, jones_q, coh, ant_p, ant_q, chunk_map=None):
+    """V = G_p C H_q^H with distinct left and right Jones stacks (the
+    residual correction uses G = H = inv(J_ccid)); shapes as
+    :func:`corrupt_flat`."""
+    pa, pb, pc, pd = gather_jones_rows(jones_p, ant_p, chunk_map)
+    qa, qb, qc, qd = gather_jones_rows(jones_q, ant_q, chunk_map)
     qa, qb, qc, qd = qa.conj(), qb.conj(), qc.conj(), qd.conj()
     c00 = coh[..., 0, :]
     c01 = coh[..., 1, :]

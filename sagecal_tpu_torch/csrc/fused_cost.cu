@@ -1,9 +1,14 @@
-// Fused calibration objective for NVIDIA Hopper (sm_90a): forward and
-// backward of the joint-LBFGS cost, solo and batched over B lanes,
-// hand-written CUDA with a plain C interface (loaded with ctypes by
+// Fused RIME predict and calibration objective for NVIDIA Hopper
+// (sm_90a): forward and backward of the joint-LBFGS cost, solo and batched
+// over B lanes, and of the full-model predict, hand-written CUDA with a
+// plain C interface (loaded with ctypes by
 // sagecal_tpu_torch/kernels/build.py).
 //
 // Replaces the Pallas kernels of sagecal_tpu/ops/rime_kernel.py:
+//   predict forward  _fused_predict_fwd_impl (:265; bodies _fwd_kernel
+//            :220, _fwd_kernel_hybrid :228, _fwd_store :209)
+//   predict backward _fused_predict_bwd_impl (:407; bodies _bwd_kernel
+//            :385, _bwd_kernel_hybrid :395, _g_from_ref :294)
 //   forward  _fused_cost_fwd_impl (:842; bodies _obj_fwd_kernel :768,
 //            _obj_fwd_kernel_hybrid :779, _obj_partial :738)
 //   backward _fused_cost_bwd_impl (:877; bodies _obj_bwd_kernel :815,
@@ -20,7 +25,10 @@
 //   cost   = sum |d|^2   (Gaussian)  or  sum log1p(|d|^2 / nu)  (robust)
 // and the backward gives d(cost)/d(tab_re, tab_im) for the component-major
 // gain tables tab[k][m*nc + c][station] (k = row-major 2x2 component).
-// The upstream scalar cotangent is applied by the caller.
+// The upstream scalar cotangent is applied by the caller.  The predict
+// pair computes V itself, written out as (F, 8, rowsp) f32 planes, and
+// the backward of sum(g * V) for an upstream model cotangent g of that
+// shape (the caller's cotangent is g: no scalar is applied).
 //
 // Layouts (the JAX package's packed layouts, padding optional):
 //   tab_re/tab_im (4, mp*nc, npad) f32; coh (mp, F, 8, rowsp) f32 or bf16,
@@ -56,18 +64,22 @@
 // counting sort of the 2*256 (row, role) keys) — into a per-(lane, block)
 // partial table.  A second kernel sums each lane's partial tables over
 // blocks in block order.  Two calls on the same inputs give bit-identical
-// tables.  Scratch: B x n_blocks x 8 x mp*nc x npad floats.
+// tables.  Scratch: B x n_blocks x 8 x mp*nc x npad floats.  The predict
+// backward is the same phase 2 after a phase 1 that loads g from memory.
 //
 // Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32 non-tensor):
 // bytes.  At the north-star tile (62 stations, 100 clusters, 60 x 2)
 // the coherency stack is 100 x 2 x 8 x 113,460 x 4 B = 726 MB in f32,
 // ~0.22 ms a pass, against ~2.7 GFLOP (forward) = 0.04 ms; a serve
 // bucket of 8 such tiles with 8 clusters each moves ~531 MB, ~0.16 ms.
-// The forward reads the stack once.  Known cost of this simple design:
-// the backward reads it twice (phase 1 and phase 2), because the cluster axis does
-// not fit in a row's registers the way it fitted in the TPU's VMEM; the
-// gain tables are gathered per (row, cluster) from L1/L2.  Shared-memory
-// staging, splitting the cluster axis and TMA are later work.
+// The forwards read the stack once; the predict forward adds the model,
+// 7.3 MB (bound ~0.219 ms at the north-star tile).  Known cost of this
+// simple design: the objective backward reads the stack twice (phase 1
+// and phase 2), because the cluster axis does not fit in a row's
+// registers the way it fitted in the TPU's VMEM; the predict backward
+// reads it once.  The gain tables are gathered per (row, cluster) from
+// L1/L2.  Shared-memory staging, splitting the cluster axis and TMA are
+// later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -249,54 +261,28 @@ __host__ __device__ inline size_t bwd_smem_bytes(int F, int npad) {
          sizeof(int) * (4 * kThreads + (size_t)(npad + 2) + kThreads);
 }
 
-template <typename CT, bool kBatched>
-__global__ void __launch_bounds__(kThreads)
-fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
-                      const float* __restrict__ nu_ptr, int robust,
-                      float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  const int T = kThreads;
+__device__ __forceinline__ BwdSmem bwd_smem(float* smem, const Tile& t) {
   BwdSmem s;
   s.g = smem;
-  s.contrib = s.g + (size_t)t.F * 8 * T;
-  s.keys = reinterpret_cast<int*>(s.contrib + 2 * 8 * T);
-  s.order = s.keys + 2 * T;
-  s.seg = s.order + 2 * T;
+  s.contrib = s.g + (size_t)t.F * 8 * kThreads;
+  s.keys = reinterpret_cast<int*>(s.contrib + 2 * 8 * kThreads);
+  s.order = s.keys + 2 * kThreads;
+  s.seg = s.order + 2 * kThreads;
   s.cm = s.seg + (t.npad + 2);
+  return s;
+}
 
-  // the solo kernels (kBatched false) compile without the lane offsets
-  const int b = kBatched ? (int)blockIdx.y : 0;
-  if (kBatched) coh = to_lane(t, coh, b);
+// Phase 2 of both backward kernels (objective and predict), given the
+// model cotangent g of the block's rows in s.g: sort the block's
+// (role, row) items by station, then per cluster form each row's dJp and
+// dJq (summed over channels) and combine them per (chunk, station) in
+// sorted order into the block's partial table (that of `lane`, batched).
+template <typename CT>
+__device__ void bwd_tables(const Tile& t, const CT* coh, const BwdSmem& s,
+                           int lane, int r, bool valid, int ap, int aq,
+                           float* __restrict__ partial) {
+  const int T = kThreads;
   const int tid = threadIdx.x;
-  const int r = blockIdx.x * T + tid;
-  const bool valid = r < t.rowsp;
-  const int ap = valid ? t.ant_p[r] : 0;
-  const int aq = valid ? t.ant_q[r] : 0;
-
-  // ---- phase 1: model cotangent g of this row, every channel
-  const float nu = robust ? nu_ptr[b] : 1.f;
-  for (int f = 0; f < t.F; ++f) {
-    float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
-    if (valid) {
-      float vr[4], vi[4];
-      model_row(coh, t, f, r, ap, aq, vr, vi);
-      const float msk = t.mask[(size_t)f * t.rowsp + r];
-      const float* vis = t.vis + (size_t)f * 8 * t.rowsp + r;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float dr = (vis[(size_t)k * t.rowsp] - vr[k]) * msk;
-        const float di = (vis[(size_t)(4 + k) * t.rowsp] - vi[k]) * msk;
-        const float w = robust ? 2.f / (nu + dr * dr + di * di) : 2.f;
-        gr[k] = -w * msk * dr;
-        gi[k] = -w * msk * di;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s.g[(f * 8 + k) * T + tid] = gr[k];
-      s.g[(f * 8 + 4 + k) * T + tid] = gi[k];
-    }
-  }
 
   // ---- stable counting sort of the block's (role, row) items by station
   for (int i = tid; i < 2 * T; i += T) {
@@ -328,7 +314,7 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
   const size_t mrows = (size_t)t.mp * t.nc;
   const size_t tabsz = mrows * t.npad;  // one lane's component plane
   float* part_b =
-      partial + ((size_t)b * gridDim.x + blockIdx.x) * 8 * tabsz;
+      partial + ((size_t)lane * gridDim.x + blockIdx.x) * 8 * tabsz;
   for (int m = 0; m < t.mp; ++m) {
     float djp_r[4] = {0.f, 0.f, 0.f, 0.f}, djp_i[4] = {0.f, 0.f, 0.f, 0.f};
     float djq_r[4] = {0.f, 0.f, 0.f, 0.f}, djq_i[4] = {0.f, 0.f, 0.f, 0.f};
@@ -430,6 +416,94 @@ fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
   }
 }
 
+template <typename CT, bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
+                      const float* __restrict__ nu_ptr, int robust,
+                      float* __restrict__ partial) {
+  extern __shared__ float smem[];
+  const int T = kThreads;
+  const BwdSmem s = bwd_smem(smem, t);
+
+  // the solo kernels (kBatched false) compile without the lane offsets
+  const int b = kBatched ? (int)blockIdx.y : 0;
+  if (kBatched) coh = to_lane(t, coh, b);
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x * T + tid;
+  const bool valid = r < t.rowsp;
+  const int ap = valid ? t.ant_p[r] : 0;
+  const int aq = valid ? t.ant_q[r] : 0;
+
+  // ---- phase 1: model cotangent g of this row, every channel
+  const float nu = robust ? nu_ptr[b] : 1.f;
+  for (int f = 0; f < t.F; ++f) {
+    float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
+    if (valid) {
+      float vr[4], vi[4];
+      model_row(coh, t, f, r, ap, aq, vr, vi);
+      const float msk = t.mask[(size_t)f * t.rowsp + r];
+      const float* vis = t.vis + (size_t)f * 8 * t.rowsp + r;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float dr = (vis[(size_t)k * t.rowsp] - vr[k]) * msk;
+        const float di = (vis[(size_t)(4 + k) * t.rowsp] - vi[k]) * msk;
+        const float w = robust ? 2.f / (nu + dr * dr + di * di) : 2.f;
+        gr[k] = -w * msk * dr;
+        gi[k] = -w * msk * di;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s.g[(f * 8 + k) * T + tid] = gr[k];
+      s.g[(f * 8 + 4 + k) * T + tid] = gi[k];
+    }
+  }
+  bwd_tables(t, coh, s, b, r, valid, ap, aq, partial);
+}
+
+// Kernel #1, the fused predict forward: the model V(f, r) of every row
+// and channel, stored as the 8 planes of (F, 8, rowsp), coalesced along
+// rows.  Reads the coherency stack once.
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+fused_predict_fwd_kernel(Tile t, const CT* __restrict__ coh,
+                         float* __restrict__ out) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= t.rowsp) return;
+  const int ap = t.ant_p[r], aq = t.ant_q[r];
+  for (int f = 0; f < t.F; ++f) {
+    float vr[4], vi[4];
+    model_row(coh, t, f, r, ap, aq, vr, vi);
+    float* o = out + (size_t)f * 8 * t.rowsp + r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      o[(size_t)k * t.rowsp] = vr[k];
+      o[(size_t)(4 + k) * t.rowsp] = vi[k];
+    }
+  }
+}
+
+// Kernel #2, the fused predict backward: phase 1 loads the upstream
+// model cotangent g (F, 8, rowsp) of the block's rows into s.g; phase 2
+// is the objective backward's.  The stack is read once (phase 2 only).
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+fused_predict_bwd_kernel(Tile t, const CT* __restrict__ coh,
+                         const float* __restrict__ g,
+                         float* __restrict__ partial) {
+  extern __shared__ float smem[];
+  const int T = kThreads;
+  const BwdSmem s = bwd_smem(smem, t);
+  const int tid = threadIdx.x;
+  const int r = blockIdx.x * T + tid;
+  const bool valid = r < t.rowsp;
+  const int ap = valid ? t.ant_p[r] : 0;
+  const int aq = valid ? t.ant_q[r] : 0;
+  for (int fk = 0; fk < t.F * 8; ++fk)
+    s.g[fk * T + tid] = valid ? g[(size_t)fk * t.rowsp + r] : 0.f;
+  bwd_tables(t, coh, s, 0, r, valid, ap, aq, partial);
+}
+
 // Per lane b (grid y): sum over blocks k (in order) of partial[b][k][e],
 // e = (j, row, station) of the lane's (8, mrows, npad) table, written to
 // out (8, lanes * mrows, npad) at component j, row b * mrows + row.
@@ -497,6 +571,16 @@ int launch_bwd_kernel(const Tile& t, const CT* coh, const float* nu,
   return (int)cudaGetLastError();
 }
 
+int launch_sum_partials(const Tile& t, const float* partial, float* out,
+                        cudaStream_t st) {
+  const int nblocks = (t.rowsp + kThreads - 1) / kThreads;
+  const size_t tabsz = (size_t)t.mp * t.nc * t.npad;
+  const dim3 grid((unsigned)((8 * tabsz + kThreads - 1) / kThreads), t.lanes);
+  sum_partials_kernel<<<grid, kThreads, 0, st>>>(partial, nblocks, tabsz,
+                                                 out);
+  return (int)cudaGetLastError();
+}
+
 template <bool kBatched>
 int launch_bwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
                int robust, float* partial, float* out, void* stream) {
@@ -510,12 +594,48 @@ int launch_bwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
           : launch_bwd_kernel<float, kBatched>(
                 t, static_cast<const float*>(coh), nu, robust, partial, st);
   if (err) return err;
-  const int nblocks = (t.rowsp + kThreads - 1) / kThreads;
-  const size_t tabsz = (size_t)t.mp * t.nc * t.npad;
-  const dim3 grid((unsigned)((8 * tabsz + kThreads - 1) / kThreads), t.lanes);
-  sum_partials_kernel<<<grid, kThreads, 0, st>>>(partial, nblocks, tabsz,
-                                                 out);
+  return launch_sum_partials(t, partial, out, st);
+}
+
+int launch_predict_fwd(const Tile& t, const void* coh, int coh_bf16,
+                       float* out, void* stream) {
+  const dim3 grid((t.rowsp + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (coh_bf16)
+    fused_predict_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        t, static_cast<const __nv_bfloat16*>(coh), out);
+  else
+    fused_predict_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
+        t, static_cast<const float*>(coh), out);
   return (int)cudaGetLastError();
+}
+
+template <typename CT>
+int launch_predict_bwd_kernel(const Tile& t, const CT* coh, const float* g,
+                              float* partial, cudaStream_t st) {
+  const size_t smem = bwd_smem_bytes(t.F, t.npad);
+  const int err = (int)cudaFuncSetAttribute(
+      fused_predict_bwd_kernel<CT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const dim3 grid((t.rowsp + kThreads - 1) / kThreads);
+  fused_predict_bwd_kernel<CT><<<grid, kThreads, smem, st>>>(t, coh, g,
+                                                              partial);
+  return (int)cudaGetLastError();
+}
+
+int launch_predict_bwd(const Tile& t, const void* coh, int coh_bf16,
+                       const float* g, float* partial, float* out,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err =
+      coh_bf16
+          ? launch_predict_bwd_kernel<__nv_bfloat16>(
+                t, static_cast<const __nv_bfloat16*>(coh), g, partial, st)
+          : launch_predict_bwd_kernel<float>(
+                t, static_cast<const float*>(coh), g, partial, st);
+  if (err) return err;
+  return launch_sum_partials(t, partial, out, st);
 }
 
 }  // namespace
@@ -577,6 +697,31 @@ int fused_cost_batch_bwd(const float* tab_re, const float* tab_im,
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, nullptr, vis, mask,
                            mp, 1, npad, F, rowsp, lanes);
   return launch_bwd<true>(t, coh, coh_bf16, nu, robust, partial, out, stream);
+}
+
+// Predict forward (kernel #1): out (F, 8, rowsp) f32, the model of every
+// row and channel.  Returns cudaGetLastError().
+int fused_predict_fwd(const float* tab_re, const float* tab_im,
+                      const void* coh, int coh_bf16, const int* ant_p,
+                      const int* ant_q, const int* cmap, int mp, int nc,
+                      int npad, int F, int rowsp, float* out, void* stream) {
+  const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, nullptr,
+                           nullptr, mp, nc, npad, F, rowsp, 1);
+  return launch_predict_fwd(t, coh, coh_bf16, out, stream);
+}
+
+// Predict backward (kernel #2): g (F, 8, rowsp) f32 upstream cotangent of
+// the model; partial (num_blocks, 8, mp*nc, npad) scratch; out
+// (8, mp*nc, npad) = [d tab_re (4 planes); d tab_im (4 planes)].
+// Returns the first non-zero cudaGetLastError().
+int fused_predict_bwd(const float* tab_re, const float* tab_im,
+                      const void* coh, int coh_bf16, const int* ant_p,
+                      const int* ant_q, const int* cmap, const float* g,
+                      int mp, int nc, int npad, int F, int rowsp,
+                      float* partial, float* out, void* stream) {
+  const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, nullptr,
+                           nullptr, mp, nc, npad, F, rowsp, 1);
+  return launch_predict_bwd(t, coh, coh_bf16, g, partial, out, stream);
 }
 
 }  // extern "C"

@@ -47,6 +47,14 @@ SIGNATURES = {
         # ... partial, out, stream
         "fused_cost_batch_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+        # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, cmap, mp, nc, npad,
+        # F, rowsp, out, stream
+        "fused_predict_fwd": ([_P, _P, _P, _I, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P, _P], _I),
+        # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, cmap, g, mp, nc,
+        # npad, F, rowsp, partial, out, stream
+        "fused_predict_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P, _P, _P], _I),
     },
 }
 

@@ -1,11 +1,14 @@
-"""Hold the fused-objective kernels against their plain PyTorch version.
+"""Hold the fused kernels against their plain PyTorch versions.
 
 Shared by the ``cuda``-marked tests and ``chip_smoke.py``: one seeded
 random problem in the kernels' packed layout (solo, and batched over B
-lanes), and one comparison each —
-cost relative error, gradient error relative to the gradient's norm
-(elementwise f32 gradient checks fail on summation order alone), and
-whether two backward launches give bit-identical tables.
+lanes), and one comparison each for the objective (cost relative error,
+gradient error relative to the gradient's norm: elementwise f32
+gradient checks fail on summation order alone), the predict (model
+error relative to its max abs, gradient as for the objective, under a
+seeded upstream cotangent) and the batched objective, with whether two
+backward launches give bit-identical tables.  Each kernel pair has its
+work count (bytes and operations) for its bound.
 
 The visibilities are drawn independently of the model, so the residual
 is of the model's size: the comparison then measures the kernels'
@@ -21,9 +24,11 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.ops.rime_kernel import (
-    _nu_cell, _nu_lanes, fused_cost_batch_bwd_cuda, fused_cost_bwd_cuda,
-    fused_cost_packed, fused_cost_packed_batch, fused_cost_packed_batch_plain,
-    fused_cost_packed_hybrid, fused_cost_packed_plain, pack_gain_tables,
+    FusedSkyGradientError, _nu_cell, _nu_lanes, fused_cost_batch_bwd_cuda,
+    fused_cost_bwd_cuda, fused_cost_packed, fused_cost_packed_batch,
+    fused_cost_packed_batch_plain, fused_cost_packed_hybrid,
+    fused_cost_packed_plain, fused_predict_bwd_cuda, fused_predict_packed,
+    fused_predict_packed_hybrid, fused_predict_packed_plain, pack_gain_tables,
 )
 
 
@@ -120,6 +125,21 @@ def compare_with_plain(prob: CostProblem, nu=None) -> dict:
     }
 
 
+# published peaks of one H100 SXM (NVIDIA data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def roofline(nbytes: int, flops: int) -> dict:
+    """The least time the card could take for this work: bytes over the
+    memory rate or operations over the f32 peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 # real f32 operations per (cluster, channel, row): the model's two 2x2
 # complex products (8 complex multiply-adds each, 8 flops apiece), and in
 # the backward the model again plus C Jq^H, dJp, dA and dJq
@@ -142,6 +162,97 @@ def fused_cost_work(prob: CostProblem) -> dict:
         "fwd": (inputs + 4, _MODEL_FLOPS * cells + _RESIDUAL_FLOPS * rows),
         "bwd": (inputs + tables,
                 _BWD_FLOPS * cells + 2 * _RESIDUAL_FLOPS * rows),
+    }
+
+
+# ---------------------------------------------------------- fused predict
+#
+# The predict kernels #1/#2 take the model inputs of a CostProblem (its
+# visibilities and mask are not read) and, backward, an upstream model
+# cotangent g (F, 8, rowsp).
+
+
+def model_cotangent(prob: CostProblem, seed: int = 0) -> torch.Tensor:
+    """A seeded standard-normal upstream cotangent of the model,
+    (F, 8, rowsp) f32 on the problem's device."""
+    mp, F, _, rowsp = prob.coh_ri.shape
+    g = np.random.default_rng(seed).standard_normal((F, 8, rowsp))
+    return torch.as_tensor(g, dtype=torch.float32).to(prob.tab_re.device)
+
+
+def predict_and_grad(prob: CostProblem, g, plain: bool = False):
+    """(model (F, 8, rowsp), d <g, model> / d tab_re, ... / d tab_im)
+    through the wrapper (kernels on CUDA tensors) or the plain version."""
+    a = prob.tab_re.detach().clone().requires_grad_(True)
+    b = prob.tab_im.detach().clone().requires_grad_(True)
+    args = (prob.coh_ri, prob.ant_p, prob.ant_q)
+    if plain:
+        model = fused_predict_packed_plain(a, b, *args, prob.cmap, prob.nc)
+    elif prob.nc > 1:
+        model = fused_predict_packed_hybrid(a, b, *args, prob.cmap, prob.nc)
+    else:
+        model = fused_predict_packed(a, b, *args)
+    ga, gb = torch.autograd.grad(model, (a, b), g)
+    return model.detach(), ga, gb
+
+
+def sky_gradient_raises(prob: CostProblem, g) -> bool:
+    """Whether asking the fused predict for a coherency gradient raises
+    FusedSkyGradientError (never a silent zero)."""
+    coh = prob.coh_ri.detach().clone().requires_grad_(True)
+    model = fused_predict_packed_hybrid(prob.tab_re, prob.tab_im, coh,
+                                        prob.ant_p, prob.ant_q, prob.cmap,
+                                        prob.nc)
+    try:
+        torch.autograd.grad(model, coh, g)
+    except FusedSkyGradientError:
+        return True
+    return False
+
+
+def compare_predict_with_plain(prob: CostProblem, seed: int = 0) -> dict:
+    """Kernels #1/#2 vs the plain predict on the same inputs and a seeded
+    upstream cotangent: {"model_rel" (max abs error over the model's max
+    abs), "model_max_abs_err", "grad_rel" (error norm over the
+    cotangent's norm), "grad_max_abs_err", "bitwise_repeat",
+    "sky_error_raised"}."""
+    g = model_cotangent(prob, seed)
+    mk, gka, gkb = predict_and_grad(prob, g)
+    mpl, gpa, gpb = predict_and_grad(prob, g, plain=True)
+    gk = torch.cat([gka.reshape(-1), gkb.reshape(-1)]).double()
+    gp = torch.cat([gpa.reshape(-1), gpb.reshape(-1)]).double()
+    merr = float((mk.double() - mpl.double()).abs().max())
+    args = (prob.tab_re, prob.tab_im, prob.coh_ri, prob.ant_p, prob.ant_q, g,
+            prob.cmap, prob.nc)
+    r1 = fused_predict_bwd_cuda(*args)
+    r2 = fused_predict_bwd_cuda(*args)
+    return {
+        "model_rel": merr / float(mpl.abs().max()),
+        "model_max_abs_err": merr,
+        "grad_rel": float(torch.linalg.norm(gk - gp) / torch.linalg.norm(gp)),
+        "grad_max_abs_err": float((gk - gp).abs().max()),
+        "bitwise_repeat": bool(torch.equal(r1[0], r2[0])
+                               and torch.equal(r1[1], r2[1])),
+        "sky_error_raised": sky_gradient_raises(prob, g),
+    }
+
+
+def fused_predict_work(prob: CostProblem) -> dict:
+    """Bytes kernels #1/#2 must move (every input read once, every output
+    written once) and the operations they do, for this problem:
+    {"fwd": (bytes, flops), "bwd": (bytes, flops)}.  The forward writes
+    the model; the backward reads the model cotangent and writes the two
+    tables."""
+    mp, F, _, rowsp = prob.coh_ri.shape
+    nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()
+    inputs = sum(nbytes(t) for t in (prob.tab_re, prob.tab_im, prob.coh_ri,
+                                     prob.ant_p, prob.ant_q, prob.cmap))
+    model = 4 * F * 8 * rowsp
+    cells = mp * F * rowsp
+    return {
+        "fwd": (inputs + model, _MODEL_FLOPS * cells),
+        "bwd": (inputs + model + 2 * nbytes(prob.tab_re),
+                (_BWD_FLOPS - _MODEL_FLOPS) * cells),
     }
 
 

@@ -1,8 +1,12 @@
-"""Fused calibration objective: CUDA kernel pair, plain version, packing.
+"""Fused RIME predict and calibration objective: CUDA kernels, plain
+versions, packing.
 
-Counterpart of the fused-objective part of ``sagecal_tpu/ops/rime_kernel.py``
+Counterpart of ``sagecal_tpu/ops/rime_kernel.py``: the fused objective
 (``fused_cost_packed`` / ``fused_cost_packed_hybrid`` and their Pallas
-kernels ``_fused_cost_fwd_impl`` :842 and ``_fused_cost_bwd_impl`` :877).
+kernels ``_fused_cost_fwd_impl`` :842 and ``_fused_cost_bwd_impl`` :877),
+the fused predict (``fused_predict_packed`` / ``_hybrid``, kernels
+``_fused_predict_fwd_impl`` :265 and ``_fused_predict_bwd_impl`` :407;
+its own section below) and the batched objective (last section).
 
 The objective, for one tile in the packed-real layout::
 
@@ -25,6 +29,11 @@ visibilities and mask are constants of the solve).
   against it.
 - :func:`fused_cost_fwd_cuda` / :func:`fused_cost_bwd_cuda` launch the
   kernels; each counts its launches in a ``launches`` attribute.
+- The fused predict V itself, as (F, 8, rowsp) planes, with its plain
+  version (:func:`fused_predict_packed_plain`, sharing the RIME products
+  of :func:`_model_plain` with the objective's) and launchers
+  :func:`fused_predict_fwd_cuda` / :func:`fused_predict_bwd_cuda`; its
+  backward takes the upstream model cotangent.
 - The batched objective of B lanes (a serve bucket), its plain version,
   launchers and packing, counterparts of ``fused_cost_packed_batch`` and
   kernels ``_fused_cost_batch_fwd_impl`` :1250 /
@@ -115,10 +124,10 @@ def _nu_cell(nu, device) -> torch.Tensor:
     return torch.as_tensor(nu, device=device).to(torch.float32).reshape(1)
 
 
-def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
-                            mask_p, nu=None, cmap=None, nc: int = 1):
-    """The plain PyTorch version of the fused objective (module doc):
-    same inputs as the kernels (``cmap``/``nc`` for hybrid chunks), gains
+def _model_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap=None,
+                 nc: int = 1):
+    """The model V = sum_m Jp C_m Jq^H of the packed inputs, complex
+    (F, 4, rowsp): the RIME products of both plain versions, gains
     gathered with ``index_select``, differentiable by autograd."""
     mp, F, _, rowsp = coh_ri.shape
     npad = tab_re.shape[2]
@@ -143,10 +152,27 @@ def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
     a01 = c00 * qc + c01 * qd
     a10 = c10 * qa + c11 * qb
     a11 = c10 * qc + c11 * qd
-    V = torch.stack([
+    return torch.stack([
         (pa * a00 + pb * a10).sum(0), (pa * a01 + pb * a11).sum(0),
         (pc * a00 + pd * a10).sum(0), (pc * a01 + pd * a11).sum(0),
     ], dim=1)  # (F, 4, rowsp)
+
+
+def fused_predict_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q,
+                               cmap=None, nc: int = 1):
+    """The plain PyTorch version of the fused predict: the model of the
+    packed inputs as (F, 8, rowsp) f32 planes [re XX..YY, im XX..YY]
+    (``cmap``/``nc`` for hybrid chunks), differentiable by autograd."""
+    V = _model_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
+    return torch.cat([V.real, V.imag], dim=1)
+
+
+def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
+                            mask_p, nu=None, cmap=None, nc: int = 1):
+    """The plain PyTorch version of the fused objective (module doc):
+    same inputs as the kernels (``cmap``/``nc`` for hybrid chunks), the
+    model of :func:`_model_plain`, differentiable by autograd."""
+    V = _model_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
     vis = torch.complex(vis_ri[:, :4], vis_ri[:, 4:])
     d = (vis - V) * mask_p[:, None, :]
     e2 = d.real ** 2 + d.imag ** 2
@@ -163,10 +189,10 @@ def _check_tensors(dev, want: dict):
     ``want`` is a contiguous tensor on ``dev`` (CUDA) of that shape and
     one of those dtypes."""
     if dev.type != "cuda":
-        raise ValueError(f"fused cost kernels need CUDA tensors, got {dev}")
+        raise ValueError(f"fused kernels need CUDA tensors, got {dev}")
     for name, (x, shape, dtypes) in want.items():
         if x is None:
-            raise ValueError(f"fused cost kernels: {name} is required")
+            raise ValueError(f"fused kernels: {name} is required")
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, tables on {dev}")
         if tuple(x.shape) != shape:
@@ -177,8 +203,9 @@ def _check_tensors(dev, want: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                       nu_arr, cmap, nc):
+def _model_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc) -> dict:
+    """The model's inputs in :func:`_check_tensors`' form, shared by the
+    predict and objective kernels."""
     mp, F, eight, rowsp = coh_ri.shape
     mrows, npad = mp * nc, tab_re.shape[2]
     want = {
@@ -187,12 +214,21 @@ def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
         "coh_ri": (coh_ri, (mp, F, 8, rowsp), (torch.float32, torch.bfloat16)),
         "ant_p": (ant_p, (1, rowsp), (torch.int32,)),
         "ant_q": (ant_q, (1, rowsp), (torch.int32,)),
-        "vis_ri": (vis_ri, (F, 8, rowsp), (torch.float32,)),
-        "mask_p": (mask_p, (F, rowsp), (torch.float32,)),
-        "nu": (nu_arr, (1,), (torch.float32,)),
     }
     if nc > 1:
         want["cmap"] = (cmap, (mp, rowsp), (torch.int32,))
+    return want
+
+
+def _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
+                       nu_arr, cmap, nc):
+    F, rowsp = coh_ri.shape[1], coh_ri.shape[3]
+    want = _model_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
+    want.update({
+        "vis_ri": (vis_ri, (F, 8, rowsp), (torch.float32,)),
+        "mask_p": (mask_p, (F, rowsp), (torch.float32,)),
+        "nu": (nu_arr, (1,), (torch.float32,)),
+    })
     _check_tensors(tab_re.device, want)
 
 
@@ -311,6 +347,141 @@ def fused_cost_packed_hybrid(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
     (cluster, chunk); ``cmap`` (mp, rowsp) selects each row's chunk."""
     return _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                        nu, cmap, nc)
+
+
+# ------------------------------------------------------- fused predict
+#
+# Counterpart of ``fused_predict_packed`` / ``fused_predict_packed_hybrid``
+# (sagecal_tpu/ops/rime_kernel.py:496-555) and their kernels
+# ``_fused_predict_fwd_impl`` :265 (#1) and ``_fused_predict_bwd_impl``
+# :407 (#2): the model V = sum_m Jp C_m Jq^H of the packed inputs, as
+# (F, 8, rowsp) f32 planes, differentiable with respect to the gain
+# tables.  The residual step (``ops/residual.py``) forms its model here.
+# The JAX package's chunked forms (``fused_predict_packed_chunked`` and
+# ``_hybrid_chunked``) exist only because of the TPU's Mosaic grid limit
+# and are not ported; the CUDA grid takes every row in one launch.
+
+# The fused backward gives gain-table cotangents only: no coherency
+# (sky-parameter) cotangent.  Requesting one raises
+# FusedSkyGradientError; it is never a silent zero (the JAX package's
+# ``sky_constant`` contract, :441-493).  Sky refinement differentiates
+# ``solvers.sage.predict_full_model`` instead.
+FUSED_COHERENCY_COTANGENT = False
+
+
+class FusedSkyGradientError(NotImplementedError):
+    """A caller asked for coherency (sky-parameter) gradients through the
+    fused predict, whose backward gives gain cotangents only."""
+
+
+def fused_predict_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap=None,
+                           nc: int = 1):
+    """Launch kernel #1: the model (F, 8, rowsp) f32.  Replaces
+    ``_fused_predict_fwd_impl``."""
+    from sagecal_tpu_torch.kernels.build import load
+
+    _check_tensors(tab_re.device, _model_inputs(tab_re, tab_im, coh_ri,
+                                                ant_p, ant_q, cmap, nc))
+    lib = load("fused_cost")
+    mp, F, _, rowsp = coh_ri.shape
+    out = torch.empty((F, 8, rowsp), dtype=torch.float32,
+                      device=tab_re.device)
+    stream = torch.cuda.current_stream(tab_re.device).cuda_stream
+    _raise_on(lib.fused_predict_fwd(
+        tab_re.data_ptr(), tab_im.data_ptr(), coh_ri.data_ptr(),
+        int(coh_ri.dtype == torch.bfloat16), ant_p.data_ptr(),
+        ant_q.data_ptr(), cmap.data_ptr() if nc > 1 else None, mp, nc,
+        tab_re.shape[2], F, rowsp, out.data_ptr(), stream),
+        "fused_predict_fwd")
+    fused_predict_fwd_cuda.launches += 1
+    return out
+
+
+def fused_predict_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, g_ri,
+                           cmap=None, nc: int = 1):
+    """Launch kernel #2 on the model cotangent ``g_ri`` (F, 8, rowsp):
+    (d tab_re, d tab_im), each (4, mp*nc, npad), bit-identical on repeat.
+    Replaces ``_fused_predict_bwd_impl``."""
+    from sagecal_tpu_torch.kernels.build import load
+
+    mp, F, _, rowsp = coh_ri.shape
+    want = _model_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
+    want["g_ri"] = (g_ri, (F, 8, rowsp), (torch.float32,))
+    _check_tensors(tab_re.device, want)
+    lib = load("fused_cost")
+    dev = tab_re.device
+    nb = lib.fused_cost_num_blocks(rowsp)
+    n = 8 * tab_re.shape[1] * tab_re.shape[2]
+    partial = torch.empty((nb * n,), dtype=torch.float32, device=dev)
+    out = torch.empty((8,) + tuple(tab_re.shape[1:]), dtype=torch.float32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.fused_predict_bwd(
+        tab_re.data_ptr(), tab_im.data_ptr(), coh_ri.data_ptr(),
+        int(coh_ri.dtype == torch.bfloat16), ant_p.data_ptr(),
+        ant_q.data_ptr(), cmap.data_ptr() if nc > 1 else None,
+        g_ri.data_ptr(), mp, nc, tab_re.shape[2], F, rowsp,
+        partial.data_ptr(), out.data_ptr(), stream), "fused_predict_bwd")
+    fused_predict_bwd_cuda.launches += 1
+    return out[:4], out[4:]
+
+
+fused_predict_fwd_cuda.launches = 0
+fused_predict_bwd_cuda.launches = 0
+
+
+class _FusedPredict(torch.autograd.Function):
+    """The fused predict: kernels #1/#2 on CUDA tensors, the plain version
+    (and its autograd VJP) on CPU tensors.  The backward raises
+    :class:`FusedSkyGradientError` when a coherency gradient is asked."""
+
+    @staticmethod
+    def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc):
+        ctx.save_for_backward(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap)
+        ctx.nc = nc
+        if tab_re.is_cuda:
+            return fused_predict_fwd_cuda(tab_re, tab_im, coh_ri, ant_p,
+                                          ant_q, cmap, nc)
+        return fused_predict_packed_plain(tab_re, tab_im, coh_ri, ant_p,
+                                          ant_q, cmap, nc)
+
+    @staticmethod
+    def backward(ctx, g_ri):
+        if ctx.needs_input_grad[2]:
+            raise FusedSkyGradientError(
+                "the fused predict has no coherency cotangent (its backward "
+                "gives gain-table cotangents only); differentiate "
+                "solvers.sage.predict_full_model for sky-model gradients")
+        tab_re, tab_im, coh_ri, ant_p, ant_q, cmap = ctx.saved_tensors
+        if tab_re.is_cuda:
+            dre, dim = fused_predict_bwd_cuda(tab_re, tab_im, coh_ri, ant_p,
+                                              ant_q, g_ri.contiguous(), cmap,
+                                              ctx.nc)
+        else:
+            with torch.enable_grad():
+                a = tab_re.detach().requires_grad_(True)
+                b = tab_im.detach().requires_grad_(True)
+                model = fused_predict_packed_plain(a, b, coh_ri, ant_p, ant_q,
+                                                   cmap, ctx.nc)
+                dre, dim = torch.autograd.grad(model, (a, b), g_ri)
+        return (dre, dim) + (None,) * 5
+
+
+def fused_predict_packed(tab_re, tab_im, coh_ri, ant_p, ant_q):
+    """Full-model RIME predict, packed layout (module doc): the model
+    (F, 8, rowsp) f32.  Differentiable with respect to ``tab_re`` /
+    ``tab_im`` only.  CUDA tensors launch kernels #1/#2 (or raise); CPU
+    tensors, and only those, take the plain version."""
+    return _FusedPredict.apply(tab_re.contiguous(), tab_im.contiguous(),
+                               coh_ri, ant_p, ant_q, None, 1)
+
+
+def fused_predict_packed_hybrid(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap,
+                                nc):
+    """Hybrid-chunk (nc > 1) predict: tables carry one row per (cluster,
+    chunk); ``cmap`` (mp, rowsp) int32 selects each row's chunk."""
+    return _FusedPredict.apply(tab_re.contiguous(), tab_im.contiguous(),
+                               coh_ri, ant_p, ant_q, cmap, nc)
 
 
 # ---------------------------------------------------- batched objective

@@ -3,11 +3,18 @@
 
 Each residual row (one baseline, 8F reals) depends only on the 16
 parameters of its two stations, so J^T J is assembled from per-row 8x8
-blocks scattered into an (nchunk, N, N, 8, 8) grid and J^T e from
-per-row 8-vectors, for all hybrid chunks at once; the LM iterations of
-all chunks run in lock-step (per-chunk damping and acceptance, masked
-once a chunk terminates) and the (8N x 8N) damped systems are solved by
-a batched Cholesky.
+blocks summed into an (nchunk, N, N, 8, 8) grid and J^T e from per-row
+8-vectors, for all hybrid chunks at once; the LM iterations of all
+chunks run in lock-step (per-chunk damping and acceptance, masked once
+a chunk terminates) and the (8N x 8N) damped systems are solved by a
+batched Cholesky.
+
+The sums by block and by chunk are fixed-order segment sums
+(:class:`NormalEqPlan`, built once per tile by the caller, or once per
+:func:`lm_solve` when not given, and reused by every iteration), not
+``index_add_``: on CUDA that adds with float atomics, and two runs of
+one solve would differ in the last bits, which the LM iterations
+amplify.  The EM is bit-identical on repeat.
 
 Where the JAX package takes ``jax.jacfwd`` of a per-row model, this
 port writes the per-row Jacobian in closed form (:func:`_row_jacobians`):
@@ -27,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from sagecal_tpu_torch.core.segment import SegmentPlan
 from sagecal_tpu_torch.core.types import corrupt_flat, params_to_jones, reals_of_flat
 from sagecal_tpu_torch.utils.precision import true_f32
 
@@ -95,19 +103,37 @@ def _row_jacobians(pp, qq, C):
     return jp.reshape(R, F * 8, 8), jq.reshape(R, F * 8, 8)
 
 
-def _assemble_normal_eq(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, nchunk,
-                        sqrt_w):
+class NormalEqPlan:
+    """The fixed-order sums of one tile's LM assembly (module doc).
+
+    ``cost``: rows -> chunk.  ``station``: the 2*rows items (every row as
+    station p, then every row as station q) -> (chunk, station), for
+    J^T e and the diagonal blocks of J^T J.  ``pair``: the 2*rows items
+    (chunk, p, q), then (chunk, q, p) -> the (chunk, N, N) block grid,
+    for the off-diagonal blocks.  Diagonal and off-diagonal blocks have
+    plans of their own because a station's block gathers ~tilesz*(N-1)
+    rows and a baseline's ~tilesz."""
+
+    def __init__(self, ant_p, ant_q, chunk_map, nchunk: int, N: int):
+        cp, cq = chunk_map * N + ant_p, chunk_map * N + ant_q
+        self.nchunk, self.N = nchunk, N
+        self.cost = SegmentPlan(chunk_map, nchunk)
+        self.station = SegmentPlan(torch.cat([cp, cq]), nchunk * N)
+        self.pair = SegmentPlan(torch.cat([cp * N + ant_q, cq * N + ant_p]),
+                                nchunk * N * N)
+
+
+def _assemble_normal_eq(p_all, coh, vis, mask, ant_p, ant_q, chunk_map,
+                        plan: NormalEqPlan, sqrt_w):
     """-> (JTJ (nchunk, 8N, 8N), JTe (nchunk, 8N), cost (nchunk,)).
 
     Residual e = vis - model, Jacobian of the model, so the gradient of
     0.5||e||^2 is -J^T e; JTe = J^T e and the LM step solves
     (JTJ + mu I) dp = JTe."""
-    N = p_all.shape[-1] // 8
-    dtype = p_all.dtype
+    nchunk, N = plan.nchunk, plan.N
     F, rows = vis.shape[-3], ant_p.shape[0]
     e = _residual_flat(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, sqrt_w)
-    cost = torch.zeros((nchunk,), dtype=dtype, device=e.device).index_add_(
-        0, chunk_map, (e * e).sum(dim=(0, 1)))
+    cost = plan.cost.sum((e * e).sum(dim=(0, 1)))
 
     pblk = p_all.reshape(nchunk * N, 8)
     pp = pblk.index_select(0, chunk_map * N + ant_p)  # (rows, 8)
@@ -127,25 +153,20 @@ def _assemble_normal_eq(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, nchunk,
     gp = torch.einsum("rki,rk->ri", Jp, erow)
     gq = torch.einsum("rki,rk->ri", Jq, erow)
 
-    NN = N * N
-    JTJ = torch.zeros((nchunk * NN, 8, 8), dtype=dtype, device=e.device)
-    base = chunk_map * NN
-    JTJ.index_add_(0, base + ant_p * N + ant_p, App)
-    JTJ.index_add_(0, base + ant_p * N + ant_q, Apq)
-    JTJ.index_add_(0, base + ant_q * N + ant_p, Apq.transpose(-1, -2))
-    JTJ.index_add_(0, base + ant_q * N + ant_q, Aqq)
-    JTe = torch.zeros((nchunk * N, 8), dtype=dtype, device=e.device)
-    JTe.index_add_(0, chunk_map * N + ant_p, gp)
-    JTe.index_add_(0, chunk_map * N + ant_q, gq)
-    JTJ = JTJ.reshape(nchunk, N, N, 8, 8).permute(0, 1, 3, 2, 4)
+    JTJ = plan.pair.sum(torch.cat([Apq, Apq.transpose(-1, -2)]))
+    JTJ = JTJ.reshape(nchunk, N, N, 8, 8)
+    diag = plan.station.sum(torch.cat([App, Aqq])).reshape(nchunk, N, 8, 8)
+    JTJ.diagonal(dim1=1, dim2=2).add_(diag.permute(0, 2, 3, 1))
+    JTe = plan.station.sum(torch.cat([gp, gq]))
+    JTJ = JTJ.permute(0, 1, 3, 2, 4)
     return (JTJ.reshape(nchunk, 8 * N, 8 * N), JTe.reshape(nchunk, 8 * N),
             cost)
 
 
-def _cost_only(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, nchunk, sqrt_w):
+def _cost_only(p_all, coh, vis, mask, ant_p, ant_q, chunk_map,
+               plan: NormalEqPlan, sqrt_w):
     e = _residual_flat(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, sqrt_w)
-    return torch.zeros((nchunk,), dtype=p_all.dtype, device=e.device).index_add_(
-        0, chunk_map, (e * e).sum(dim=(0, 1)))
+    return plan.cost.sum((e * e).sum(dim=(0, 1)))
 
 
 def _solve_spd(A, b):
@@ -161,18 +182,28 @@ def _solve_spd(A, b):
     return torch.where(ok[:, None], x, x2)
 
 
+def _plan_for(plan, ant_p, ant_q, chunk_map, p0) -> NormalEqPlan:
+    if plan is None:
+        plan = NormalEqPlan(ant_p, ant_q, chunk_map, p0.shape[0],
+                            p0.shape[-1] // 8)
+    return plan
+
+
 @true_f32
 def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
              config: LMConfig = LMConfig(), sqrt_weights=None,
-             itmax_dynamic: Optional[int] = None) -> LMResult:
+             itmax_dynamic: Optional[int] = None,
+             plan: Optional[NormalEqPlan] = None) -> LMResult:
     """Solve min_p sum_rows ||vis - J_p C J_q^H||^2 per hybrid chunk.
 
     vis/coh: (F, 4, rows) complex; mask (F, rows); ant_p/ant_q/chunk_map
     (rows,) int64; p0 (nchunk, 8N).  ``itmax_dynamic`` lowers the
     iteration bound below ``config.itmax`` (the SAGE driver's weighted
-    allocation)."""
+    allocation).  ``plan``: the tile's :class:`NormalEqPlan` for these
+    indices (built here when None)."""
     nchunk = p0.shape[0]
-    args = (coh, vis, mask, ant_p, ant_q, chunk_map, nchunk, sqrt_weights)
+    plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
+    args = (coh, vis, mask, ant_p, ant_q, chunk_map, plan, sqrt_weights)
     JTJ, JTe, cost0 = _assemble_normal_eq(p0, *args)
     mu = config.tau * torch.diagonal(JTJ, dim1=-2, dim2=-1).amax(dim=-1)
     it_bound = config.itmax if itmax_dynamic is None else min(
@@ -211,12 +242,15 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
 def os_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
                 config: LMConfig = LMConfig(), sqrt_weights=None,
                 nsubsets: int = 4, perm=None,
-                generator: Optional[torch.Generator] = None) -> LMResult:
+                generator: Optional[torch.Generator] = None,
+                plan: Optional[NormalEqPlan] = None) -> LMResult:
     """Ordered-subsets accelerated LM: one LM pass per random subset of
     rows (subsets realized as masks).  ``perm`` is the row permutation
     that assigns subsets (row perm[i] goes to subset i % nsubsets); by
-    default it is drawn from ``generator`` (a CPU ``torch.Generator``)."""
+    default it is drawn from ``generator`` (a CPU ``torch.Generator``).
+    ``plan`` as for :func:`lm_solve`."""
     rows = vis.shape[-1]
+    plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     if perm is None:
         perm = torch.randperm(rows, generator=generator)
     perm = torch.as_tensor(perm, device=vis.device).long()
@@ -228,10 +262,10 @@ def os_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     for s in range(nsubsets):
         m_s = mask * (subset_of_row == s)[None, :].to(mask.dtype)
         res = lm_solve(vis, coh, m_s, ant_p, ant_q, chunk_map, p, sub_cfg,
-                       sqrt_weights)
+                       sqrt_weights, plan=plan)
         p = res.p
         if cost0 is None:
             cost0 = res.cost0 * nsubsets
-    final_cost = _cost_only(p, coh, vis, mask, ant_p, ant_q, chunk_map,
-                            p0.shape[0], sqrt_weights)
+    final_cost = _cost_only(p, coh, vis, mask, ant_p, ant_q, chunk_map, plan,
+                            sqrt_weights)
     return LMResult(p=p, cost0=cost0, cost=final_cost, iterations=config.itmax)

@@ -15,7 +15,9 @@ from typing import Optional
 import torch
 from torch.special import digamma
 
-from sagecal_tpu_torch.solvers.lm import LMConfig, _residual_flat, lm_solve
+from sagecal_tpu_torch.solvers.lm import (
+    LMConfig, NormalEqPlan, _plan_for, _residual_flat, lm_solve,
+)
 from sagecal_tpu_torch.utils.precision import true_f32
 
 
@@ -63,10 +65,13 @@ def update_nu_aecm(logsumw, nu_old, p: int = 8, nulow: float = 2.0,
 @true_f32
 def robust_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
                     nu0: float = 2.0, nulow: float = 2.0, nuhigh: float = 30.0,
-                    em_iters: int = 3, config: LMConfig = LMConfig()):
+                    em_iters: int = 3, config: LMConfig = LMConfig(),
+                    plan: Optional[NormalEqPlan] = None):
     """Robust LM: EM over (weights, nu) wrapping weighted LM solves.
     Returns (LMResult, nu).  The E-step runs FIRST, from the residual at
-    p0, so gross outliers are down-weighted before the first fit."""
+    p0, so gross outliers are down-weighted before the first fit.
+    ``plan``: the tile's LM assembly plan (``lm_solve``)."""
+    plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     mask8 = mask[..., None, :]
     ed0 = _residual_flat(p0, coh, vis, mask, ant_p, ant_q, chunk_map, None)
     sqrt_w, nu = update_w_and_nu(
@@ -75,10 +80,10 @@ def robust_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     p = p0
     for _ in range(em_iters):
         res = lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
-                       sqrt_weights=sqrt_w)
+                       sqrt_weights=sqrt_w, plan=plan)
         p = res.p
         ed = _residual_flat(p, coh, vis, mask, ant_p, ant_q, chunk_map, None)
         sqrt_w, nu = update_w_and_nu(ed, nu, nulow, nuhigh, mask=mask8)
     res = lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
-                   sqrt_weights=sqrt_w)
+                   sqrt_weights=sqrt_w, plan=plan)
     return res, nu

@@ -39,6 +39,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from sagecal_tpu_torch.core.segment import gather_rows
 from sagecal_tpu_torch.core.types import VisData, corrupt_flat, params_to_jones
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.ops.rime import (
@@ -46,7 +47,9 @@ from sagecal_tpu_torch.ops.rime import (
     predict_coherencies,
 )
 from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit, lbfgs_fit_batched
-from sagecal_tpu_torch.solvers.lm import LMConfig, lm_solve, os_lm_solve
+from sagecal_tpu_torch.solvers.lm import (
+    LMConfig, NormalEqPlan, lm_solve, os_lm_solve,
+)
 from sagecal_tpu_torch.solvers.robust import robust_lm_solve
 from sagecal_tpu_torch.utils.precision import true_f32
 
@@ -186,8 +189,9 @@ def cluster_model(p_k, coh_k, cmap_k, ant_p, ant_q):
 
 def predict_full_model(p_all, cdata: ClusterData, data: VisData):
     """sum_k J C J^H over all clusters, flat (F, 4, rows): gains gathered
-    per (cluster, row) by index, then V = Jp (C Jq^H) contracted over the
-    cluster axis."""
+    per (cluster, row) by index (a fixed-order backward, so the torch-op
+    joint cost's gradient is bit-identical on repeat), then
+    V = Jp (C Jq^H) contracted over the cluster axis."""
     jones = params_to_jones(p_all)  # (M, nchunk, N, 2, 2)
     M, nchunk, N = jones.shape[0], jones.shape[1], jones.shape[2]
     tab = jones.reshape(M * nchunk * N, 4)
@@ -195,7 +199,7 @@ def predict_full_model(p_all, cdata: ClusterData, data: VisData):
             + cdata.chunk_map) * N  # (M, rows)
 
     def gains(ant):
-        g = tab.index_select(0, (mrow + ant[None, :]).reshape(-1))
+        g = gather_rows(tab, (mrow + ant[None, :]).reshape(-1))
         g = g.reshape(M, 1, -1, 4)  # (M, 1, rows, 4) vs coh (M, F, rows)
         return g[..., 0], g[..., 1], g[..., 2], g[..., 3]
 
@@ -344,6 +348,18 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
         return torch.where(c0 > 0.0, torch.clamp((c0 - c1) / c0, min=0.0),
                            torch.zeros_like(c0))
 
+    # the LM assembly plan of each distinct chunk map, built once per tile
+    plans = []
+
+    def plan_of(cmap_k):
+        for cmap, plan in plans:
+            if torch.equal(cmap, cmap_k):
+                return plan
+        plan = NormalEqPlan(data.ant_p, data.ant_q, cmap_k, p0.shape[1],
+                            p0.shape[2] // 8)
+        plans.append((cmap_k, plan))
+        return plan
+
     p = p0
     nerr = torch.zeros((M,), dtype=p0.dtype, device=p0.device)
     weighted = False
@@ -357,20 +373,22 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
 
         def solve_one(xeff, coh_k, cmap_k, p_k, k):
             args = (xeff, coh_k, data.mask, data.ant_p, data.ant_q, cmap_k, p_k)
+            plan = plan_of(cmap_k)
             nu_k = torch.as_tensor(config.nulow, dtype=p0.dtype,
                                    device=p0.device)
             if use_robust:
                 res, nu_k = robust_lm_solve(
                     *args, nu0=config.nulow, nulow=config.nulow,
                     nuhigh=config.nuhigh, em_iters=config.em_rounds_robust,
-                    config=LMConfig(itmax=config.max_iter))
+                    config=LMConfig(itmax=config.max_iter), plan=plan)
                 nu_k = nu_k.to(p0.dtype)
             elif use_os:
-                res = os_lm_solve(*args, lmcfg, nsubsets=2, generator=generator)
+                res = os_lm_solve(*args, lmcfg, nsubsets=2, generator=generator,
+                                  plan=plan)
             else:
                 itermax = (int(0.20 * nerr_host[k] * total_iter) + iter_bar
                            if weighted else config.max_iter)
-                res = lm_solve(*args, lmcfg, itmax_dynamic=itermax)
+                res = lm_solve(*args, lmcfg, itmax_dynamic=itermax, plan=plan)
             return res.p, (nerr_of(res), nu_k)
 
         p, aux = em_residual_scan(data, cdata, p, list(range(M)), solve_one)

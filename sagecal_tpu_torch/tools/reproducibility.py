@@ -6,21 +6,21 @@ Run from the root of the repository, on a machine with one CUDA card::
 
     python3 -m sagecal_tpu_torch.tools.reproducibility [--json-out FILE]
 
-The EM phase assembles its normal equations with ``index_add_``
-(``solvers/lm.py``), which adds with floating-point atomics on CUDA: two
-runs of one solve need not give the same bits, and LM amplifies the
-difference.  This script measures the spread of ``res_1`` at the two
-shapes of ``chip_smoke.py``, whose builders it reuses:
+Everything runs in torch's default mode, the mode users run.  The EM
+assembles its normal equations with fixed-order segment sums
+(``solvers/lm.py``), the gain gathers have a fixed-order backward
+(``core/segment.py``) and the fused kernels use no float atomics, so two
+runs of one route should give the same bits: every same-route pair
+should read 0.  The script measures the spread of ``res_1`` (and whether
+``p`` is bit-identical) at the two shapes of ``chip_smoke.py``, whose
+builders it reuses:
 
 - main: phase 4's north-star tile, ``solve_tile`` twice with the fused
-  joint cost and twice with the torch-op one, in torch's default mode;
-  every fused vs torch-op pair is held to ``RES1_TOL`` as phase 4 holds
-  its one pair;
-- serve: phase 6's bucket of 8 requests in default mode, the
-  ``fused_batch`` route twice, the per-lane torch-op route twice and the
-  per-lane fused route once; then under
-  ``torch.use_deterministic_algorithms(True)`` ``fused_batch`` twice and
-  the torch-op route once.
+  joint cost and twice with the torch-op one; every fused vs torch-op
+  pair is held to ``RES1_TOL`` as phase 4 holds its pair;
+- serve: phase 7's bucket of 8 requests, the ``fused_batch`` route
+  twice, the per-lane torch-op route twice and the per-lane fused route
+  once.
 
 Each line prints the worst per-lane ``|a - b| / |b|`` of ``res_1``.
 """
@@ -35,9 +35,18 @@ import torch
 
 
 def _pairs(runs: dict, rel_max) -> dict:
-    """Worst res_1 difference of every pair of runs, keyed "a vs b"."""
-    return {f"{a} vs {b}": rel_max(runs[a].res_1, runs[b].res_1)
+    """Worst res_1 difference of every pair of runs and whether their
+    ``p`` are bit-identical, keyed "a vs b"."""
+    return {f"{a} vs {b}": {"res_1": rel_max(runs[a].res_1, runs[b].res_1),
+                            "p_bitwise": bool(torch.equal(runs[a].p,
+                                                          runs[b].p))}
             for a, b in itertools.combinations(runs, 2)}
+
+
+def _report(tag: str, card: str, pairs: dict):
+    for k, v in pairs.items():
+        print(f"[{tag}] ({card}) {k}: res_1 {v['res_1']:.3e}, p bit-identical "
+              f"{v['p_bitwise']}", flush=True)
 
 
 def main():
@@ -63,18 +72,16 @@ def main():
     for name, c in (("fused1", cfg), ("fused2", cfg), ("torch_op1", unfused),
                     ("torch_op2", unfused)):
         runs[name] = solve_tile(data, cdata, p0, c)
-        print(f"[main] {name}: res_1 {float(runs[name].res_1):.9e}",
-              flush=True)
-    main_pairs = _pairs(runs, cs.rel_max)
+        print(f"[main] {name}: EM {runs[name].phase_seconds['em']:.3f} s, "
+              f"res_1 {float(runs[name].res_1):.9e}", flush=True)
+    out["main"] = _pairs(runs, cs.rel_max)
     del data, cdata, runs
     torch.cuda.empty_cache()
-    for k, v in main_pairs.items():
-        print(f"[main] ({card}) {k}: {v:.3e}", flush=True)
-    cross = [v for k, v in main_pairs.items()
+    _report("main", card, out["main"])
+    cross = [v["res_1"] for k, v in out["main"].items()
              if k.startswith("fused") and "torch_op" in k]
     print(f"[main] worst fused vs torch-op {max(cross):.3e}, bar "
           f"{cs.RES1_TOL}", flush=True)
-    out["main"] = main_pairs
 
     with tempfile.TemporaryDirectory() as d:
         reqs = cs.serve_requests(d)
@@ -90,20 +97,8 @@ def main():
         print(f"[serve] {name}: {wall:.3f} s, res_1 "
               f"{[f'{x:.6e}' for x in runs[name].res_1.tolist()]}",
               flush=True)
-    torch.use_deterministic_algorithms(True)
-    try:
-        for name, c, fused in (("det_batch1", cfg, True),
-                               ("det_batch2", cfg, True),
-                               ("det_torch_op", unfused, False)):
-            runs[name], wall = cs.serve_solve(reqs, lanes, c, fused=fused)
-            print(f"[serve] {name}: {wall:.3f} s, res_1 "
-                  f"{[f'{x:.6e}' for x in runs[name].res_1.tolist()]}",
-                  flush=True)
-    finally:
-        torch.use_deterministic_algorithms(False)
     out["serve"] = _pairs(runs, cs.rel_max)
-    for k, v in out["serve"].items():
-        print(f"[serve] ({card}) {k}: {v:.3e}", flush=True)
+    _report("serve", card, out["serve"])
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump(out, fh, indent=1)

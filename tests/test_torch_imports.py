@@ -24,6 +24,8 @@ MODULES = (
     "sagecal_tpu_torch.solvers.batched", "sagecal_tpu_torch.solvers.lbfgs",
     "sagecal_tpu_torch.serve", "sagecal_tpu_torch.serve.bucket",
     "sagecal_tpu_torch.tools.reproducibility",
+    "sagecal_tpu_torch.ops.residual", "sagecal_tpu_torch.parallel.manifold",
+    "sagecal_tpu_torch.core.segment", "sagecal_tpu_torch.tools.profile_kernel",
 )
 
 

@@ -1,5 +1,5 @@
-"""Fused-objective CUDA kernels (solo and batched) vs their plain PyTorch
-version, on the card.
+"""The fused CUDA kernels (objective solo and batched, predict) vs their
+plain PyTorch versions, and the bit-reproducible solve, on the card.
 
 Marked ``cuda``: each test needs an NVIDIA GPU and skips without one
 (decided in the fixture, never at import).  This file imports torch
@@ -14,7 +14,9 @@ summation order (cluster sum per row, block tree, then block sum in the
 kernels; torch's reductions in the plain version).  The backward must be
 bit-identical on repeat: it uses no floating-point atomics.  A batched
 lane whose mask is zero (a ragged bucket's pad) must give exactly zero
-cost and cotangent.
+cost and cotangent.  The predict: model error <= 1e-5 of its max abs.
+The LM assembly and a whole default-mode solve must be bit-identical on
+repeat: they sum in a fixed order too.
 """
 
 import pytest
@@ -160,3 +162,99 @@ def test_batched_wrapper_rejects_bad_inputs_on_cuda(cuda):
     with pytest.raises(ValueError):  # nu must be one f32 per lane
         fused_cost_batch_fwd_cuda(prob.tab_re, prob.tab_im, *prob.inputs,
                                   torch.ones(2, device=cuda), True)
+
+
+# ----------------------------------------------- fused predict (#1, #2)
+
+
+@pytest.mark.parametrize("coh_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("nc", [1, 3], ids=["nc1", "nc3"])
+def test_predict_kernels_match_plain_small(cuda, nc, coh_dtype):
+    """Model within 1e-5 of its max abs, gain cotangent within 1e-5 of its
+    norm under a random upstream cotangent, #2 bit-identical on repeat,
+    and a coherency gradient refused."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_predict_with_plain, random_cost_problem,
+    )
+
+    prob = random_cost_problem(**SMALL, nc=nc, coh_dtype=coh_dtype, seed=4,
+                               device=cuda)
+    out = compare_predict_with_plain(prob, seed=1)
+    assert out["model_rel"] <= 1e-5, out
+    assert out["grad_rel"] <= 1e-5, out
+    assert out["bitwise_repeat"], out
+    assert out["sky_error_raised"], out
+
+
+def _small_tile(device, nstations=20, tilesz=12, nclusters=4):
+    """A seeded f32 tile on the card: point clusters, gains identity +
+    0.2 complex-normal, noise 1e-3, solves from the identity."""
+    import numpy as np
+
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import (
+        corrupt_and_observe, make_visdata, random_jones,
+    )
+    from sagecal_tpu_torch.ops.rime import point_source_batch
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    rng = np.random.default_rng(3)
+    data = make_visdata(nstations=nstations, tilesz=tilesz, nchan=2,
+                        device=device)
+    clusters = [point_source_batch(rng.uniform(-0.02, 0.02, 2),
+                                   rng.uniform(-0.02, 0.02, 2),
+                                   rng.uniform(1.0, 5.0, 2), device=device)
+                for _ in range(nclusters)]
+    truth = random_jones(nclusters, nstations, seed=5, amp=0.2, device=device)
+    data = corrupt_and_observe(data, clusters, jones=truth, noise_sigma=1e-3)
+    cdata = build_cluster_data(data, clusters, [1] * nclusters)
+    p0 = jones_to_params(random_jones(nclusters, nstations, seed=9, amp=0.0,
+                                      device=device))[:, None, :]
+    return data, cdata, p0
+
+
+def test_assemble_normal_eq_bit_identical_on_repeat(cuda):
+    """The LM assembly sums in a fixed order: no float atomics."""
+    from sagecal_tpu_torch.solvers.lm import NormalEqPlan, _assemble_normal_eq
+
+    data, cdata, p0 = _small_tile(cuda, nstations=40, tilesz=30)
+    p = p0[0] + 0.05 * torch.randn(p0[0].shape, device=cuda,
+                                   generator=torch.Generator(device=cuda).manual_seed(0))
+    plan = NormalEqPlan(data.ant_p, data.ant_q, cdata.chunk_map[0], 1,
+                        p.shape[-1] // 8)
+    args = (p, cdata.coh[0], data.vis, data.mask, data.ant_p, data.ant_q,
+            cdata.chunk_map[0], plan, None)
+    first = _assemble_normal_eq(*args)
+    for _ in range(3):
+        again = _assemble_normal_eq(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "torch-op"])
+def test_short_sagefit_bit_identical_on_repeat(cuda, fused):
+    """Two default-mode solves of one tile give the same bits (mode 3:
+    OS-LM, robust LM and the joint LBFGS)."""
+    from sagecal_tpu_torch.solvers.sage import SageConfig, sagefit
+
+    data, cdata, p0 = _small_tile(cuda)
+    cfg = SageConfig(solver_mode=3, max_emiter=2, max_iter=4, max_lbfgs=6,
+                     use_fused_predict=fused)
+    a = sagefit(data, cdata, p0, cfg, device=cuda)
+    b = sagefit(data, cdata, p0, cfg, device=cuda)
+    assert torch.equal(a.p, b.p)
+    assert torch.equal(a.res_1, b.res_1)
+    assert float(a.res_1) < float(a.res_0)
+
+
+def test_calculate_residuals_launches_predict_kernel_once(cuda):
+    from sagecal_tpu_torch.ops.residual import calculate_residuals
+    from sagecal_tpu_torch.ops.rime_kernel import fused_predict_fwd_cuda
+    from sagecal_tpu_torch.solvers.sage import predict_full_model
+
+    data, cdata, p0 = _small_tile(cuda)
+    before = fused_predict_fwd_cuda.launches
+    res = calculate_residuals(data, cdata, p0)
+    assert fused_predict_fwd_cuda.launches == before + 1
+    want = data.vis - predict_full_model(p0, cdata, data)
+    assert float((res - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -140,3 +140,93 @@ def test_nu_updates_match_jax():
         assert float(tr.update_nu_aecm(lsw, nu_old)) == pytest.approx(
             float(jr.update_nu_aecm(jnp.asarray(lsw), jnp.asarray(5.0))),
             abs=1e-12)
+
+
+# ---------------------------------------- fixed-order sums (core/segment)
+
+
+def _index_add_normal_eq(p_all, coh, vis, mask, ant_p, ant_q, chunk_map,
+                         nchunk):
+    """The LM assembly with float ``index_add_`` scatters: the reference
+    the fixed-order sums replace."""
+    from sagecal_tpu_torch.solvers.lm import _residual_flat, _row_jacobians
+
+    N = p_all.shape[-1] // 8
+    F, rows = vis.shape[-3], ant_p.shape[0]
+    e = _residual_flat(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, None)
+    cost = torch.zeros(nchunk, dtype=e.dtype).index_add_(
+        0, chunk_map, (e * e).sum(dim=(0, 1)))
+    pblk = p_all.reshape(nchunk * N, 8)
+    Jp, Jq = _row_jacobians(pblk[chunk_map * N + ant_p],
+                            pblk[chunk_map * N + ant_q],
+                            coh.permute(2, 0, 1).reshape(rows, F, 2, 2))
+    w = mask.transpose(0, 1).repeat_interleave(8, dim=1)[..., None]
+    Jp, Jq = Jp * w, Jq * w
+    erow = e.permute(2, 0, 1).reshape(rows, F * 8)
+    JTJ = torch.zeros((nchunk * N * N, 8, 8), dtype=e.dtype)
+    base = chunk_map * N * N
+    JTJ.index_add_(0, base + ant_p * N + ant_p, Jp.mT @ Jp)
+    JTJ.index_add_(0, base + ant_p * N + ant_q, Jp.mT @ Jq)
+    JTJ.index_add_(0, base + ant_q * N + ant_p, Jq.mT @ Jp)
+    JTJ.index_add_(0, base + ant_q * N + ant_q, Jq.mT @ Jq)
+    JTe = torch.zeros((nchunk * N, 8), dtype=e.dtype)
+    JTe.index_add_(0, chunk_map * N + ant_p, torch.einsum("rki,rk->ri", Jp, erow))
+    JTe.index_add_(0, chunk_map * N + ant_q, torch.einsum("rki,rk->ri", Jq, erow))
+    JTJ = JTJ.reshape(nchunk, N, N, 8, 8).permute(0, 1, 3, 2, 4)
+    return JTJ.reshape(nchunk, 8 * N, 8 * N), JTe.reshape(nchunk, 8 * N), cost
+
+
+@pytest.mark.parametrize("nchunks", [[1, 1], [2, 1]], ids=["nc1", "nc2"])
+def test_fixed_order_assembly_matches_index_add(nchunks):
+    """At f64 the segment sums give the index_add_ assembly to 1e-12."""
+    from sagecal_tpu_torch.solvers.lm import NormalEqPlan, _assemble_normal_eq
+
+    _, targs = _problem(nchunks)
+    vis, coh, mask, ant_p, ant_q, cmap, p0 = targs
+    p = p0 + 0.05 * torch.from_numpy(
+        np.random.default_rng(1).standard_normal(tuple(p0.shape)))
+    plan = NormalEqPlan(ant_p, ant_q, cmap, p.shape[0], p.shape[-1] // 8)
+    got = _assemble_normal_eq(p, coh, vis, mask, ant_p, ant_q, cmap, plan,
+                              None)
+    want = _index_add_normal_eq(p, coh, vis, mask, ant_p, ant_q, cmap,
+                                p.shape[0])
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max())
+
+
+def test_segment_plan_sums_in_item_order():
+    """Per destination, the sum of its items; empty destinations get 0;
+    the same bits on every call."""
+    from sagecal_tpu_torch.core.segment import SegmentPlan
+
+    rng = np.random.default_rng(4)
+    dest = torch.from_numpy(rng.integers(0, 7, 300))
+    dest[dest == 5] = 6  # destination 5 gets no item
+    vals = torch.from_numpy(rng.standard_normal((300, 3, 2)))
+    plan = SegmentPlan(dest, 9)
+    got = plan.sum(vals)
+    want = torch.zeros((9, 3, 2), dtype=vals.dtype).index_add_(0, dest, vals)
+    assert got.shape == (9, 3, 2)
+    assert float((got - want).abs().max()) <= 1e-12
+    assert torch.equal(got[5], torch.zeros(3, 2, dtype=vals.dtype))
+    assert torch.equal(got, plan.sum(vals))
+    with pytest.raises(ValueError):
+        plan.sum(vals[:10])
+
+
+def test_gather_rows_backward_is_index_select_backward():
+    from sagecal_tpu_torch.core.segment import gather_rows
+
+    rng = np.random.default_rng(5)
+    tab = torch.from_numpy(rng.standard_normal((6, 4))
+                           + 1j * rng.standard_normal((6, 4)))
+    idx = torch.from_numpy(rng.integers(0, 6, 40))
+    g = torch.from_numpy(rng.standard_normal((40, 4))
+                         + 1j * rng.standard_normal((40, 4)))
+    a = tab.clone().requires_grad_(True)
+    b = tab.clone().requires_grad_(True)
+    out = gather_rows(a, idx)
+    assert torch.equal(out, tab.index_select(0, idx))
+    (ga,) = torch.autograd.grad(out, a, g)
+    (gb,) = torch.autograd.grad(b.index_select(0, idx), b, g)
+    assert float((ga - gb).abs().max()) <= 1e-12
