@@ -41,13 +41,29 @@ each printing lines of its own; any failure exits non-zero:
 5. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
             fused predict, the composed robust cost on it, its gradient
             and a 20-iteration LBFGS that must lower the cost; kernels #1
-            and #2 must launch (counts set to 0 just before); then
+            and #2 must launch (counts set to 0 just before; the launches
+            the LBFGS itself made are the path's count); then
             ``kdiag.py``'s three rungs for kernel #1;
-6. times    phase wall times, each solo kernel's time from CUDA events
+6. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
+            variants c b a d e f on the card (counts set to 0 just
+            before): every variant prints ok, each value within 1e-5
+            relative of the JAX package's (``KBISECT_JAX_VALUES``), the
+            probes #7-#10 (c, b, a, f) launched once each, #1 twice (d,
+            e) and #2 once (e); then each probe against its plain version
+            at kbisect's shapes and at the north-star width (Mp 104,
+            113,664 columns or rows; a: R 444 x T 256), random inputs
+            from a CUDA generator seeded 0: max abs error <= 1e-5 of the
+            plain output's max abs, bit-identical on repeat, station
+            indices -1, NPAD and 200 giving exactly the plain version's
+            zeros (a, f), and probe b refusing F = 2; each probe's time
+            at both shapes, on the device alone and host-paced, beside
+            its bound and its plain version's (and, for c and b, one
+            ``torch.einsum`` computing the same function);
+7. times    phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
             time, and peak device memory, each beside the card's name and
             power limit;
-7. serve    the batched serve solve of one bucket of 8 requests, each a
+8. serve    the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
@@ -65,7 +81,8 @@ each printing lines of its own; any failure exits non-zero:
             lanes within 1e-5 of the full bucket's), all in default mode;
             the batched kernels' times beside their bounds.
 
-The line before the last two is one JSON object ``{"kernels": [...]}``,
+The line before the last two is one JSON object ``{"kernels": [...]}``
+(all ten kernels; the probes at the north-star width),
 the line before the last is nvidia-smi's ``name, power.limit``, and the
 last line is ``{"ok": true, "device": {...}}``.  The main path's EM and
 LBFGS depth can be cut with the options below; the widths cannot.
@@ -101,9 +118,24 @@ SERVE_B, SERVE_CLUSTERS, SERVE_RAGGED = 8, 8, 6
 SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 3, 2, 10
 SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
 
-SOURCE = "sagecal_tpu_torch/csrc/fused_cost.cu"
+# the kbisect tool's run: every variant, in the JAX tool's documented order
+BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
+# probe shapes: kbisect's own, and the north-star width (Mp 104 clusters
+# as kdiag.py's top rung, 113,664 = 444 x 256 columns or rows)
+BISECT_SHAPES = {"kbisect": {p: dict(mp=8, T=256, R=2) for p in "cbaf"},
+                 "north-star": {"c": dict(mp=104, T=113664),
+                                "b": dict(mp=104, T=256, R=444),
+                                "a": dict(mp=104, T=256, R=444),
+                                "f": dict(mp=104, T=113664)}}
+PROBE_TOL = 1e-5  # probe vs plain, relative to the plain output's max abs
+BISECT_VAL_TOL = 1e-5  # tool values vs the JAX package's, relative
+
 KERNELS = ("fused_predict_fwd", "fused_predict_bwd", "fused_cost_fwd",
            "fused_cost_bwd", "fused_cost_batch_fwd", "fused_cost_batch_bwd")
+PROBES = {"kbisect_c": "c", "kbisect_b": "b", "kbisect_a": "a",
+          "kbisect_f": "f"}
+SOURCE = {k: "sagecal_tpu_torch/csrc/fused_cost.cu" for k in KERNELS}
+SOURCE.update({k: f"sagecal_tpu_torch/csrc/{k}.cu" for k in PROBES})
 REPLACES = {
     "fused_predict_fwd": "sagecal_tpu/ops/rime_kernel.py:265",
     "fused_predict_bwd": "sagecal_tpu/ops/rime_kernel.py:407",
@@ -111,6 +143,10 @@ REPLACES = {
     "fused_cost_bwd": "sagecal_tpu/ops/rime_kernel.py:877",
     "fused_cost_batch_fwd": "sagecal_tpu/ops/rime_kernel.py:1250",
     "fused_cost_batch_bwd": "sagecal_tpu/ops/rime_kernel.py:1273",
+    "kbisect_c": "kbisect.py:23",
+    "kbisect_b": "kbisect.py:49",
+    "kbisect_a": "kbisect.py:77",
+    "kbisect_f": "kbisect.py:158",
 }
 
 
@@ -335,10 +371,11 @@ def phase_main(args, dirname: str, data, cdata, p0):
     return {
         "launches": launches, "lbfgs_iterations": res.lbfgs_iterations,
         "em_s": [res.phase_seconds["em"], res2.phase_seconds["em"]],
-        "lbfgs_s": res.phase_seconds["lbfgs"],
+        "lbfgs_s": [res.phase_seconds["lbfgs"], res2.phase_seconds["lbfgs"]],
         "em_s_torch_op": [res_u.phase_seconds["em"],
                           res_u2.phase_seconds["em"]],
-        "lbfgs_s_torch_op": res_u.phase_seconds["lbfgs"],
+        "lbfgs_s_torch_op": [res_u.phase_seconds["lbfgs"],
+                             res_u2.phase_seconds["lbfgs"]],
         "peak_bytes": peak, "nu": float(res.mean_nu), "res_0": r0,
         "res_1": r1, "res_1_torch_op": r1u, "bitwise_fused": same_fused,
         "bitwise_torch_op": same_u, "residual": residual,
@@ -422,6 +459,151 @@ def phase_predict(data, cdata, p0, card: str):
     if not out["lbfgs_cost1"] < out["lbfgs_cost0"]:
         fail("the LBFGS on the composed predict cost did not lower it")
     return out
+
+
+def bisect_run():
+    """The kbisect tool's main path: ``run`` of every variant on the card,
+    launch counts set to 0 just before it and read just after.  Returns
+    (values, launches)."""
+    from sagecal_tpu_torch.kernels.parity import KBISECT_JAX_VALUES
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    counters = {k: getattr(kb, f"probe_{p}_cuda") for k, p in PROBES.items()}
+    counters.update({k: getattr(rk, k + "_cuda") for k in KERNELS[:2]})
+    for c in counters.values():
+        c.launches = 0
+    vals = kb.run(BISECT_VARIANTS)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: 1 for k in PROBES}
+    want.update(fused_predict_fwd=2, fused_predict_bwd=1)  # d, e; e
+    print(f"[bisect] launches in the tool's run: {launches}", flush=True)
+    if launches != want:
+        fail(f"kbisect run launched {launches}, want {want}")
+    for name, v in vals.items():
+        ref = KBISECT_JAX_VALUES[name]
+        rel = abs(v["val"] - ref) / abs(ref)
+        v["rel_vs_jax"] = rel
+        ok = rel <= BISECT_VAL_TOL
+        print(f"[bisect] {name}: val={v['val']!r} JAX {ref!r} rel "
+              f"{rel:.3e} {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            fail(f"kbisect variant {name} gave {v['val']}, JAX {ref}")
+    return vals, launches
+
+
+def bisect_parity():
+    """Each probe against its plain version at both shapes, with station
+    indices out of range mixed in for a and f, and probe b refusing
+    F = 2.  Returns {kernel: worst max abs error}."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_probe_with_plain, mix_out_of_range, random_probe_inputs,
+    )
+    from sagecal_tpu_torch.tools.kbisect import probe_b
+
+    worst = {k: 0.0 for k in PROBES}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (k, name), shape in itertools.product(PROBES.items(), BISECT_SHAPES):
+        sh = BISECT_SHAPES[shape][name]
+        inputs = random_probe_inputs(name, gen, **sh)
+        cases = [("", inputs, None)]
+        if name in ("a", "f"):
+            cases.append((" out-of-range", *mix_out_of_range(name, inputs)))
+        for label, args, zero in cases:
+            out = compare_probe_with_plain(name, args, zero)
+            ok = (out["rel"] <= PROBE_TOL and out["bitwise_repeat"]
+                  and out["zeros_exact"])
+            print(f"[bisect-parity] {k} {shape}{label} {sh}: rel="
+                  f"{out['rel']:.3e} max_abs_err={out['max_abs_err']:.3e} "
+                  f"bitwise_repeat={out['bitwise_repeat']} zeros_exact="
+                  f"{out['zeros_exact']} {'ok' if ok else 'FAILED'}",
+                  flush=True)
+            if not ok:
+                fail(f"probe {k} parity at {shape}{label}: {out}")
+            worst[k] = max(worst[k], out["max_abs_err"])
+        del inputs, cases
+    try:
+        probe_b(torch.zeros((8, 2, 8, 512), device="cuda"))
+    except ValueError:
+        print("[bisect-parity] kbisect_b with F = 2 raised ValueError ok",
+              flush=True)
+    else:
+        fail("probe b accepted F = 2")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def bisect_times() -> dict:
+    """Each probe's kernel, plain-version and (for c and b) library-call
+    times at both shapes beside its bound: {kernel: {shape: {...}}}.  The
+    kernel and the library call are timed on the device alone
+    (``device_ms``), since at kbisect's shape (and for a and f at both)
+    their host work outlasts their kernels; ``host_paced_ms`` is the
+    kernel's time over back-to-back calls (``cuda_ms``), host included.
+    The library call must agree with the plain version as the kernel
+    does."""
+    from sagecal_tpu_torch.kernels.parity import (
+        kbisect_work, probe_library_call, random_probe_inputs, roofline,
+    )
+    from sagecal_tpu_torch.tools import kbisect as kb
+    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms, device_ms
+    from sagecal_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for k, name in PROBES.items():
+        out[k] = {}
+        kern = getattr(kb, f"probe_{name}_cuda")
+        plain = getattr(kb, f"probe_{name}_plain")
+        for shape in BISECT_SHAPES:
+            sh = BISECT_SHAPES[shape][name]
+            args = random_probe_inputs(name, gen, **sh)
+            reps = 50 if shape == "north-star" and name in "cb" else 200
+            row = {"ms": device_ms(lambda: kern(*args), reps),
+                   "host_paced_ms": cuda_ms(lambda: kern(*args), reps)}
+            with torch.no_grad():
+                row["plain_ms"] = cuda_ms(lambda: plain(*args), 20)
+                lib = probe_library_call(name, args)
+                row["library_ms"] = None
+                if lib is not None:
+                    with full_f32():
+                        want = plain(*args).reshape(-1).double()
+                        err = float((lib().reshape(-1).double() - want)
+                                    .abs().max()) / float(want.abs().max())
+                        if not err <= PROBE_TOL:
+                            fail(f"{k}'s library call differs from its plain "
+                                 f"version by {err:.3e} at {shape}")
+                        row["library_rel"] = err
+                        row["library_ms"] = device_ms(lib, 20)
+            row.update(roofline(*kbisect_work(name, args)))
+            row["shape"] = sh
+            out[k][shape] = row
+            del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bisect(card: str):
+    """The kbisect tool on the card (module doc, phase 6)."""
+    t = time.perf_counter()
+    vals, launches = bisect_run()
+    worst = bisect_parity()
+    times = bisect_times()
+    for k, rows in times.items():
+        for shape, v in rows.items():
+            lib = ("" if v["library_ms"] is None
+                   else f", torch.einsum {v['library_ms']:.4f} ms (rel "
+                        f"{v['library_rel']:.1e} vs plain)")
+            print(f"[times] ({card}) {k} at {shape} {v['shape']}: "
+                  f"{v['ms']:.4f} ms on the device ({v['host_paced_ms']:.4f} "
+                  f"ms host-paced), bound {v['bound_ms']:.6f} ms "
+                  f"({v['bound_by']}: {v['bytes']} B, {v['flops']} flop), "
+                  f"plain {v['plain_ms']:.4f} ms{lib}, {launches[k]} launch "
+                  f"per kbisect run", flush=True)
+    secs = time.perf_counter() - t
+    print(f"[bisect] phase wall time {secs:.1f} s", flush=True)
+    return {"values": vals, "launches": launches, "worst": worst,
+            "times": times, "seconds": secs}
 
 
 def phase_times(nu: float):
@@ -586,7 +768,7 @@ def serve_solve(reqs, idx, config, valid=None, fused=True):
 
 
 def phase_serve(dirname: str):
-    """The batched serve solve of one bucket (module doc, phase 7)."""
+    """The batched serve solve of one bucket (module doc, phase 8)."""
     from sagecal_tpu_torch.serve import bucket_of, pad_indices
     from sagecal_tpu_torch.solvers.batched import (
         choose_batched_path, derive_lane_generators, stack_lanes,
@@ -680,7 +862,7 @@ def phase_serve(dirname: str):
         "bucket": bucket.short(), "route": path, "launches": launches,
         "lbfgs_iterations": res.lbfgs_iterations,
         "em_s": [res.phase_seconds["em"], res2.phase_seconds["em"]],
-        "lbfgs_s": res.phase_seconds["lbfgs"],
+        "lbfgs_s": [res.phase_seconds["lbfgs"], res2.phase_seconds["lbfgs"]],
         "wall_s": [wall, wall2], "sequential_s": wall_seq,
         "bitwise_repeat": same, "torch_op_s": wall_u, "ragged_s": wall_r,
         "peak_bytes": peak, "res_0": r0.tolist(), "res_1": r1.tolist(),
@@ -767,19 +949,21 @@ def main():
     pred_out = phase_predict(data, cdata, p0, card)
     del data, cdata
     torch.cuda.empty_cache()
+    bisect_out = phase_bisect(card)
     times = phase_times(main_out["nu"])
 
     em, em_u = main_out["em_s"], main_out["em_s_torch_op"]
+    lb, lb_u = main_out["lbfgs_s"], main_out["lbfgs_s_torch_op"]
     print(f"[times] ({card}) coherencies {coh_s:.3f} s, EM {em[0]:.3f} and "
           f"{em[1]:.3f} s (fused runs), {em_u[0]:.3f} and {em_u[1]:.3f} s "
-          f"(torch-op runs), joint LBFGS (fused) {main_out['lbfgs_s']:.3f} s "
-          f"over {main_out['lbfgs_iterations']} iterations, joint LBFGS "
-          f"(torch-op) {main_out['lbfgs_s_torch_op']:.3f} s", flush=True)
+          f"(torch-op runs), joint LBFGS (fused) {lb[0]:.3f} and {lb[1]:.3f} "
+          f"s over {main_out['lbfgs_iterations']} iterations, joint LBFGS "
+          f"(torch-op) {lb_u[0]:.3f} and {lb_u[1]:.3f} s", flush=True)
     print(f"[times] ({card}) peak device memory of the fused solve "
           f"{main_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     launches = dict(main_out["launches"])
-    launches.update(pred_out["launches"])
-    path = {k: f"the predict path ({pred_out['lbfgs_iterations']} LBFGS "
+    launches.update(pred_out["lbfgs_launches"])
+    path = {k: f"the predict path's LBFGS ({pred_out['lbfgs_iterations']} "
                f"iterations)" for k in KERNELS[:2]}
     path.update({k: f"the main path ({main_out['lbfgs_iterations']} LBFGS "
                     f"iterations)" for k in KERNELS[2:4]})
@@ -792,27 +976,36 @@ def main():
     times.update(serve_t)
     print(f"[times] ({card}) serve bucket: EM {serve_out['em_s'][0]:.3f} and "
           f"{serve_out['em_s'][1]:.3f} s, joint LBFGS (fused_batch) "
-          f"{serve_out['lbfgs_s']:.3f} s over "
+          f"{serve_out['lbfgs_s'][0]:.3f} and {serve_out['lbfgs_s'][1]:.3f} "
+          f"s over "
           f"{serve_out['lbfgs_iterations']} iterations, peak device memory "
           f"{serve_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     launches.update({k: serve_out["launches"][k] for k in KERNELS[4:]})
     path.update({k: "the serve path" for k in KERNELS[4:]})
     print_times(card, serve_t, launches, path)
 
+    # the probes' entries: their north-star-width times and the kbisect
+    # run's launches
+    launches.update({k: bisect_out["launches"][k] for k in PROBES})
+    worst.update(bisect_out["worst"])
+    for k, rows in bisect_out["times"].items():
+        times[k] = rows["north-star"]
+
     kernels = []
-    for k in KERNELS:
+    for k in KERNELS + tuple(PROBES):
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE,
+            "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": worst[k], "ms": times[k]["ms"],
             "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
-            "bound_by": times[k]["bound_by"], "library_ms": None,
-            "parity": "pass",
+            "bound_by": times[k]["bound_by"],
+            "library_ms": times[k].get("library_ms"), "parity": "pass",
         })
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "predict": pred_out,
-                       "serve": serve_out, "times": times, "kernels": kernels,
+                       "bisect": bisect_out, "serve": serve_out,
+                       "times": times, "kernels": kernels,
                        "coherencies_s": coh_s,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from sagecal_tpu_torch.core.segment import gather_rows
+from sagecal_tpu_torch.device import resolve_device
 
 # Speed of light (m/s); u, v, w are stored in seconds (metres / c).
 C0 = 299792458.0
@@ -114,8 +115,9 @@ def jones_to_params(jones: torch.Tensor) -> torch.Tensor:
 
 
 def identity_jones(nstations: int, dtype=torch.complex64, device=None) -> torch.Tensor:
-    """(N, 2, 2) stack of identity Jones matrices."""
-    eye = torch.eye(2, dtype=dtype, device=device)
+    """(N, 2, 2) stack of identity Jones matrices, on ``device`` (None:
+    CUDA; raises without it)."""
+    eye = torch.eye(2, dtype=dtype, device=resolve_device(device))
     return eye.expand(nstations, 2, 2).clone()
 
 

@@ -56,6 +56,15 @@ SIGNATURES = {
         "fused_predict_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P, _P, _P], _I),
     },
+    # the kbisect probes #7-#10, one source each (tools/kbisect.py)
+    # tab, oh, mp, npad, T, out, stream
+    "kbisect_c": {"kbisect_c": ([_P, _P, _I, _I, _I, _P, _P], _I)},
+    # coh, mp, rows, out, stream
+    "kbisect_b": {"kbisect_b": ([_P, _I, _I, _P, _P], _I)},
+    # antp, tab, mp, npad, R, T, partial, out, stream
+    "kbisect_a": {"kbisect_a": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I)},
+    # antp, tab, mp, npad, T, out, stream
+    "kbisect_f": {"kbisect_f": ([_P, _P, _I, _I, _I, _P, _P], _I)},
 }
 
 _loaded: dict = {}

@@ -368,3 +368,129 @@ def fused_cost_batch_work(prob: BatchCostProblem) -> dict:
         "bwd": (inputs + tables,
                 _BWD_FLOPS * cells + 2 * _RESIDUAL_FLOPS * rows),
     }
+
+
+# ------------------------------------------------- kbisect probes (#7-#10)
+#
+# The probes of ``tools/kbisect.py``.  ``inputs`` is the probe's input
+# tuple in its order (c: tab, oh; b: coh; a: antp, tab; f: antp, tab);
+# probe a's row block is the tool's ``T``, read at call time.
+
+# The JAX package's values of ``kbisect.py``'s six variants on its own
+# inputs, recorded on the CPU (Pallas interpret mode, exact f32); a CPU
+# test pins them to JAX's live output.  The port's variants draw the
+# same bytes, so ``chip_smoke.py`` holds the card to these without
+# importing JAX.
+KBISECT_JAX_VALUES = {
+    "c": -9362.337890625,
+    "b": 32622.32421875,
+    "a": 163.71005249023438,
+    "f": 20.169593811035156,
+    "d": 126.0821533203125,
+    "e": 1091.026123046875,
+}
+
+PROBES = ("c", "b", "a", "f")
+
+
+def random_probe_inputs(name: str, gen: torch.Generator, mp: int, T: int,
+                        R: int = 1, npad: int = 128, stations: int = 62):
+    """Seeded inputs of probe ``name`` on the generator's device:
+    standard-normal f32 tables (and oh / coherencies), station indices
+    in [0, stations) int32.  ``T`` is the columns of c and f and the row
+    block of a; b has R T rows and a R T indices."""
+    dev = gen.device
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    ant = lambda n: torch.randint(0, stations, (1, n), generator=gen,
+                                  device=dev, dtype=torch.int32)
+    return {
+        "c": lambda: (randn(4 * mp, npad), randn(npad, T)),
+        "b": lambda: (randn(mp, 1, 8, R * T),),
+        "a": lambda: (ant(R * T), randn(4 * mp, npad)),
+        "f": lambda: (ant(T), randn(4, mp, npad)),
+    }[name]()
+
+
+def mix_out_of_range(name: str, inputs):
+    """Probe a or f inputs with station indices -1, npad and 200 mixed
+    in -> (inputs, zero): ``zero`` (the output's last axis) marks the
+    columns every index of which is out of range, whose output must be
+    exactly 0.  Every 7th column is wholly out of range; a, whose
+    columns take R indices, also gets every 5th revisit of every
+    column out of range."""
+    antp, tab = inputs
+    npad = tab.shape[-1]
+    bad = torch.tensor([-1, npad, 200], dtype=torch.int32, device=antp.device)
+    ncols = antp.shape[1] if name == "f" else _kbisect().T
+    a = antp.clone().reshape(-1, ncols)  # (revisits, columns)
+    zero = torch.zeros(ncols, dtype=torch.bool, device=antp.device)
+    zero[::7] = True
+    a[:, zero] = bad[torch.arange(int(zero.sum()), device=a.device) % 3]
+    if name == "a":
+        a[::5] = bad[torch.arange(ncols, device=a.device) % 3]
+    return (a.reshape(1, -1).contiguous(), tab), zero
+
+
+def _kbisect():
+    from sagecal_tpu_torch.tools import kbisect
+
+    return kbisect
+
+
+def compare_probe_with_plain(name: str, inputs, zero=None) -> dict:
+    """Probe ``name``'s kernel (through its wrapper) against its plain
+    version on the same inputs: {"rel" (max abs error over the plain
+    output's max abs), "max_abs_err", "bitwise_repeat", "zeros_exact"
+    (the ``zero`` columns exactly 0 in both; True without ``zero``)}."""
+    kb = _kbisect()
+    fn, plain = getattr(kb, f"probe_{name}"), getattr(kb, f"probe_{name}_plain")
+    k1 = fn(*inputs)
+    k2 = fn(*inputs)
+    p = plain(*inputs)
+    err = float((k1.double() - p.double()).abs().max())
+    zeros = True
+    if zero is not None:
+        zeros = bool((k1[..., zero] == 0).all() and (p[..., zero] == 0).all())
+    return {"rel": err / float(p.abs().max()), "max_abs_err": err,
+            "bitwise_repeat": bool(torch.equal(k1, k2)), "zeros_exact": zeros}
+
+
+def probe_library_call(name: str, inputs):
+    """One PyTorch call computing probe ``name``'s whole function on
+    these inputs, as a thunk (its output may drop the leading axis of
+    1), or None where there is none: c and b are one ``torch.einsum``
+    each; a and f select with a bounds mask first, so no single call
+    computes them.  Call under ``full_f32`` (no TF32)."""
+    if name == "c":
+        tab, oh = inputs
+        t = tab.view(tab.shape[0] // 4, 2, 2, tab.shape[1])
+        # g[4m + 2p] g[4m + 2p + 1] summed over m and p = 0, 1
+        return lambda: torch.einsum("mpn,nt,mpk,kt->t", t[:, :, 0], oh,
+                                    t[:, :, 1], oh)
+    if name == "b":
+        (coh,) = inputs
+        return lambda: torch.einsum("mfkr,mfkr->fkr", coh, coh)
+    return None
+
+
+def kbisect_work(name: str, inputs) -> tuple:
+    """(bytes, flops) probe ``name`` needs on these inputs: every input
+    read once, the output written once; the flops its function does (a
+    and f count only the in-range station indices, which select
+    something)."""
+    nbytes = sum(x.numel() * x.element_size() for x in inputs)
+    if name == "c":
+        tab, oh = inputs
+        rows, cols = tab.shape[0], oh.shape[1]
+        return nbytes + 4 * cols, 2 * rows * oh.shape[0] * cols + rows * cols
+    if name == "b":
+        mp, _, _, rows = inputs[0].shape
+        return nbytes + 4 * 8 * rows, 2 * mp * 8 * rows
+    antp, tab = inputs
+    npad = tab.shape[-1]
+    valid = int(((antp >= 0) & (antp < npad)).sum())
+    if name == "a":
+        block = _kbisect().T
+        mp, nrev = tab.shape[0] // 4, antp.shape[1] // block
+        return nbytes + 4 * 4 * block, 4 * mp * valid + 4 * block * (nrev - 1)
+    return nbytes + 4 * antp.shape[1], 4 * tab.shape[1] * valid

@@ -187,14 +187,14 @@ def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
 def _check_tensors(dev, want: dict):
     """Raise ValueError unless every ``name: (tensor, shape, dtypes)`` of
     ``want`` is a contiguous tensor on ``dev`` (CUDA) of that shape and
-    one of those dtypes."""
+    one of those dtypes.  Shared by every CUDA launcher of the port."""
     if dev.type != "cuda":
-        raise ValueError(f"fused kernels need CUDA tensors, got {dev}")
+        raise ValueError(f"CUDA kernels need CUDA tensors, got {dev}")
     for name, (x, shape, dtypes) in want.items():
         if x is None:
-            raise ValueError(f"fused kernels: {name} is required")
+            raise ValueError(f"CUDA kernels: {name} is required")
         if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, tables on {dev}")
+            raise ValueError(f"{name} on {x.device}, the first input on {dev}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)}, want {shape}")
         if x.dtype not in dtypes:

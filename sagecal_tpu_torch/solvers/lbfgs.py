@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.utils.precision import true_f32
 
 CLM_STOP_THRESH = 1e-9
@@ -49,6 +50,9 @@ class LBFGSMemory:
 
     @staticmethod
     def init(n: int, M: int = 7, dtype=torch.float32, device=None) -> "LBFGSMemory":
+        """Empty store of M pairs of length n on ``device`` (None: CUDA;
+        raises without it)."""
+        device = resolve_device(device)
         z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
         return LBFGSMemory(s=z(M, n), y=z(M, n), rho=z(M),
                            running_avg=z(n), running_avg_sq=z(n))
@@ -208,7 +212,9 @@ def batched_memory(B: int, n: int, M: int = 7, dtype=torch.float32,
     """Fresh :class:`LBFGSMemory` whose every field carries a leading
     batch axis ``B``: ``s``/``y`` (B, M, n), ``rho`` (B, M), and
     ``vacant``/``nfilled``/``niter`` as (B,) int64 tensors — the per-lane
-    curvature store of :func:`lbfgs_fit_batched`."""
+    curvature store of :func:`lbfgs_fit_batched`.  ``device`` None means
+    CUDA (raises without it)."""
+    device = resolve_device(device)
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     zi = torch.zeros((B,), dtype=torch.int64, device=device)
     return LBFGSMemory(s=z(B, M, n), y=z(B, M, n), rho=z(B, M),

@@ -15,7 +15,9 @@ events, from the tile's starting gains:
 - the composed robust cost ``sum log1p(|vis - model|^2 mask / nu)``
   (nu = 5) on kernel #1;
 - that cost with its gradient (kernels #1 and #2);
-- a 20-iteration ``lbfgs_fit`` on the composed cost, which must lower it;
+- a 20-iteration ``lbfgs_fit`` on the composed cost, which must lower it,
+  and the launches of #1 and #2 it made (the path's use of the kernels,
+  without the timing repeats above);
 - the HBM bandwidth the forward implies (coherency bytes over its time).
 
 Then kernel #1 alone at ``kdiag.py``'s three rungs (Mp 8/40/104, F 2,
@@ -55,13 +57,47 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn()`` with the host's per-call work
+    hidden: a sleep kernel holds the stream while the host enqueues all
+    ``reps`` calls, so the events time the device running them back to
+    back.  For calls whose host work (checks, allocation, the launch
+    itself) outlasts their kernels, which ``cuda_ms`` times by the host's
+    enqueue rate.  Raises if the host cannot enqueue them inside the
+    longest sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    # twice the host's time for the calls, at up to 2 GHz
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        covered = not start.query()  # the sleep still holds the stream
+        end.record()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host did not enqueue the calls inside the sleep")
+
+
 def profile(data, cdata, p0, card: str) -> dict:
     """Time the fused predict path at this tile (module doc); prints one
     line per number and returns them.  ``p0``: (M, 1, 8N) on the tile's
     device."""
     from sagecal_tpu_torch.core.types import params_to_jones
     from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_predict_packed, pack_gain_tables, pack_predict_inputs,
+        fused_predict_bwd_cuda, fused_predict_fwd_cuda, fused_predict_packed,
+        pack_gain_tables, pack_predict_inputs,
     )
     from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit
     from sagecal_tpu_torch.solvers.sage import predict_full_model
@@ -95,11 +131,17 @@ def profile(data, cdata, p0, card: str) -> dict:
         out["cost_ms"] = cuda_ms(lambda: cost_fn(p), 20)
         cost0 = float(cost_fn(p))
     out["cost_grad_ms"] = cuda_ms(cost_and_grad, 10)
+    counters = {"fused_predict_fwd": fused_predict_fwd_cuda,
+                "fused_predict_bwd": fused_predict_bwd_cuda}
+    before = {k: c.launches for k, c in counters.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fit = lbfgs_fit(cost_fn, None, p, itmax=LBFGS_ITERS, M=7)
     torch.cuda.synchronize()
     out["lbfgs_s"] = time.perf_counter() - t0
+    # the LBFGS's own launches: the path's use, without timing repeats
+    out["lbfgs_launches"] = {k: c.launches - before[k]
+                             for k, c in counters.items()}
     out["lbfgs_iterations"] = fit.iterations
     out["lbfgs_cost0"], out["lbfgs_cost1"] = cost0, float(fit.cost)
     coh_bytes = coh_ri.numel() * coh_ri.element_size()
@@ -115,8 +157,8 @@ def profile(data, cdata, p0, card: str) -> dict:
     print(f"[predict] ({card}) {LBFGS_ITERS}-iteration LBFGS on the composed "
           f"cost: {out['lbfgs_s']:.3f} s, {fit.iterations} iterations, "
           f"{out['lbfgs_s'] / max(fit.iterations, 1) * 1e3:.2f} ms per "
-          f"iteration; cost {cost0:.6e} -> {out['lbfgs_cost1']:.6e}",
-          flush=True)
+          f"iteration; cost {cost0:.6e} -> {out['lbfgs_cost1']:.6e}; "
+          f"launches {out['lbfgs_launches']}", flush=True)
     print(f"[predict] ({card}) implied bandwidth of the forward: "
           f"{out['predict_gb_s']:.0f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f} "
           f"GB/s (data sheet)", flush=True)

@@ -1,5 +1,7 @@
-"""The fused CUDA kernels (objective solo and batched, predict) vs their
-plain PyTorch versions, and the bit-reproducible solve, on the card.
+"""The fused CUDA kernels (objective solo and batched, predict) and the
+kbisect probes vs their plain PyTorch versions, the port's kbisect tool
+against the JAX package's values, and the bit-reproducible solve, on
+the card.
 
 Marked ``cuda``: each test needs an NVIDIA GPU and skips without one
 (decided in the fixture, never at import).  This file imports torch
@@ -16,7 +18,9 @@ bit-identical on repeat: it uses no floating-point atomics.  A batched
 lane whose mask is zero (a ragged bucket's pad) must give exactly zero
 cost and cotangent.  The predict: model error <= 1e-5 of its max abs.
 The LM assembly and a whole default-mode solve must be bit-identical on
-repeat: they sum in a fixed order too.
+repeat: they sum in a fixed order too.  The kbisect probes: max abs
+error <= 1e-5 of the plain output's max abs, bit-identical on repeat,
+exactly 0 where every station index is out of range.
 """
 
 import pytest
@@ -258,3 +262,101 @@ def test_calculate_residuals_launches_predict_kernel_once(cuda):
     assert fused_predict_fwd_cuda.launches == before + 1
     want = data.vis - predict_full_model(p0, cdata, data)
     assert float((res - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ------------------------------------------- kbisect probes (#7-#10)
+#
+# Expected values come from the plain versions and from
+# ``KBISECT_JAX_VALUES`` (the JAX package's values, recorded on the CPU):
+# this file imports neither JAX nor the root ``kbisect.py``.
+
+KBISECT_SHAPES = {"kbisect": dict(mp=8, T=256, R=2),
+                  "mp16-r3": dict(mp=16, T=256, R=3)}
+
+
+def _probe_inputs(name, shape, device, seed=0):
+    from sagecal_tpu_torch.kernels.parity import random_probe_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return random_probe_inputs(name, gen, **KBISECT_SHAPES[shape])
+
+
+@pytest.mark.parametrize("shape", list(KBISECT_SHAPES))
+@pytest.mark.parametrize("name", ["c", "b", "a", "f"])
+def test_kbisect_probe_matches_plain(cuda, name, shape):
+    """Within 1e-5 of the plain output's max abs, bit-identical on
+    repeat."""
+    from sagecal_tpu_torch.kernels.parity import compare_probe_with_plain
+
+    inputs = _probe_inputs(name, shape, cuda)
+    out = compare_probe_with_plain(name, inputs)
+    assert out["rel"] <= 1e-5, out
+    assert out["bitwise_repeat"], out
+
+
+@pytest.mark.parametrize("name", ["a", "f"])
+def test_kbisect_out_of_range_indices_give_exact_zeros(cuda, name):
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_probe_with_plain, mix_out_of_range,
+    )
+
+    inputs = _probe_inputs(name, "mp16-r3", cuda, seed=1)
+    inputs, zero = mix_out_of_range(name, inputs)
+    out = compare_probe_with_plain(name, inputs, zero)
+    assert out["zeros_exact"] and out["rel"] <= 1e-5, out
+
+
+def test_kbisect_probe_b_refuses_more_than_one_channel(cuda):
+    from sagecal_tpu_torch.tools.kbisect import probe_b
+
+    with pytest.raises(ValueError):
+        probe_b(torch.zeros((8, 2, 8, 512), device=cuda))
+
+
+@pytest.mark.parametrize("name", ["c", "b", "a", "f"])
+def test_kbisect_probe_counts_its_launches(cuda, name):
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    inputs = _probe_inputs(name, "kbisect", cuda)
+    launcher = getattr(kb, f"probe_{name}_cuda")
+    before = launcher.launches
+    getattr(kb, f"probe_{name}")(*inputs)
+    assert launcher.launches == before + 1
+    getattr(kb, f"probe_{name}_plain")(*inputs)
+    assert launcher.launches == before + 1
+
+
+@pytest.mark.parametrize("name", ["c", "b", "a", "f"])
+def test_kbisect_wrappers_reject_mixes_and_dtypes(cuda, name):
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    inputs = _probe_inputs(name, "kbisect", cuda)
+    fn = getattr(kb, f"probe_{name}")
+    bad = [tuple(x.double() if x.is_floating_point() else x.long()
+                 for x in inputs)]  # wrong dtypes
+    if len(inputs) > 1:  # CPU/CUDA mixes, either way round
+        bad += [(inputs[0].cpu(),) + inputs[1:],
+                inputs[:-1] + (inputs[-1].cpu(),)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)
+
+
+def test_kbisect_tool_matches_jax_values_on_the_card(cuda):
+    """Every variant of the tool runs on the card, each probe and the
+    predict kernels launch as the variant says, and every value is
+    within 1e-5 of the JAX package's."""
+    from sagecal_tpu_torch.kernels.parity import KBISECT_JAX_VALUES
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    counters = [kb.probe_c_cuda, kb.probe_b_cuda, kb.probe_a_cuda,
+                kb.probe_f_cuda, rk.fused_predict_fwd_cuda,
+                rk.fused_predict_bwd_cuda]
+    before = [c.launches for c in counters]
+    out = kb.run(["c", "b", "a", "d", "e", "f"])
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [1, 1, 1, 1, 2, 1]
+    for name, v in out.items():
+        want = KBISECT_JAX_VALUES[name]
+        assert abs(v["val"] - want) <= 1e-5 * abs(want), (name, v)

@@ -87,7 +87,7 @@ def test_two_loop_direction_matches_jax():
             s=jnp.asarray(s), y=jnp.asarray(y), rho=jnp.asarray(rho),
             vacant=jnp.asarray(vacant, jnp.int32),
             nfilled=jnp.asarray(nfilled, jnp.int32))
-        tm = LBFGSMemory.init(n, M, torch.float64)
+        tm = LBFGSMemory.init(n, M, torch.float64, device="cpu")
         tm.s, tm.y, tm.rho = map(torch.from_numpy, (s, y, rho))
         tm.vacant, tm.nfilled = vacant, nfilled
         _close(_two_loop_direction(torch.from_numpy(g), tm),

@@ -136,7 +136,7 @@ def test_two_loop_direction_batched_matches_jax():
         s=jnp.asarray(s), y=jnp.asarray(y), rho=jnp.asarray(rho),
         vacant=jnp.asarray(vacant, jnp.int32),
         nfilled=jnp.asarray(nfilled, jnp.int32))
-    tm = batched_memory(B, n, M, torch.float64)
+    tm = batched_memory(B, n, M, torch.float64, device="cpu")
     tm.s, tm.y, tm.rho, tm.vacant, tm.nfilled = map(
         torch.from_numpy, (s, y, rho, vacant, nfilled))
     _close(_two_loop_direction_batched(torch.from_numpy(g), tm),

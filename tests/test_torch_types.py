@@ -33,7 +33,7 @@ def test_params_jones_roundtrip_matches_jax():
     np.testing.assert_array_equal(
         to_np(tt.jones_to_params(torch.from_numpy(jj))), p)
     np.testing.assert_array_equal(
-        to_np(tt.identity_jones(4, torch.complex128)),
+        to_np(tt.identity_jones(4, torch.complex128, device="cpu")),
         np.asarray(jt.identity_jones(4, jnp.complex128)))
 
 
@@ -128,6 +128,25 @@ def test_point_source_batch_without_device_raises_when_cuda_absent(
         tr.point_source_batch([0.0], [0.0], [1.0])
     src = tr.point_source_batch([0.0], [0.0], [1.0], device="cpu")
     assert src.ll.device.type == "cpu" and src.sI0.device.type == "cpu"
+
+
+@pytest.mark.parametrize("ctor", ["identity_jones", "LBFGSMemory.init",
+                                  "batched_memory"])
+def test_constructor_without_device_raises_when_cuda_absent(monkeypatch,
+                                                            ctor):
+    """The public constructors resolve ``device=None`` to CUDA as the
+    entry points do: without a card they raise, naming the explicit CPU
+    request, and with it they build on the CPU."""
+    from sagecal_tpu_torch.core.types import identity_jones
+    from sagecal_tpu_torch.solvers.lbfgs import LBFGSMemory, batched_memory
+
+    build = {"identity_jones": lambda **kw: identity_jones(3, **kw),
+             "LBFGSMemory.init": lambda **kw: LBFGSMemory.init(5, 4, **kw).s,
+             "batched_memory": lambda **kw: batched_memory(2, 5, 4, **kw).s}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build[ctor]()
+    assert build[ctor](device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("sizes", [[1, 1, 1], [1, 9, 1]],
