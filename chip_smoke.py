@@ -61,8 +61,10 @@ each printing lines of its own; any failure exits non-zero:
             ``torch.einsum`` computing the same function);
 7. times    phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
-            time, and peak device memory, each beside the card's name and
-            power limit;
+            time (#4 with the tile's station plan built once, as the solve
+            does, and split into its cotangent, gradient and sum kernels
+            on the device alone), and peak device memory, each beside the
+            card's name and power limit;
 8. serve    the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
@@ -615,16 +617,18 @@ def phase_times(nu: float):
         random_cost_problem, roofline,
     )
     from sagecal_tpu_torch.ops.rime_kernel import (
-        _nu_cell, fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+        BwdPlan, _nu_cell, fused_cost_bwd_cuda, fused_cost_fwd_cuda,
         fused_cost_packed_plain, fused_predict_bwd_cuda,
         fused_predict_fwd_cuda, fused_predict_packed_plain,
     )
-    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms
+    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms, device_ms
 
     prob = random_cost_problem(NCLUSTERS, NSTATIONS, NCHAN, ROWS, nc=1,
                                seed=2, device="cuda")
     nu_arr = _nu_cell(nu, "cuda")
     args = (prob.tab_re, prob.tab_im, *prob.inputs, nu_arr, True)
+    # the solve builds #4's station plan once per tile
+    plan = BwdPlan(prob.ant_p, prob.ant_q, None, 1, prob.tab_re.shape[2])
     model_args = (prob.coh_ri, prob.ant_p, prob.ant_q)
     g = model_cotangent(prob, seed=6)
     out = {
@@ -634,9 +638,19 @@ def phase_times(nu: float):
             prob.tab_re, prob.tab_im, *model_args, g), 20)},
         "fused_cost_fwd": {"ms": cuda_ms(lambda: fused_cost_fwd_cuda(*args),
                                          50)},
-        "fused_cost_bwd": {"ms": cuda_ms(lambda: fused_cost_bwd_cuda(*args),
-                                         20)},
+        "fused_cost_bwd": {"ms": cuda_ms(
+            lambda: fused_cost_bwd_cuda(*args, plan=plan), 20)},
     }
+    # #4's three kernels one at a time, and the whole launch, device only
+    scratch = {}
+    stage = lambda st: fused_cost_bwd_cuda(*args, plan=plan, stages=st,
+                                           scratch=scratch)
+    stage(7)
+    out["fused_cost_bwd"]["split_device_ms"] = {
+        name: device_ms(lambda st=st: stage(st), 20)
+        for name, st in (("cotangent", 1), ("gradient", 2), ("sum", 4))}
+    out["fused_cost_bwd"]["device_ms"] = device_ms(lambda: stage(7), 20)
+    del scratch
     with torch.no_grad():
         out["fused_predict_fwd"]["plain_ms"] = cuda_ms(
             lambda: fused_predict_packed_plain(prob.tab_re, prob.tab_im,
@@ -968,6 +982,11 @@ def main():
     path.update({k: f"the main path ({main_out['lbfgs_iterations']} LBFGS "
                     f"iterations)" for k in KERNELS[2:4]})
     print_times(card, times, launches, path)
+    split = times["fused_cost_bwd"]["split_device_ms"]
+    print(f"[times] ({card}) fused_cost_bwd per launch, device only: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f" (sum {sum(split.values()):.4f}); whole launch "
+          f"{times['fused_cost_bwd']['device_ms']:.4f} ms", flush=True)
 
     worst.update(serve_parity())
     with tempfile.TemporaryDirectory() as d:

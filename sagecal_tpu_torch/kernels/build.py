@@ -37,9 +37,13 @@ SIGNATURES = {
         # mp, nc, npad, F, rowsp, robust, partial, stream
         "fused_cost_fwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P, _P], _I),
-        # ... partial, out, stream
+        # ..., robust, plan_pos, plan_seg, plan_of, stages, g, partial,
+        # out, stream
         "fused_cost_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                            _I, _P, _P, _P, _P], _I),
+        # rowsp
+        "fused_cost_bwd_num_tables": ([_I], _I),
         # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, vis, mask, nu,
         # lanes, mp, npad, F, rowsp, robust, partial, stream
         "fused_cost_batch_fwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -57,8 +61,9 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P, _P, _P], _I),
     },
     # the kbisect probes #7-#10, one source each (tools/kbisect.py)
-    # tab, oh, mp, npad, T, out, stream
-    "kbisect_c": {"kbisect_c": ([_P, _P, _I, _I, _I, _P, _P], _I)},
+    # tab, oh, mp, npad, T, partial, out, stream; mp
+    "kbisect_c": {"kbisect_c": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+                  "kbisect_c_row_tiles": ([_I], _I)},
     # coh, mp, rows, out, stream
     "kbisect_b": {"kbisect_b": ([_P, _I, _I, _P, _P], _I)},
     # antp, tab, mp, npad, R, T, partial, out, stream

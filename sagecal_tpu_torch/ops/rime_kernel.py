@@ -28,7 +28,11 @@ visibilities and mask are constants of the solve).
   autograd); the CPU tests and ``chip_smoke.py`` hold the kernels
   against it.
 - :func:`fused_cost_fwd_cuda` / :func:`fused_cost_bwd_cuda` launch the
-  kernels; each counts its launches in a ``launches`` attribute.
+  kernels; each counts its launches in a ``launches`` attribute.  The
+  backward (#4) takes the tile's :class:`BwdPlan`, the (role, row) ->
+  station order of each row tile, which a solve builds once and passes
+  to :func:`fused_cost_packed` / :func:`fused_cost_packed_hybrid`
+  (``plan=``).
 - The fused predict V itself, as (F, 8, rowsp) planes, with its plain
   version (:func:`fused_predict_packed_plain`, sharing the RIME products
   of :func:`_model_plain` with the objective's) and launchers
@@ -143,8 +147,15 @@ def _model_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap=None,
         g = tab.index_select(1, idx).reshape(4, mp, 1, rowsp)
         return g[0], g[1], g[2], g[3]  # (mp, 1, rowsp) each
 
-    pa, pb, pc, pd = gains(ap)
-    qa, qb, qc, qd = (x.conj() for x in gains(aq))
+    return _model_from_gains(gains(ap), gains(aq), coh_ri)
+
+
+def _model_from_gains(gp, gq, coh_ri):
+    """sum_m Jp C_m Jq^H from each row's gathered gains: ``gp``/``gq``
+    the four row-major components, each complex (mp, 1, rowsp); complex
+    (F, 4, rowsp)."""
+    pa, pb, pc, pd = gp
+    qa, qb, qc, qd = (x.conj() for x in gq)
     c = coh_ri.float()
     C = torch.complex(c[:, :, :4], c[:, :, 4:])  # (mp, F, 4, rowsp)
     c00, c01, c10, c11 = C[:, :, 0], C[:, :, 1], C[:, :, 2], C[:, :, 3]
@@ -173,6 +184,11 @@ def fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
     same inputs as the kernels (``cmap``/``nc`` for hybrid chunks), the
     model of :func:`_model_plain`, differentiable by autograd."""
     V = _model_plain(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
+    return _cost_of_model(V, vis_ri, mask_p, nu)
+
+
+def _cost_of_model(V, vis_ri, mask_p, nu=None):
+    """The objective of a model V (F, 4, rowsp) complex (module doc)."""
     vis = torch.complex(vis_ri[:, :4], vis_ri[:, 4:])
     d = (vis - V) * mask_p[:, None, :]
     e2 = d.real ** 2 + d.imag ** 2
@@ -269,29 +285,142 @@ def fused_cost_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
     return partial
 
 
+# ------------------------------------------- kernel #4's station plan
+
+BWD_TILE = 256  # rows of a row tile: kThreads of csrc/fused_cost.cu
+
+
+def _distinct_rows(x):
+    """(rows, index): the distinct rows of ``x`` (m, n) int64 and each
+    row's index among them.  Rows are grouped by a seeded weighted sum (a
+    1-D ``torch.unique``), then checked equal element by element;
+    ``torch.unique(dim=0)``, which orders whole rows by comparison, runs
+    only if two different rows share a sum."""
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randint(1, 1 << 20, (x.shape[1],), generator=gen).to(x.device)
+    _, index = torch.unique((x * w).sum(1), return_inverse=True)
+    first = torch.full((int(index.max()) + 1,), x.shape[0],
+                       dtype=torch.long, device=x.device)
+    first.scatter_reduce_(0, index, torch.arange(x.shape[0], device=x.device),
+                          "amin")
+    rows = x[first]
+    if torch.equal(rows[index], x):
+        return rows, index
+    return torch.unique(x, dim=0, return_inverse=True)
+
+
+class BwdPlan:
+    """The station plan of kernel #4's gradient kernel for one tile.
+
+    Each row tile of ``BWD_TILE`` rows has ``2 * BWD_TILE`` (role, row)
+    items, item ``i = role * BWD_TILE + (row - tile start)``, role 0 the
+    row's ``ant_p``, role 1 its ``ant_q``.  Per distinct chunk map (one
+    when ``nc`` is 1) the items are stably sorted by key ``c * npad +
+    station``, c the row's chunk; rows past ``rowsp`` (the last tile's
+    ragged end) take key ``nc * npad`` and sort last.
+
+    - ``pos`` (nplans, ntiles, 2 * BWD_TILE) int32: each item's sorted
+      position;
+    - ``seg`` (nplans, ntiles, nc * npad + 1) int32: the first position
+      of each key; ``seg[..., nc * npad]`` is the tile's valid items;
+    - ``of_cluster`` (mp,) int32: cluster m's plan (nc > 1; else (1,)).
+
+    It depends on the station indices and the chunk map only, never on
+    the gains, so a solve builds it once per tile (``_make_fused_joint_cost``)
+    and every backward launch reuses it.  Built on their device with
+    stable torch ops; station indices must lie in ``[0, npad)`` and
+    chunks in ``[0, nc)`` (ValueError otherwise)."""
+
+    def __init__(self, ant_p, ant_q, cmap, nc: int, npad: int):
+        ap, aq = ant_p.reshape(-1).long(), ant_q.reshape(-1).long()
+        dev, rowsp = ap.device, ap.numel()
+        if bool(((ap < 0) | (ap >= npad) | (aq < 0) | (aq >= npad)).any()):
+            raise ValueError(f"station index outside [0, {npad})")
+        if nc > 1:
+            maps, of_cluster = _distinct_rows(cmap.long())
+            if bool(((maps < 0) | (maps >= nc)).any()):
+                raise ValueError(f"chunk index outside [0, {nc})")
+        else:
+            maps = torch.zeros((1, rowsp), dtype=torch.long, device=dev)
+            of_cluster = torch.zeros((1,), dtype=torch.long, device=dev)
+        nkeys = nc * npad
+        ntiles = -(-rowsp // BWD_TILE)
+        pad = ntiles * BWD_TILE - rowsp
+
+        def keys(ant):
+            k = tfn.pad(maps * npad + ant[None, :], (0, pad), value=nkeys)
+            return k.reshape(-1, ntiles, BWD_TILE)
+
+        sorted_keys, order = torch.sort(torch.cat([keys(ap), keys(aq)], -1),
+                                        dim=-1, stable=True)
+        pos = torch.empty_like(order)
+        pos.scatter_(-1, order, torch.arange(2 * BWD_TILE, device=dev)
+                     .expand_as(order))
+        starts = torch.arange(nkeys + 1, device=dev).expand(
+            *sorted_keys.shape[:2], nkeys + 1).contiguous()
+        seg = torch.searchsorted(sorted_keys.contiguous(), starts)
+        self.pos = pos.to(torch.int32).contiguous()
+        self.seg = seg.to(torch.int32).contiguous()
+        self.of_cluster = of_cluster.to(torch.int32).contiguous()
+        self.nc, self.npad = nc, npad
+        self.rowsp, self.ntiles = rowsp, ntiles
+
+    def check(self, rowsp: int, npad: int, nc: int, mp: int, dev):
+        """Raise ValueError unless this plan is for these shapes and on
+        ``dev``."""
+        want = (rowsp, npad, nc)
+        if (self.rowsp, self.npad, self.nc) != want:
+            have = (self.rowsp, self.npad, self.nc)
+            raise ValueError(f"plan for (rowsp, npad, nc) = {have}, "
+                             f"want {want}")
+        if nc > 1 and self.of_cluster.numel() != mp:
+            raise ValueError(f"plan for {self.of_cluster.numel()} clusters, "
+                             f"want {mp}")
+        if self.pos.device != dev:
+            raise ValueError(f"plan on {self.pos.device}, inputs on {dev}")
+
+
 def fused_cost_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                        nu_arr, robust: bool, cmap=None, nc: int = 1):
-    """Launch the backward kernels: (d tab_re, d tab_im), each
-    (4, mp*nc, npad), bit-identical on repeat.  Replaces
-    ``_fused_cost_bwd_impl``."""
+                        nu_arr, robust: bool, cmap=None, nc: int = 1,
+                        plan=None, stages: int = 7, scratch=None):
+    """Launch kernel #4: (d tab_re, d tab_im), each (4, mp*nc, npad),
+    bit-identical on repeat.  Replaces ``_fused_cost_bwd_impl``.
+
+    Three launches: the cotangent kernel (g, (F, 8, rowsp)), the gradient
+    kernel (one partial table per 8 row tiles) and their ordered sum.
+    ``plan``: the tile's :class:`BwdPlan` (built here when None).
+    ``stages`` (bit 1 cotangent, 2 gradient, 4 sum) and ``scratch`` (a
+    dict of the buffers "g", "partial", "out", filled on first use and
+    reused) let a timing run launch one kernel at a time; only
+    ``stages=7`` gives the tables."""
     from sagecal_tpu_torch.kernels.build import load
 
     _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                        nu_arr, cmap, nc)
+    mp, F, _, rowsp = coh_ri.shape
+    dev, npad = tab_re.device, tab_re.shape[2]
+    if plan is None:
+        plan = BwdPlan(ant_p, ant_q, cmap, nc, npad)
+    plan.check(rowsp, npad, nc, mp, dev)
     lib = load("fused_cost")
-    nb = lib.fused_cost_num_blocks(coh_ri.shape[3])
-    dev = tab_re.device
-    n = 8 * tab_re.shape[1] * tab_re.shape[2]
-    partial = torch.empty((nb * n,), dtype=torch.float32, device=dev)
-    out = torch.empty((8,) + tuple(tab_re.shape[1:]), dtype=torch.float32,
-                      device=dev)
+    ntables = lib.fused_cost_bwd_num_tables(rowsp)
+    shapes = {"g": (F, 8, rowsp),
+              "partial": (ntables * 8 * tab_re.shape[1] * npad,),
+              "out": (8,) + tuple(tab_re.shape[1:])}
+    bufs = {} if scratch is None else scratch
+    for name, shape in shapes.items():
+        if name not in bufs:
+            bufs[name] = torch.empty(shape, dtype=torch.float32, device=dev)
     args = _launch_args(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                         nu_arr, cmap, nc, robust)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib.fused_cost_bwd(*args, partial.data_ptr(), out.data_ptr(),
-                                 stream), "fused_cost_bwd")
+    _raise_on(lib.fused_cost_bwd(
+        *args, plan.pos.data_ptr(), plan.seg.data_ptr(),
+        plan.of_cluster.data_ptr(), stages, bufs["g"].data_ptr(),
+        bufs["partial"].data_ptr(), bufs["out"].data_ptr(), stream),
+        "fused_cost_bwd")
     fused_cost_bwd_cuda.launches += 1
-    return out[:4], out[4:]
+    return bufs["out"][:4], bufs["out"][4:]
 
 
 fused_cost_fwd_cuda.launches = 0
@@ -303,10 +432,10 @@ class _FusedCost(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                nu_arr, cmap, nc, robust):
+                nu_arr, cmap, nc, robust, plan):
         ctx.save_for_backward(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
                               mask_p, nu_arr, cmap)
-        ctx.nc, ctx.robust = nc, robust
+        ctx.nc, ctx.robust, ctx.plan = nc, robust, plan
         return fused_cost_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q,
                                    vis_ri, mask_p, nu_arr, robust, cmap,
                                    nc).sum()
@@ -315,38 +444,41 @@ class _FusedCost(torch.autograd.Function):
     def backward(ctx, gbar):
         saved = ctx.saved_tensors
         dre, dim = fused_cost_bwd_cuda(*saved[:8], ctx.robust, saved[8],
-                                       ctx.nc)
+                                       ctx.nc, ctx.plan)
         # the kernel gives d cost / d tables; the upstream scalar is
         # applied here (one scalar-times-table op)
-        return (gbar * dre, gbar * dim) + (None,) * 9
+        return (gbar * dre, gbar * dim) + (None,) * 10
 
 
 def _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p, nu,
-                cmap, nc):
+                cmap, nc, plan=None):
     if not tab_re.is_cuda:
         return fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q,
                                        vis_ri, mask_p, nu, cmap, nc)
     nu_arr = _nu_cell(nu, tab_re.device)
     return _FusedCost.apply(
         tab_re.contiguous(), tab_im.contiguous(), coh_ri, ant_p, ant_q,
-        vis_ri, mask_p, nu_arr, cmap, nc, nu is not None)
+        vis_ri, mask_p, nu_arr, cmap, nc, nu is not None, plan)
 
 
 def fused_cost_packed(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                      nu=None):
+                      nu=None, *, plan=None):
     """Scalar calibration objective (module doc), ``nu`` None for the
     Gaussian cost or a float / device scalar for the Student's-t cost.
-    Differentiable with respect to ``tab_re``/``tab_im`` only."""
+    Differentiable with respect to ``tab_re``/``tab_im`` only.  ``plan``:
+    the tile's :class:`BwdPlan`, built once by a caller that runs many
+    backwards (else each backward on the card builds its own)."""
     return _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                       nu, None, 1)
+                       nu, None, 1, plan)
 
 
 def fused_cost_packed_hybrid(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
-                             mask_p, cmap, nc, nu=None):
+                             mask_p, cmap, nc, nu=None, *, plan=None):
     """Hybrid-chunk (nc > 1) objective: tables carry one row per
-    (cluster, chunk); ``cmap`` (mp, rowsp) selects each row's chunk."""
+    (cluster, chunk); ``cmap`` (mp, rowsp) selects each row's chunk.
+    ``plan`` as for :func:`fused_cost_packed`."""
     return _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                       nu, cmap, nc)
+                       nu, cmap, nc, plan)
 
 
 # ------------------------------------------------------- fused predict

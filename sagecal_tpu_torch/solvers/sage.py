@@ -267,11 +267,13 @@ def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
     masked residual, Student's-t (or Gaussian) weighting and the scalar
     reduction in one pass over the coherency stack, forward and
     backward.  The packed arrays are built once here (constants of the
-    LBFGS loop).  f32 only; ``coh_dtype="bf16"`` stores the coherency
-    stack as bfloat16 (f32 math)."""
+    LBFGS loop), and so is the backward's station plan (``BwdPlan``, the
+    (role, row) -> station order of each row tile).  f32 only;
+    ``coh_dtype="bf16"`` stores the coherency stack as bfloat16 (f32
+    math)."""
     from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_cost_packed, fused_cost_packed_hybrid, pack_gain_tables,
-        pack_predict_inputs,
+        BwdPlan, fused_cost_packed, fused_cost_packed_hybrid,
+        pack_gain_tables, pack_predict_inputs,
     )
 
     coh_store = _fused_cost_prologue(data.vis, data.ant_p, data.ant_q, n8,
@@ -281,6 +283,7 @@ def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
         cdata.chunk_map if nchunk_max > 1 else None)
     coh_ri = coh_ri.to(coh_store)
     nu_c = mean_nu if robust else None
+    plan = BwdPlan(antp, antq, cmap, nchunk_max, n8 // 8)
 
     def cost_fn(pflat):
         jones = params_to_jones(pflat.reshape(M, nchunk_max, n8).float())
@@ -288,10 +291,10 @@ def _make_fused_joint_cost(data, cdata, M, nchunk_max, n8, robust, mean_nu,
             tre, tim = pack_gain_tables(jones, M)
             return fused_cost_packed_hybrid(tre, tim, coh_ri, antp, antq,
                                             vis_ri, mask_p, cmap, nchunk_max,
-                                            nu_c)
+                                            nu_c, plan=plan)
         tre, tim = pack_gain_tables(jones[:, 0], M)
         return fused_cost_packed(tre, tim, coh_ri, antp, antq, vis_ri, mask_p,
-                                 nu_c)
+                                 nu_c, plan=plan)
 
     return cost_fn
 

@@ -99,10 +99,13 @@ def probe_c_cuda(tab, oh):
     cols = oh.shape[1] if oh.ndim == 2 else -1
     _check_tensors(tab.device, {"tab": (tab, (rows, npad), _F32),
                                 "oh": (oh, (npad, cols), _F32)})
+    lib = load("kbisect_c")
+    partial = torch.empty((lib.kbisect_c_row_tiles(rows // 4), cols),
+                          dtype=torch.float32, device=tab.device)
     out = torch.empty((1, cols), dtype=torch.float32, device=tab.device)
-    _raise_on(load("kbisect_c").kbisect_c(
-        tab.data_ptr(), oh.data_ptr(), rows // 4, npad, cols, out.data_ptr(),
-        _stream(tab)), "kbisect_c")
+    _raise_on(lib.kbisect_c(
+        tab.data_ptr(), oh.data_ptr(), rows // 4, npad, cols,
+        partial.data_ptr(), out.data_ptr(), _stream(tab)), "kbisect_c")
     probe_c_cuda.launches += 1
     return out
 

@@ -68,6 +68,59 @@ def test_kernels_match_plain_north_star(cuda, nu, nc, coh_dtype):
     _check(NORTH_STAR, nc, coh_dtype, nu, cuda)
 
 
+# kernel #4's edge shapes: rows past 2048 (more than one block of 8 row
+# tiles of 256, so several partial tables are summed) with a ragged end,
+# or fewer; clusters not a multiple of the 3 a block takes; npad 200;
+# nc 3; bf16 with rows that do and do not take 16-byte copies; robust and
+# Gaussian; and npad * nc past 2695, where one cluster's gains and sums
+# no longer fit in a block's shared memory and the (chunk, station) keys
+# are split over blocks (npad 2400 still fits, one cluster a block)
+EDGE_4 = [  # (M, N, F, rows, nc, coh dtype, nu)
+    (11, 30, 2, 1500, 1, torch.float32, None),
+    (11, 30, 2, 2333, 1, torch.bfloat16, 5.0),
+    (5, 200, 2, 2333, 1, torch.float32, 5.0),
+    (7, 20, 3, 2333, 3, torch.float32, 5.0),
+    (7, 20, 2, 2336, 3, torch.bfloat16, None),
+    (4, 2400, 2, 2333, 1, torch.float32, None),
+    (4, 1000, 2, 2333, 3, torch.float32, 5.0),
+    (3, 3000, 2, 2336, 1, torch.bfloat16, None),
+]
+
+
+@pytest.mark.parametrize(
+    "M,N,F,rows,nc,coh_dtype,nu", EDGE_4,
+    ids=[f"M{c[0]}-npad{c[1]}-F{c[2]}-rows{c[3]}-nc{c[4]}-"
+         f"{str(c[5]).split('.')[-1]}-{'robust' if c[6] else 'gauss'}"
+         for c in EDGE_4])
+def test_cost_bwd_edge_shapes_match_plain(cuda, M, N, F, rows, nc,
+                                          coh_dtype, nu):
+    _check(dict(M=M, N=N, F=F, rows=rows), nc, coh_dtype, nu, cuda)
+
+
+def test_cost_bwd_plan_given_or_built_and_stages_agree_bitwise(cuda):
+    """A plan built once gives the same bits as one built per launch, and
+    the three kernels launched one at a time (cotangent, gradient, sum)
+    give the whole launch's tables."""
+    from sagecal_tpu_torch.kernels.parity import random_cost_problem
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        BwdPlan, _nu_cell, fused_cost_bwd_cuda,
+    )
+
+    prob = random_cost_problem(7, 20, 2, 1111, nc=3, seed=3, device=cuda)
+    args = (prob.tab_re, prob.tab_im, *prob.inputs, _nu_cell(5.0, cuda), True,
+            prob.cmap, prob.nc)
+    whole = fused_cost_bwd_cuda(*args)
+    plan = BwdPlan(prob.ant_p, prob.ant_q, prob.cmap, prob.nc,
+                   prob.tab_re.shape[2])
+    planned = fused_cost_bwd_cuda(*args, plan=plan)
+    scratch = {}
+    for stages in (1, 2, 4):
+        staged = fused_cost_bwd_cuda(*args, plan=plan, stages=stages,
+                                     scratch=scratch)
+    for got in (planned, staged):
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     from sagecal_tpu_torch.kernels.parity import (
         random_cost_problem, value_and_grad,
@@ -290,6 +343,24 @@ def test_kbisect_probe_matches_plain(cuda, name, shape):
 
     inputs = _probe_inputs(name, shape, cuda)
     out = compare_probe_with_plain(name, inputs)
+    assert out["rel"] <= 1e-5, out
+    assert out["bitwise_repeat"], out
+
+
+@pytest.mark.parametrize("mp,T,npad", [(13, 1000, 100), (3, 130, 7),
+                                         (20, 517, 64)],
+                         ids=["mp13-T1000-npad100", "mp3-T130-npad7",
+                              "mp20-T517-npad64"])
+def test_kbisect_probe_c_off_tile_shapes_match_plain(cuda, mp, T, npad):
+    """#7 where no extent is a multiple of its tiles (128 columns, 64
+    rows) or of its 16-byte copies."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_probe_with_plain, random_probe_inputs,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    out = compare_probe_with_plain(
+        "c", random_probe_inputs("c", gen, mp=mp, T=T, npad=npad))
     assert out["rel"] <= 1e-5, out
     assert out["bitwise_repeat"], out
 
