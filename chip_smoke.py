@@ -21,7 +21,11 @@ each printing lines of its own; any failure exits non-zero:
             norm; the predict #1/#2 under a random upstream cotangent,
             model error <= 1e-5 of its max abs, gain cotangent <= 1e-5 of
             its norm, and FusedSkyGradientError raised for a coherency
-            gradient; every backward bit-identical on repeat;
+            gradient; every backward bit-identical on repeat; each
+            problem's backward station plan (``BwdPlan``) built once, as
+            a solve builds it, and its build time printed beside the
+            garbage collector's pauses in it and its two host calls
+            of most self time;
 4. main     the port's main path from files, as a user runs it: an LSM
             sky of 100 point clusters and its cluster file -> ``load_sky``
             -> ``make_visdata`` -> ``corrupt_and_observe`` (noise 1e-3) ->
@@ -57,21 +61,26 @@ each printing lines of its own; any failure exits non-zero:
             indices -1, NPAD and 200 giving exactly the plain version's
             zeros (a, f), and probe b refusing F = 2; each probe's time
             at both shapes, on the device alone and host-paced, beside
-            its bound and its plain version's (and, for c and b, one
-            ``torch.einsum`` computing the same function);
+            its bound (a and f: the least work of their function, one
+            reduction of the table per station, then 4 or 1 gathered
+            words per index, ``kernels/parity.py::kbisect_work``) and its
+            plain version's (and, for c and b, one ``torch.einsum``
+            computing the same function);
 7. times    phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
-            time (#4 with the tile's station plan built once, as the solve
-            does, and split into its cotangent, gradient and sum kernels
-            on the device alone), and peak device memory, each beside the
-            card's name and power limit;
+            time (#4 and #2 with the tile's station plan built once, as
+            the solve does, and split on the device alone into their
+            kernels: #4 cotangent, gradient and sum, #2 gradient and sum),
+            and peak device memory, each beside the card's name and power
+            limit;
 8. serve    the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
             width (Gaussian and robust with per-lane nu, f32 and bf16
             coherencies, and 6 valid lanes of 8; bars as in phase 3,
-            bit-identical repeat, exactly zero pad lanes); the requests
+            bit-identical repeat, exactly zero pad lanes; one plan for
+            the lanes, its build time printed); the requests
             built from files, one bucket, routed to "fused_batch" by
             ``choose_batched_path`` and solved by ``sagefit_packed_batch``
             (mode 3, 3 EM passes, max_iter 2, max_lbfgs 10; every lane
@@ -81,7 +90,10 @@ each printing lines of its own; any failure exits non-zero:
             to the first; the same bucket on the per-lane torch-op route
             (res_1 within 5e-3) and a ragged bucket of 6 padded to 8 (real
             lanes within 1e-5 of the full bucket's), all in default mode;
-            the batched kernels' times beside their bounds.
+            the batched kernels' times beside their bounds (#6 on one
+            station plan for the bucket, split into its cotangent,
+            gradient and sum kernels on the device alone), and the plan
+            build times of phases 3 and 8.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -91,6 +103,7 @@ LBFGS depth can be cut with the options below; the widths cannot.
 """
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -193,17 +206,51 @@ def phase_build():
     print(f"[build] {len(paths)} source(s) built in {secs:.1f} s", flush=True)
 
 
+def timed_plan(prob, where: str, case: str):
+    """The problem's backward station plan, built once as a solve builds
+    it, with its build time printed beside where the host spent it: the
+    garbage collector's pauses within the build and the two host calls
+    (aten ops or CUDA runtime calls, from a CPU-only ``torch.profiler``)
+    of most self time; a call that waits on the device holds that
+    wait."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sagecal_tpu_torch.kernels.parity import plan_of
+
+    marks = []  # (gc phase, host time)
+    on_gc = lambda phase, info: marks.append((phase, time.perf_counter()))
+    gc.callbacks.append(on_gc)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t = sync_clock()
+            plan = plan_of(prob)
+            secs = sync_clock() - t
+    finally:
+        gc.callbacks.remove(on_gc)
+    starts = [m for phase, m in marks if phase == "start"]
+    stops = [m for phase, m in marks if phase == "stop"]
+    gc_s = sum(b - a for a, b in zip(starts, stops) if a >= t)
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    top = ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms"
+                    for e in ops[:2])
+    print(f"[{where}] BwdPlan {case}: built in {secs * 1e3:.3f} ms (gc "
+          f"pauses {gc_s * 1e3:.3f} ms; most host time: {top})", flush=True)
+    return plan, secs
+
+
 def phase_parity():
     from sagecal_tpu_torch.kernels.parity import (
         compare_predict_with_plain, compare_with_plain, random_cost_problem,
     )
 
     worst = {k: 0.0 for k in KERNELS[:4]}
+    plan_s = {}
     for nc, dt in itertools.product((1, 2), (torch.float32, torch.bfloat16)):
         prob = random_cost_problem(NCLUSTERS, NSTATIONS, NCHAN, ROWS, nc=nc,
                                    coh_dtype=dt, seed=1, device="cuda")
         case = f"nc={nc} coh={str(dt).split('.')[-1]}"
-        out = compare_predict_with_plain(prob, seed=5)
+        plan, plan_s[case] = timed_plan(prob, "parity", case)
+        out = compare_predict_with_plain(prob, seed=5, plan=plan)
         ok = (out["model_rel"] <= MODEL_TOL and out["grad_rel"] <= GRAD_TOL
               and out["bitwise_repeat"] and out["sky_error_raised"])
         print(f"[parity] predict {case}: model_rel={out['model_rel']:.3e} "
@@ -218,7 +265,7 @@ def phase_parity():
         worst["fused_predict_bwd"] = max(worst["fused_predict_bwd"],
                                          out["grad_max_abs_err"])
         for nu in (None, 5.0):
-            out = compare_with_plain(prob, nu)
+            out = compare_with_plain(prob, nu, plan)
             ok = (out["cost_rel"] <= COST_TOL and out["grad_rel"] <= GRAD_TOL
                   and out["bitwise_repeat"])
             print(f"[parity] objective {'robust' if nu else 'gaussian'} "
@@ -232,9 +279,9 @@ def phase_parity():
                                           out["cost_abs_err"])
             worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
                                           out["grad_max_abs_err"])
-        del prob
+        del prob, plan
         torch.cuda.empty_cache()
-    return worst
+    return worst, plan_s
 
 
 def write_sky(dirname: str, seed: int = 7, nclusters: int = NCLUSTERS,
@@ -599,7 +646,8 @@ def phase_bisect(card: str):
             print(f"[times] ({card}) {k} at {shape} {v['shape']}: "
                   f"{v['ms']:.4f} ms on the device ({v['host_paced_ms']:.4f} "
                   f"ms host-paced), bound {v['bound_ms']:.6f} ms "
-                  f"({v['bound_by']}: {v['bytes']} B, {v['flops']} flop), "
+                  f"({v['bound_by']}: {v['bytes']} B, {v['flops']} flop, "
+                  f"{v['gathers']} gathered words), "
                   f"plain {v['plain_ms']:.4f} ms{lib}, {launches[k]} launch "
                   f"per kbisect run", flush=True)
     secs = time.perf_counter() - t
@@ -608,10 +656,34 @@ def phase_bisect(card: str):
             "times": times, "seconds": secs}
 
 
+def split_device_ms(launch, parts: dict, whole: int) -> dict:
+    """A backward's kernels one at a time and its whole launch, on the
+    device alone: ``launch(stages, scratch)`` with one scratch shared by
+    every launch; ``parts`` {kernel: stages bit}."""
+    from sagecal_tpu_torch.tools.profile_kernel import device_ms
+
+    scratch = {}
+    launch(whole, scratch)
+    split = {name: device_ms(lambda st=st: launch(st, scratch), 20)
+             for name, st in parts.items()}
+    return {"split_device_ms": split,
+            "device_ms": device_ms(lambda: launch(whole, scratch), 20)}
+
+
+def print_split(card: str, name: str, v: dict):
+    split = v["split_device_ms"]
+    print(f"[times] ({card}) {name} per launch, device only: "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in split.items())
+          + f" (sum {sum(split.values()):.4f}); whole launch "
+          f"{v['device_ms']:.4f} ms", flush=True)
+
+
 def phase_times(nu: float):
     """Kernel and plain-version times at the main path's shapes (nc = 1,
     f32 coherencies; the objective robust as the default mode runs it,
-    the predict under a random upstream cotangent)."""
+    the predict under a random upstream cotangent).  The backwards run on
+    the tile's station plan, built once, and are split into their
+    kernels on the device alone."""
     from sagecal_tpu_torch.kernels.parity import (
         fused_cost_work, fused_predict_work, model_cotangent,
         random_cost_problem, roofline,
@@ -621,13 +693,13 @@ def phase_times(nu: float):
         fused_cost_packed_plain, fused_predict_bwd_cuda,
         fused_predict_fwd_cuda, fused_predict_packed_plain,
     )
-    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms, device_ms
+    from sagecal_tpu_torch.tools.profile_kernel import cuda_ms
 
     prob = random_cost_problem(NCLUSTERS, NSTATIONS, NCHAN, ROWS, nc=1,
                                seed=2, device="cuda")
     nu_arr = _nu_cell(nu, "cuda")
     args = (prob.tab_re, prob.tab_im, *prob.inputs, nu_arr, True)
-    # the solve builds #4's station plan once per tile
+    # the solve builds the station plan once per tile
     plan = BwdPlan(prob.ant_p, prob.ant_q, None, 1, prob.tab_re.shape[2])
     model_args = (prob.coh_ri, prob.ant_p, prob.ant_q)
     g = model_cotangent(prob, seed=6)
@@ -635,22 +707,21 @@ def phase_times(nu: float):
         "fused_predict_fwd": {"ms": cuda_ms(lambda: fused_predict_fwd_cuda(
             prob.tab_re, prob.tab_im, *model_args), 50)},
         "fused_predict_bwd": {"ms": cuda_ms(lambda: fused_predict_bwd_cuda(
-            prob.tab_re, prob.tab_im, *model_args, g), 20)},
+            prob.tab_re, prob.tab_im, *model_args, g, plan=plan), 20)},
         "fused_cost_fwd": {"ms": cuda_ms(lambda: fused_cost_fwd_cuda(*args),
                                          50)},
         "fused_cost_bwd": {"ms": cuda_ms(
             lambda: fused_cost_bwd_cuda(*args, plan=plan), 20)},
     }
-    # #4's three kernels one at a time, and the whole launch, device only
-    scratch = {}
-    stage = lambda st: fused_cost_bwd_cuda(*args, plan=plan, stages=st,
-                                           scratch=scratch)
-    stage(7)
-    out["fused_cost_bwd"]["split_device_ms"] = {
-        name: device_ms(lambda st=st: stage(st), 20)
-        for name, st in (("cotangent", 1), ("gradient", 2), ("sum", 4))}
-    out["fused_cost_bwd"]["device_ms"] = device_ms(lambda: stage(7), 20)
-    del scratch
+    out["fused_cost_bwd"].update(split_device_ms(
+        lambda st, sc: fused_cost_bwd_cuda(*args, plan=plan, stages=st,
+                                           scratch=sc),
+        {"cotangent": 1, "gradient": 2, "sum": 4}, 7))
+    out["fused_predict_bwd"].update(split_device_ms(
+        lambda st, sc: fused_predict_bwd_cuda(
+            prob.tab_re, prob.tab_im, *model_args, g, plan=plan, stages=st,
+            scratch=sc),
+        {"gradient": 2, "sum": 4}, 6))
     with torch.no_grad():
         out["fused_predict_fwd"]["plain_ms"] = cuda_ms(
             lambda: fused_predict_packed_plain(prob.tab_re, prob.tab_im,
@@ -687,16 +758,20 @@ def serve_parity():
     cases = [(nu, dt, None) for nu in (None, per_lane_nu)
              for dt in (torch.float32, torch.bfloat16)]
     cases.append((per_lane_nu, torch.float32, SERVE_RAGGED))
+    plan_s = []
     for nu, dt, nvalid in cases:
         prob = random_cost_problem_batch(SERVE_B, SERVE_CLUSTERS, NSTATIONS,
                                          NCHAN, ROWS, coh_dtype=dt, seed=3,
                                          nvalid=nvalid, device="cuda")
-        out = compare_batch_with_plain(prob, nu)
-        del prob
-        torch.cuda.empty_cache()
         case = (f"{'robust per-lane nu' if nu is not None else 'gaussian'} "
                 f"coh={str(dt).split('.')[-1]} valid lanes="
                 f"{SERVE_B if nvalid is None else nvalid}/{SERVE_B}")
+        plan, secs = timed_plan(prob, "serve-parity", f"{case}, one for the "
+                                f"{SERVE_B} lanes")
+        plan_s.append(secs)
+        out = compare_batch_with_plain(prob, nu, plan)
+        del prob, plan
+        torch.cuda.empty_cache()
         ok = (out["cost_rel"] <= COST_TOL and out["grad_rel"] <= GRAD_TOL
               and out["bitwise_repeat"] and out["pad_lanes_zero"])
         print(f"[serve-parity] {case}: cost_rel={out['cost_rel']:.3e} "
@@ -710,7 +785,7 @@ def serve_parity():
                                             out["cost_abs_err"])
         worst["fused_cost_batch_bwd"] = max(worst["fused_cost_batch_bwd"],
                                             out["grad_max_abs_err"])
-    return worst
+    return worst, plan_s
 
 
 def serve_requests(dirname: str):
@@ -894,9 +969,11 @@ def rel_max(a, b) -> float:
 
 def serve_times():
     """Batched kernel and plain-version times at the serve shapes (f32
-    coherencies, robust cost with per-lane nu, as mode 3 runs it)."""
+    coherencies, robust cost with per-lane nu, as mode 3 runs it); #6 on
+    the bucket's station plan, built once, and split into its kernels on
+    the device alone."""
     from sagecal_tpu_torch.kernels.parity import (
-        fused_cost_batch_work, random_cost_problem_batch, roofline,
+        fused_cost_batch_work, plan_of, random_cost_problem_batch, roofline,
     )
     from sagecal_tpu_torch.ops.rime_kernel import (
         _nu_lanes, fused_cost_batch_bwd_cuda, fused_cost_batch_fwd_cuda,
@@ -908,12 +985,17 @@ def serve_times():
                                      NCHAN, ROWS, seed=4, device="cuda")
     nu = _nu_lanes(torch.linspace(2.0, 12.0, SERVE_B), SERVE_B, "cuda")
     args = (prob.tab_re, prob.tab_im, *prob.inputs, nu, True)
+    plan = plan_of(prob)
     out = {
         "fused_cost_batch_fwd": {"ms": cuda_ms(
             lambda: fused_cost_batch_fwd_cuda(*args), 50)},
         "fused_cost_batch_bwd": {"ms": cuda_ms(
-            lambda: fused_cost_batch_bwd_cuda(*args), 20)},
+            lambda: fused_cost_batch_bwd_cuda(*args, plan=plan), 20)},
     }
+    out["fused_cost_batch_bwd"].update(split_device_ms(
+        lambda st, sc: fused_cost_batch_bwd_cuda(*args, plan=plan, stages=st,
+                                                 scratch=sc),
+        {"cotangent": 1, "gradient": 2, "sum": 4}, 7))
     with torch.no_grad():
         out["fused_cost_batch_fwd"]["plain_ms"] = cuda_ms(
             lambda: fused_cost_packed_batch_plain(
@@ -956,7 +1038,7 @@ def main():
 
     name, count, card = phase_device()
     phase_build()
-    worst = phase_parity()
+    worst, plan_s = phase_parity()
     with tempfile.TemporaryDirectory() as d:
         data, cdata, p0, coh_s = main_tile(d)
         main_out = phase_main(args, d, data, cdata, p0)
@@ -982,13 +1064,11 @@ def main():
     path.update({k: f"the main path ({main_out['lbfgs_iterations']} LBFGS "
                     f"iterations)" for k in KERNELS[2:4]})
     print_times(card, times, launches, path)
-    split = times["fused_cost_bwd"]["split_device_ms"]
-    print(f"[times] ({card}) fused_cost_bwd per launch, device only: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-          + f" (sum {sum(split.values()):.4f}); whole launch "
-          f"{times['fused_cost_bwd']['device_ms']:.4f} ms", flush=True)
+    for k in ("fused_cost_bwd", "fused_predict_bwd"):
+        print_split(card, k, times[k])
 
-    worst.update(serve_parity())
+    serve_worst, serve_plan_s = serve_parity()
+    worst.update(serve_worst)
     with tempfile.TemporaryDirectory() as d:
         serve_out = phase_serve(d)
     serve_t = serve_times()
@@ -1002,6 +1082,12 @@ def main():
     launches.update({k: serve_out["launches"][k] for k in KERNELS[4:]})
     path.update({k: "the serve path" for k in KERNELS[4:]})
     print_times(card, serve_t, launches, path)
+    print_split(card, "fused_cost_batch_bwd", serve_t["fused_cost_batch_bwd"])
+    print(f"[times] ({card}) BwdPlan build: north-star tile "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in plan_s.items())
+          + f"; serve bucket ({SERVE_B} lanes, one plan) "
+          + ", ".join(f"{v * 1e3:.3f}" for v in serve_plan_s) + " ms",
+          flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -1025,7 +1111,8 @@ def main():
             json.dump({"card": card, "main": main_out, "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "times": times, "kernels": kernels,
-                       "coherencies_s": coh_s,
+                       "coherencies_s": coh_s, "plan_s": plan_s,
+                       "serve_plan_s": serve_plan_s,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -5,20 +5,21 @@
 // sagecal_tpu_torch/kernels/build.py).
 //
 // Replaces the Pallas kernels of sagecal_tpu/ops/rime_kernel.py:
-//   predict forward  _fused_predict_fwd_impl (:265; bodies _fwd_kernel
+//   #1 predict forward  _fused_predict_fwd_impl (:265; bodies _fwd_kernel
 //            :220, _fwd_kernel_hybrid :228, _fwd_store :209)
-//   predict backward _fused_predict_bwd_impl (:407; bodies _bwd_kernel
+//   #2 predict backward _fused_predict_bwd_impl (:407; bodies _bwd_kernel
 //            :385, _bwd_kernel_hybrid :395, _g_from_ref :294)
-//   forward  _fused_cost_fwd_impl (:842; bodies _obj_fwd_kernel :768,
+//   #3 forward  _fused_cost_fwd_impl (:842; bodies _obj_fwd_kernel :768,
 //            _obj_fwd_kernel_hybrid :779, _obj_partial :738)
-//   backward _fused_cost_bwd_impl (:877; bodies _obj_bwd_kernel :815,
+//   #4 backward _fused_cost_bwd_impl (:877; bodies _obj_bwd_kernel :815,
 //            _obj_bwd_kernel_hybrid :828, _g_from_residual :791,
 //            _bwd_accumulate :305, _bwd_store :359)
-//   batched forward  _fused_cost_batch_fwd_impl (:1250; body
+//   #5 batched forward  _fused_cost_batch_fwd_impl (:1250; body
 //            _obj_fwd_kernel_batch :1202)
-//   batched backward _fused_cost_batch_bwd_impl (:1273; body
+//   #6 batched backward _fused_cost_batch_bwd_impl (:1273; body
 //            _obj_bwd_kernel_batch :1237)
-//
+// Each is bound by the bytes it moves (below).
+
 // What they compute, per row r and channel f of one tile:
 //   V(f,r) = sum_m Jp_m C_m(f,r) Jq_m^H          (gains of row r's stations)
 //   d      = (vis(f,r) - V(f,r)) * mask(f,r)       (4 complex components)
@@ -38,53 +39,55 @@
 // Batched (B lanes, nc = 1): tables (4, B*mp, npad), lane b's clusters on
 //   rows [b*mp, (b+1)*mp); coh (B*mp, F, 8, rowsp); vis (B, F, 8, rowsp);
 //   mask (B, F, rowsp); nu (B,) on the device (one per lane, never a
-//   host float); ant_p/ant_q shared by every lane.  The grid's y index
-//   is the lane; each kernel body first moves its pointers to its lane
-//   (64-bit offsets: B*mp*F*8*rowsp passes 2^31 at serve shapes); the
-//   solo kernels are the same bodies compiled without the lane offsets.  A lane whose mask is
-//   all zero gives a cost of exactly 0 and a cotangent of exactly 0.
+//   host float); ant_p/ant_q shared by every lane.  The grid's last
+//   index is the lane; each kernel body first moves its pointers to its
+//   lane (64-bit offsets: B*mp*F*8*rowsp passes 2^31 at serve shapes);
+//   the solo kernels are the same bodies compiled without the lane
+//   offsets.  A lane whose mask is all zero gives a cost of exactly 0 and
+//   a cotangent of exactly 0.
 //
-// Design.  One thread per row, 256 rows per block.  Each thread reads its
-// row's station indices (and chunk index when nc > 1) and loads Jp, Jq
-// straight from the tables by index: exact f32, no one-hot selection
-// matmul (the TPU kernel's _sel_dot existed only for the MXU) and no
-// TF32 anywhere.  Coherency planes are read coalesced along rows and
-// bf16 is upcast at the load.  Ragged edges (rows past rowsp) are masked
-// here; no tile, cluster or station padding is required.
+// Design.  One thread per row, 256 rows per block (a row tile).  Each
+// thread reads its row's station indices (and chunk index when nc > 1)
+// and loads Jp, Jq straight from the tables by index: exact f32, no
+// one-hot selection matmul (the TPU kernel's _sel_dot existed only for the
+// MXU) and no TF32 anywhere.  Coherency planes are read coalesced along
+// rows and bf16 is upcast at the load.  Ragged edges (rows past rowsp)
+// are masked here; no tile, cluster or station padding is required.
 //
-// Forward: each block writes one partial sum (fixed-order tree reduction
-// in shared memory); the caller sums the (B, n_blocks) partials per lane.
+// Forwards (#1, #3, #5): each block writes one partial sum (fixed-order
+// tree reduction in shared memory; the caller sums the (B, n_blocks)
+// partials per lane), or #1 its rows' model.
 //
-// Backward #4 (solo), three kernels, deterministic with no floating-point
-// atomics (shared-memory ones included):
-// 1. cotangent: re-forms V and writes the model cotangent g = -2 mask d
-//    (Gaussian) or -2 mask d / (nu + |d|^2) (robust), (F, 8, rowsp) f32:
-//    one stack pass, #3's arithmetic with clusters outer and both
-//    channels per pass; each warp stages its own rows' coherencies four
-//    clusters ahead (cp.async into a ring, __syncwarp).
+// Backwards (#4 solo, #6 batched, #2 predict), deterministic with no
+// floating-point atomics (shared-memory ones included):
+// 1. cotangent (#4, #6): re-forms V and writes the model cotangent
+//    g = -2 mask d (Gaussian) or -2 mask d / (nu + |d|^2) (robust),
+//    (lanes, F, 8, rowsp) f32: one stack pass, #3's arithmetic with
+//    clusters outer and both channels per pass; each warp stages its own
+//    rows' coherencies four clusters ahead (cp.async into a ring,
+//    __syncwarp).  #2 has no such kernel: its g is the caller's upstream
+//    model cotangent, read in the same layout.
 // 2. gradient: blocks of (8 row tiles of 256 rows, 3 clusters;
-//    kTilesPerBlock, kClustersPerBlock) run in parallel, two per SM.  A
-//    block stages its clusters' gains once in shared memory.  Within a
-//    row tile there is no block barrier: each warp stages its own 32
-//    rows' coherencies one step ahead (cp.async into a ring, __syncwarp),
-//    and each thread forms its row's dJp and dJq for every cluster of the
-//    group and stores them at its items' positions in the station plan
-//    (built once per tile by ops/rime_kernel.py::BwdPlan: each row tile's
-//    (role, row) items stably sorted by (chunk, station)).  Then, between
-//    two barriers, one lane per ((cluster, key), component) adds the key's
-//    contiguous items in sorted order into the group's sums in shared
-//    memory, tile after tile.  One partial table per (8 tiles, cluster group).  Where one
-//    cluster's gains and sums (64 nc npad bytes) do not fit, a block takes
-//    one cluster and a slice of its (chunk, station) keys and reads the
-//    gains from the tables; each slice re-reads the stack (grad_shape).
-// 3. sum: the partial tables in block order.
-// Two calls on the same inputs give bit-identical tables.  Scratch: g and
-// ceil(ntiles / 8) x 8 x mp*nc x npad floats.
-// The batched backward #6 and the predict backward #2 still use the first
-// design (bwd_tables): per block, a counting sort of its (role, row)
-// items on every launch, clusters in series with two barriers each, one
-// thread per (component, chunk, station) walking its items, one partial
-// table per 256-row block; #2's phase 1 loads g instead of forming it.
+//    kTilesPerBlock, kClustersPerBlock, and the lane on the grid's z axis
+//    for #6) run in parallel, two per SM.  A block stages its clusters'
+//    gains once in shared memory.  Within a row tile there is no block
+//    barrier: each warp stages its own 32 rows' coherencies one step
+//    ahead (cp.async into a ring, __syncwarp), and each thread forms its
+//    row's dJp and dJq for every cluster of the group and stores them at
+//    its items' positions in the station plan (built once per tile, or
+//    once per bucket for #6's lanes, which share their stations, by
+//    ops/rime_kernel.py::BwdPlan: each row tile's (role, row) items
+//    stably sorted by (chunk, station)).  Then, between two barriers, one
+//    lane per ((cluster, key), component) adds the key's contiguous items
+//    in sorted order into the group's sums in shared memory, tile after
+//    tile.  One partial table per (lane, 8 tiles, cluster group).  Where
+//    one cluster's gains and sums (64 nc npad bytes) do not fit, a block
+//    takes one cluster and a slice of its (chunk, station) keys and reads
+//    the gains from the tables; each slice re-reads the stack
+//    (grad_shape).
+// 3. sum: each lane's partial tables in block order.
+// Two calls on the same inputs give bit-identical tables.  Scratch: g
+// (not for #2) and lanes x ceil(ntiles / 8) x 8 x mp*nc x npad floats.
 //
 // Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32 non-tensor):
 // bytes.  At the north-star tile (62 stations, 100 clusters, 60 x 2)
@@ -92,15 +95,18 @@
 // ~0.22 ms a pass, against ~2.7 GFLOP (forward) = 0.04 ms; a serve
 // bucket of 8 such tiles with 8 clusters each moves ~531 MB, ~0.16 ms.
 // The forwards read the stack once; the predict forward adds the model,
-// 7.3 MB (bound ~0.219 ms at the north-star tile).  The backward #4's
-// bound counts the stack once too (kernels/parity.py::fused_cost_work),
-// but its design reads it twice, once per kernel 1 and 2, because a row's
-// cotangent needs every cluster and the cluster axis does not fit on chip
-// between the two (the TPU's VMEM held it): its floor is two passes,
-// ~0.44 ms, half the one-pass bound.  Measured on the H100 (PERF.md),
-// each pass runs near 2.5 TB/s with nothing else in it and the gradient
-// kernel's products and station sums add to it.  Holding a row tile's
-// stack on chip or in L2 between the two phases is later work.
+// 7.3 MB (bound ~0.219 ms at the north-star tile).  The bounds of the
+// objective backwards #4/#6 count the stack once too
+// (kernels/parity.py::fused_cost_work), but their design reads it twice,
+// once per kernel 1 and 2, because a row's cotangent needs every cluster
+// and the cluster axis does not fit on chip between the two (the TPU's
+// VMEM held it): their floor is two passes, half the one-pass bound.  The
+// predict backward #2 reads the stack once, in kernel 2, and its bound
+// (~0.219 ms) counts the stack, the upstream g and the tables.  Measured
+// on the H100 (PERF.md), a pass runs near 2.5 TB/s with nothing else in
+// it, and the gradient kernel's products and station sums add to it.
+// Holding a row tile's stack on chip or in L2 between the two phases is
+// later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,7 +114,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // rows per block, both kernels
+constexpr int kThreads = 256;  // rows per block (a row tile)
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -267,236 +273,18 @@ fused_cost_fwd_kernel(Tile t, const CT* __restrict__ coh,
         red[0];
 }
 
-// Dynamic shared-memory layout of the backward kernel (floats then ints).
-struct BwdSmem {
-  float* g;        // (F*8, T) model cotangent of the block's rows
-  float* contrib;  // (2, 8, T) this cluster's dJp (role 0) / dJq (role 1)
-  int* keys;       // (2T,) station of each (role, row) item; npad = none
-  int* order;      // (2T,) items sorted by station (stable)
-  int* seg;        // (npad + 2,) segment starts per station
-  int* cm;         // (T,) chunk index of each row for the current cluster
-};
-
-__host__ __device__ inline size_t bwd_smem_bytes(int F, int npad) {
-  return sizeof(float) * ((size_t)F * 8 * kThreads + 2 * 8 * kThreads) +
-         sizeof(int) * (4 * kThreads + (size_t)(npad + 2) + kThreads);
-}
-
-__device__ __forceinline__ BwdSmem bwd_smem(float* smem, const Tile& t) {
-  BwdSmem s;
-  s.g = smem;
-  s.contrib = s.g + (size_t)t.F * 8 * kThreads;
-  s.keys = reinterpret_cast<int*>(s.contrib + 2 * 8 * kThreads);
-  s.order = s.keys + 2 * kThreads;
-  s.seg = s.order + 2 * kThreads;
-  s.cm = s.seg + (t.npad + 2);
-  return s;
-}
-
-// Phase 2 of the batched objective backward (#6) and the predict
-// backward (#2), given the
-// model cotangent g of the block's rows in s.g: sort the block's
-// (role, row) items by station, then per cluster form each row's dJp and
-// dJq (summed over channels) and combine them per (chunk, station) in
-// sorted order into the block's partial table (that of `lane`, batched).
-template <typename CT>
-__device__ void bwd_tables(const Tile& t, const CT* coh, const BwdSmem& s,
-                           int lane, int r, bool valid, int ap, int aq,
-                           float* __restrict__ partial) {
-  const int T = kThreads;
-  const int tid = threadIdx.x;
-
-  // ---- stable counting sort of the block's (role, row) items by station
-  for (int i = tid; i < 2 * T; i += T) {
-    const int role = i / T, tt = i % T, rr = blockIdx.x * T + tt;
-    s.keys[i] = rr < t.rowsp ? (role == 0 ? t.ant_p[rr] : t.ant_q[rr])
-                             : t.npad;
-  }
-  __syncthreads();
-  for (int st = tid; st <= t.npad; st += T) {
-    int cnt = 0;
-    for (int i = 0; i < 2 * T; ++i) cnt += s.keys[i] == st;
-    s.seg[st + 1] = cnt;  // counts, prefix-summed below
-  }
-  __syncthreads();
-  if (tid == 0) {
-    s.seg[0] = 0;
-    for (int st = 0; st <= t.npad; ++st) s.seg[st + 1] += s.seg[st];
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * T; i += T) {
-    const int key = s.keys[i];
-    int rank = 0;
-    for (int j = 0; j < i; ++j) rank += s.keys[j] == key;
-    s.order[s.seg[key] + rank] = i;
-  }
-  __syncthreads();
-
-  // ---- phase 2: per cluster, per-row dJp / dJq, combined per station
-  const size_t mrows = (size_t)t.mp * t.nc;
-  const size_t tabsz = mrows * t.npad;  // one lane's component plane
-  float* part_b =
-      partial + ((size_t)lane * gridDim.x + blockIdx.x) * 8 * tabsz;
-  for (int m = 0; m < t.mp; ++m) {
-    float djp_r[4] = {0.f, 0.f, 0.f, 0.f}, djp_i[4] = {0.f, 0.f, 0.f, 0.f};
-    float djq_r[4] = {0.f, 0.f, 0.f, 0.f}, djq_i[4] = {0.f, 0.f, 0.f, 0.f};
-    int c = 0;
-    if (valid) {
-      const int mrow = chunk_row(t, m, r);
-      c = mrow - m * t.nc;
-      float pr[4], pi[4], qr[4], qi[4];
-      load_gain(t, mrow, ap, pr, pi);
-      load_gain(t, mrow, aq, qr, qi);
-      for (int f = 0; f < t.F; ++f) {
-        float cr[4], ci[4], ar[4], ai[4], gr[4], gi[4];
-        load_coh(coh, t, m, f, r, cr, ci);
-        cjqh(cr, ci, qr, qi, ar, ai);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          gr[k] = s.g[(f * 8 + k) * T + tid];
-          gi[k] = s.g[(f * 8 + 4 + k) * T + tid];
-        }
-        // dJp_ia += sum_j g_ij conj(A_aj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            float re = 0.f, im = 0.f;
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const float g_r = gr[2 * i + j], g_i = gi[2 * i + j];
-              const float a_r = ar[2 * a + j], a_i = ai[2 * a + j];
-              re += g_r * a_r + g_i * a_i;
-              im += g_i * a_r - g_r * a_i;
-            }
-            djp_r[2 * i + a] += re;
-            djp_i[2 * i + a] += im;
-          }
-        }
-        // dA_aj = sum_i conj(Jp_ia) g_ij ; dJq_jb += sum_a conj(dA_aj) C_ab
-        float dar[4], dai[4];
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float re = 0.f, im = 0.f;
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const float p_r = pr[2 * i + a], p_i = pi[2 * i + a];
-              const float g_r = gr[2 * i + j], g_i = gi[2 * i + j];
-              re += p_r * g_r + p_i * g_i;
-              im += p_r * g_i - p_i * g_r;
-            }
-            dar[2 * a + j] = re;
-            dai[2 * a + j] = im;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            float re = 0.f, im = 0.f;
-#pragma unroll
-            for (int a = 0; a < 2; ++a) {
-              const float d_r = dar[2 * a + j], d_i = dai[2 * a + j];
-              const float c_r = cr[2 * a + b], c_i = ci[2 * a + b];
-              re += d_r * c_r + d_i * c_i;
-              im += d_r * c_i - d_i * c_r;
-            }
-            djq_r[2 * j + b] += re;
-            djq_i[2 * j + b] += im;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s.contrib[(0 * 8 + k) * T + tid] = djp_r[k];
-      s.contrib[(0 * 8 + 4 + k) * T + tid] = djp_i[k];
-      s.contrib[(1 * 8 + k) * T + tid] = djq_r[k];
-      s.contrib[(1 * 8 + 4 + k) * T + tid] = djq_i[k];
-    }
-    s.cm[tid] = c;
-    __syncthreads();
-    // one task per (component j, chunk c, station st): sum the station's
-    // items in sorted (= row, then role) order; write every table entry
-    const int ntask = 8 * t.nc * t.npad;
-    for (int task = tid; task < ntask; task += T) {
-      const int st = task % t.npad;
-      const int cc = (task / t.npad) % t.nc;
-      const int j = task / (t.npad * t.nc);
-      float acc = 0.f;
-      for (int pos = s.seg[st]; pos < s.seg[st + 1]; ++pos) {
-        const int item = s.order[pos];
-        const int tt = item % T;
-        if (t.nc == 1 || s.cm[tt] == cc)
-          acc += s.contrib[((item / T) * 8 + j) * T + tt];
-      }
-      part_b[(size_t)j * tabsz + ((size_t)m * t.nc + cc) * t.npad + st] = acc;
-    }
-    __syncthreads();
-  }
-}
-
-// Kernel #6, the batched objective backward (phase 1 forms g; the solo
-// #4 launches the three kernels below instead).
-template <typename CT, bool kBatched>
-__global__ void __launch_bounds__(kThreads)
-fused_cost_bwd_kernel(Tile t, const CT* __restrict__ coh,
-                      const float* __restrict__ nu_ptr, int robust,
-                      float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  const int T = kThreads;
-  const BwdSmem s = bwd_smem(smem, t);
-
-  // the solo kernels (kBatched false) compile without the lane offsets
-  const int b = kBatched ? (int)blockIdx.y : 0;
-  if (kBatched) coh = to_lane(t, coh, b);
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x * T + tid;
-  const bool valid = r < t.rowsp;
-  const int ap = valid ? t.ant_p[r] : 0;
-  const int aq = valid ? t.ant_q[r] : 0;
-
-  // ---- phase 1: model cotangent g of this row, every channel
-  const float nu = robust ? nu_ptr[b] : 1.f;
-  for (int f = 0; f < t.F; ++f) {
-    float gr[4] = {0.f, 0.f, 0.f, 0.f}, gi[4] = {0.f, 0.f, 0.f, 0.f};
-    if (valid) {
-      float vr[4], vi[4];
-      model_row(coh, t, f, r, ap, aq, vr, vi);
-      const float msk = t.mask[(size_t)f * t.rowsp + r];
-      const float* vis = t.vis + (size_t)f * 8 * t.rowsp + r;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float dr = (vis[(size_t)k * t.rowsp] - vr[k]) * msk;
-        const float di = (vis[(size_t)(4 + k) * t.rowsp] - vi[k]) * msk;
-        const float w = robust ? 2.f / (nu + dr * dr + di * di) : 2.f;
-        gr[k] = -w * msk * dr;
-        gi[k] = -w * msk * di;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s.g[(f * 8 + k) * T + tid] = gr[k];
-      s.g[(f * 8 + 4 + k) * T + tid] = gi[k];
-    }
-  }
-  bwd_tables(t, coh, s, b, r, valid, ap, aq, partial);
-}
-
-// ---- kernel #4, the solo objective backward: cotangent, gradient, sum
+// ---- the backwards: cotangent (#4, #6), gradient (#4, #6, #2), sum
 //
 // The cotangent g of a row needs every cluster; the gradient of cluster m
 // needs only g and C_m.  So one kernel forms g (one stack pass, #3's
 // body) and writes it out; a second runs (row super-tile, cluster group)
 // blocks in parallel over g and the stack (a second pass); a third sums
-// the super-tiles' partial tables in order.  The bodies take the lane
-// template parameter (kBatched) for the batched backward, but only their
-// solo forms are instantiated: #6 and #2 still use bwd_tables above.
+// the super-tiles' partial tables in order.  #6 runs the same bodies with
+// the lane on the grid (kBatched), and #2 the last two on the caller's g.
 
 // The station plan of every (chunk map, row tile), built on the device by
-// ops/rime_kernel.py::BwdPlan once per tile: the tile's 2 * kThreads
+// ops/rime_kernel.py::BwdPlan once per tile (one for all of #6's lanes,
+// which share their stations and have nc = 1): the tile's 2 * kThreads
 // (role, row) items, item i = role * kThreads + (row - tile start),
 // stably sorted by key c * npad + station (c the row's chunk under that
 // map, station ant_p or ant_q by role; rows past rowsp last).
@@ -590,9 +378,9 @@ __device__ __forceinline__ void stage_coh(CT* dst, const CT* coh,
   }
 }
 
-// Cotangent kernel: g(f, r) = -2 mask d  (Gaussian) or
-// -2 mask d / (nu + |d|^2)  (robust) of every row and channel, stored as
-// the planes of (F, 8, rowsp) f32.  One stack pass: clusters outer, two
+// Cotangent kernel: g(f, r) = -2 mask d  (Gaussian) or -2 mask d / (nu +
+// |d|^2)  (robust) of every row and channel, stored as the planes of (F, 8,
+// rowsp) f32 (lane y's, batched).  One stack pass: clusters outer, two
 // channels at a time, the row's gains loaded once per cluster; each warp
 // stages its own rows' coherencies kCotStages - 1 clusters ahead (cp.async
 // into a ring in shared memory, __syncwarp before reading them).
@@ -673,7 +461,7 @@ fused_cost_cot_kernel(Tile t, const CT* __restrict__ coh,
 
 // One channel of a row's gain cotangents: A = C Jq^H, then
 // dJp_ia += sum_j g_ij conj(A_aj); dA_aj = sum_i conj(Jp_ia) g_ij;
-// dJq_jb += sum_a conj(dA_aj) C_ab  (bwd_tables' arithmetic).
+// dJq_jb += sum_a conj(dA_aj) C_ab.
 __device__ __forceinline__ void grad_channel(
     const float cr[4], const float ci[4], const float gr[4],
     const float gi[4], const float pr[4], const float pi[4],
@@ -732,23 +520,23 @@ __device__ __forceinline__ void grad_channel(
   }
 }
 
-// Gradient kernel.  Block (x, y) covers row tiles [x * kTilesPerBlock,
-// (x + 1) * kTilesPerBlock), the gc clusters of group y / nz and the kz
-// keys (chunk, station) of slice y % nz.  Per tile, each thread runs
-// through the group's clusters with no block barrier: it forms its row's
-// dJp and dJq (summed over channels) from g, its row's coherencies and
-// the group's gains, and stores them at its two items' sorted positions
-// in that cluster's contributions.  Each warp stages its own 32 rows'
-// coherencies kStages - 1 steps ahead (cp.async into a ring; __syncwarp,
-// not __syncthreads, before reading them).  Then, between two barriers,
-// lane (q = lane / 8, j = lane % 8) of warp w takes (cluster, key) 4 w + q
-// (then + 32, ...) of the slice and adds component j of the key's
-// contiguous items, in sorted order, into the group's sums, tile after
-// tile.  The block writes its slice of its group's rows of partial table
-// x.  When the group's tables fit (nz = 1, kz = K) the gains are staged
-// in shared memory; otherwise (gc = 1, K split into nz slices) each thread
-// loads its row's gains from the tables, every slice re-reads the tile's
-// stack, and the sums are the same, in the same order.
+// Gradient kernel (#4, #6 and #2; for #2 g is the caller's).  Block (x, y,
+// z) covers row tiles [x * kTilesPerBlock, (x + 1) * kTilesPerBlock), the gc
+// clusters of group y / nz and the kz keys (chunk, station) of slice y % nz.
+// Per tile, each thread runs through the group's clusters with no block
+// barrier: it forms its row's dJp and dJq (summed over channels) from g, its
+// row's coherencies and the group's gains, and stores them at its two items'
+// sorted positions in that cluster's contributions.  Each warp stages its
+// own 32 rows' coherencies kStages - 1 steps ahead (cp.async into a ring;
+// __syncwarp, not __syncthreads, before reading them).  Then, between two
+// barriers, lane (q = lane / 8, j = lane % 8) of warp w takes (cluster, key)
+// 4 w + q (then + 32, ...) of the slice and adds component j of the key's
+// contiguous items, in sorted order, into the group's sums, tile after tile.
+// The block writes its slice of its group's rows of partial table x (of lane
+// z, batched).  When the group's tables fit (nz = 1, kz = K) the gains are
+// staged in shared memory; otherwise (gc = 1, K split into nz slices) each
+// thread loads its row's gains from the tables, every slice re-reads the
+// tile's stack, and the sums are the same, in the same order.
 template <typename CT, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_cost_grad_kernel(Tile t, const CT* __restrict__ coh,
@@ -946,27 +734,6 @@ fused_predict_fwd_kernel(Tile t, const CT* __restrict__ coh,
   }
 }
 
-// Kernel #2, the fused predict backward: phase 1 loads the upstream
-// model cotangent g (F, 8, rowsp) of the block's rows into s.g; phase 2
-// is the objective backward's.  The stack is read once (phase 2 only).
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-fused_predict_bwd_kernel(Tile t, const CT* __restrict__ coh,
-                         const float* __restrict__ g,
-                         float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  const int T = kThreads;
-  const BwdSmem s = bwd_smem(smem, t);
-  const int tid = threadIdx.x;
-  const int r = blockIdx.x * T + tid;
-  const bool valid = r < t.rowsp;
-  const int ap = valid ? t.ant_p[r] : 0;
-  const int aq = valid ? t.ant_q[r] : 0;
-  for (int fk = 0; fk < t.F * 8; ++fk)
-    s.g[fk * T + tid] = valid ? g[(size_t)fk * t.rowsp + r] : 0.f;
-  bwd_tables(t, coh, s, 0, r, valid, ap, aq, partial);
-}
-
 // Per lane b (grid y): sum over blocks k (in order) of partial[b][k][e],
 // e = (j, row, station) of the lane's (8, mrows, npad) table, written to
 // out (8, lanes * mrows, npad) at component j, row b * mrows + row.
@@ -1020,20 +787,6 @@ int launch_fwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
   return (int)cudaGetLastError();
 }
 
-template <typename CT, bool kBatched>
-int launch_bwd_kernel(const Tile& t, const CT* coh, const float* nu,
-                      int robust, float* partial, cudaStream_t st) {
-  const size_t smem = bwd_smem_bytes(t.F, t.npad);
-  const int err = (int)cudaFuncSetAttribute(
-      fused_cost_bwd_kernel<CT, kBatched>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const dim3 grid((t.rowsp + kThreads - 1) / kThreads, t.lanes);
-  fused_cost_bwd_kernel<CT, kBatched><<<grid, kThreads, smem, st>>>(
-      t, coh, nu, robust, partial);
-  return (int)cudaGetLastError();
-}
-
 // out = the lanes' partial tables (nblocks per lane) summed in order
 int launch_sum_partials(const Tile& t, const float* partial, int nblocks,
                         float* out, cudaStream_t st) {
@@ -1042,23 +795,6 @@ int launch_sum_partials(const Tile& t, const float* partial, int nblocks,
   sum_partials_kernel<<<grid, kThreads, 0, st>>>(partial, nblocks, tabsz,
                                                  out);
   return (int)cudaGetLastError();
-}
-
-template <bool kBatched>
-int launch_bwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
-               int robust, float* partial, float* out, void* stream) {
-  if (t.lanes < 1 || t.lanes > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      coh_bf16
-          ? launch_bwd_kernel<__nv_bfloat16, kBatched>(
-                t, static_cast<const __nv_bfloat16*>(coh), nu, robust,
-                partial, st)
-          : launch_bwd_kernel<float, kBatched>(
-                t, static_cast<const float*>(coh), nu, robust, partial, st);
-  if (err) return err;
-  return launch_sum_partials(t, partial, (t.rowsp + kThreads - 1) / kThreads,
-                             out, st);
 }
 
 int launch_predict_fwd(const Tile& t, const void* coh, int coh_bf16,
@@ -1074,36 +810,7 @@ int launch_predict_fwd(const Tile& t, const void* coh, int coh_bf16,
   return (int)cudaGetLastError();
 }
 
-template <typename CT>
-int launch_predict_bwd_kernel(const Tile& t, const CT* coh, const float* g,
-                              float* partial, cudaStream_t st) {
-  const size_t smem = bwd_smem_bytes(t.F, t.npad);
-  const int err = (int)cudaFuncSetAttribute(
-      fused_predict_bwd_kernel<CT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const dim3 grid((t.rowsp + kThreads - 1) / kThreads);
-  fused_predict_bwd_kernel<CT><<<grid, kThreads, smem, st>>>(t, coh, g,
-                                                              partial);
-  return (int)cudaGetLastError();
-}
-
-int launch_predict_bwd(const Tile& t, const void* coh, int coh_bf16,
-                       const float* g, float* partial, float* out,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      coh_bf16
-          ? launch_predict_bwd_kernel<__nv_bfloat16>(
-                t, static_cast<const __nv_bfloat16*>(coh), g, partial, st)
-          : launch_predict_bwd_kernel<float>(
-                t, static_cast<const float*>(coh), g, partial, st);
-  if (err) return err;
-  return launch_sum_partials(t, partial, (t.rowsp + kThreads - 1) / kThreads,
-                             out, st);
-}
-
-// Kernel #4's launches.  kGradSmemTarget: two gradient blocks an SM
+// The backwards' launches.  kGradSmemTarget: two gradient blocks an SM
 // (228 KB less 1 KB a block).
 constexpr size_t kGradSmemTarget = 113 * 1024;
 constexpr size_t kSmemMax = 232448;
@@ -1146,36 +853,32 @@ int grad_tables(int rowsp) {
   return (ntiles + kTilesPerBlock - 1) / kTilesPerBlock;
 }
 
+// Whether the stack takes the 16-byte cp.async copies (stage_coh's vec):
+// rowsp a multiple of 16 bytes' worth of CT and an aligned stack.  Every
+// cluster and lane then starts aligned too.
 template <typename CT>
-int launch_solo_bwd(const Tile& t, const CT* coh, const float* nu,
-                    int robust, const GradPlan& plan, int stages, float* g,
-                    float* partial, float* out, cudaStream_t st) {
-  if (plan.ntiles != (t.rowsp + kThreads - 1) / kThreads)
-    return (int)cudaErrorInvalidValue;
-  const int vec = t.rowsp % (16 / (int)sizeof(CT)) == 0 &&
-                  reinterpret_cast<uintptr_t>(coh) % 16 == 0;
-  if (stages & 1) {
-    const size_t smem =
-        (size_t)kCotStages * kRegPlanes * kThreads * sizeof(CT);
-    int err = smem_attributes(fused_cost_cot_kernel<CT, false>, smem);
-    if (err) return err;
-    const dim3 grid((t.rowsp + kThreads - 1) / kThreads);
-    fused_cost_cot_kernel<CT, false><<<grid, kThreads, smem, st>>>(
-        t, coh, nu, robust, vec, g);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
+int coh_vec(const CT* coh, int rowsp) {
+  return rowsp % (16 / (int)sizeof(CT)) == 0 &&
+         reinterpret_cast<uintptr_t>(coh) % 16 == 0;
+}
+
+// The gradient kernel (stages & 2: the lanes' partial tables from g and
+// the stack) and the sum (stages & 4: out), shared by #4, #6 and #2.
+template <typename CT, bool kBatched>
+int launch_grad_sum(const Tile& t, const CT* coh, const float* g,
+                    const GradPlan& plan, int stages, float* partial,
+                    float* out, cudaStream_t st) {
   const int ntables = grad_tables(t.rowsp);
   if (stages & 2) {
     int gc, kz;
     grad_shape(t, sizeof(CT), &gc, &kz);
     const int K = t.nc * t.npad, nz = (K + kz - 1) / kz;
     const size_t smem = grad_smem_bytes(gc, t.nc, K, kz, sizeof(CT));
-    int err = smem_attributes(fused_cost_grad_kernel<CT, false>, smem);
+    int err = smem_attributes(fused_cost_grad_kernel<CT, kBatched>, smem);
     if (err) return err;
-    const dim3 grid(ntables, (t.mp + gc - 1) / gc * nz);
-    fused_cost_grad_kernel<CT, false><<<grid, kThreads, smem, st>>>(
-        t, coh, g, plan, gc, kz, vec, partial);
+    const dim3 grid(ntables, (t.mp + gc - 1) / gc * nz, t.lanes);
+    fused_cost_grad_kernel<CT, kBatched><<<grid, kThreads, smem, st>>>(
+        t, coh, g, plan, gc, kz, coh_vec(coh, t.rowsp), partial);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -1183,16 +886,58 @@ int launch_solo_bwd(const Tile& t, const CT* coh, const float* nu,
   return 0;
 }
 
+// Kernels #4 (solo) and #6 (kBatched, t.lanes lanes): the cotangent
+// kernel (stages & 1) writes g, then the gradient and the sum.
+template <typename CT, bool kBatched>
+int launch_cost_bwd(const Tile& t, const CT* coh, const float* nu,
+                    int robust, const GradPlan& plan, int stages, float* g,
+                    float* partial, float* out, cudaStream_t st) {
+  if (t.lanes < 1 || t.lanes > 65535) return (int)cudaErrorInvalidValue;
+  if (stages & 1) {
+    const size_t smem =
+        (size_t)kCotStages * kRegPlanes * kThreads * sizeof(CT);
+    int err = smem_attributes(fused_cost_cot_kernel<CT, kBatched>, smem);
+    if (err) return err;
+    const dim3 grid((t.rowsp + kThreads - 1) / kThreads, t.lanes);
+    fused_cost_cot_kernel<CT, kBatched><<<grid, kThreads, smem, st>>>(
+        t, coh, nu, robust, coh_vec(coh, t.rowsp), g);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return launch_grad_sum<CT, kBatched>(t, coh, g, plan, stages, partial, out,
+                                       st);
+}
+
+template <bool kBatched>
+int cost_bwd(const Tile& t, const void* coh, int coh_bf16, const float* nu,
+             int robust, const GradPlan& plan, int stages, float* g,
+             float* partial, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return coh_bf16
+             ? launch_cost_bwd<__nv_bfloat16, kBatched>(
+                   t, static_cast<const __nv_bfloat16*>(coh), nu, robust,
+                   plan, stages, g, partial, out, st)
+             : launch_cost_bwd<float, kBatched>(
+                   t, static_cast<const float*>(coh), nu, robust, plan,
+                   stages, g, partial, out, st);
+}
+
+GradPlan make_plan(const int* pos, const int* seg, const int* of_cluster,
+                   int rowsp) {
+  return GradPlan{pos, seg, of_cluster, (rowsp + kThreads - 1) / kThreads};
+}
+
 }  // namespace
 
 extern "C" {
 
-// Number of blocks (= forward partial sums, = backward partial tables).
+// Number of blocks (= forward partial sums).
 int fused_cost_num_blocks(int rowsp) {
   return (rowsp + kThreads - 1) / kThreads;
 }
 
-// Forward: partial (num_blocks,) f32.  Returns cudaGetLastError().
+// Forward (kernel #3): partial (num_blocks,) f32.  Returns
+// cudaGetLastError().
 int fused_cost_fwd(const float* tab_re, const float* tab_im, const void* coh,
                    int coh_bf16, const int* ant_p, const int* ant_q,
                    const int* cmap, const float* vis, const float* mask,
@@ -1207,9 +952,8 @@ int fused_cost_fwd(const float* tab_re, const float* tab_im, const void* coh,
 // (F, 8, rowsp); the gradient kernel (stages & 2) writes partial
 // (fused_cost_bwd_num_tables(rowsp), 8, mp*nc, npad); the sum (stages &
 // 4) writes out (8, mp*nc, npad) = [d tab_re (4 planes); d tab_im (4
-// planes)].  plan_*: the station plan (GradPlan above; plan_of read when
-// nc > 1).  Returns the first non-zero CUDA error (cudaErrorInvalidValue
-// for a plan of another row count).
+// planes)].  plan_*: the station plan of these rows (GradPlan above;
+// plan_of read when nc > 1).  Returns the first non-zero CUDA error.
 int fused_cost_bwd(const float* tab_re, const float* tab_im, const void* coh,
                    int coh_bf16, const int* ant_p, const int* ant_q,
                    const int* cmap, const float* vis, const float* mask,
@@ -1219,20 +963,17 @@ int fused_cost_bwd(const float* tab_re, const float* tab_im, const void* coh,
                    float* g, float* partial, float* out, void* stream) {
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, vis, mask, mp,
                            nc, npad, F, rowsp, 1);
-  const GradPlan plan{plan_pos, plan_seg, plan_of,
-                      (rowsp + kThreads - 1) / kThreads};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return coh_bf16
-             ? launch_solo_bwd(t, static_cast<const __nv_bfloat16*>(coh), nu,
-                               robust, plan, stages, g, partial, out, st)
-             : launch_solo_bwd(t, static_cast<const float*>(coh), nu, robust,
-                               plan, stages, g, partial, out, st);
+  return cost_bwd<false>(t, coh, coh_bf16, nu, robust,
+                         make_plan(plan_pos, plan_seg, plan_of, rowsp),
+                         stages, g, partial, out, stream);
 }
 
-// Number of kernel #4's partial tables (one per kTilesPerBlock row tiles).
+// Number of partial tables of a backward, per lane (one per
+// kTilesPerBlock row tiles).
 int fused_cost_bwd_num_tables(int rowsp) { return grad_tables(rowsp); }
 
-// Batched forward over B lanes (nc = 1): partial (B, num_blocks) f32.
+// Batched forward over B lanes (kernel #5, nc = 1): partial
+// (B, num_blocks) f32.
 int fused_cost_batch_fwd(const float* tab_re, const float* tab_im,
                          const void* coh, int coh_bf16, const int* ant_p,
                          const int* ant_q, const float* vis,
@@ -1244,18 +985,25 @@ int fused_cost_batch_fwd(const float* tab_re, const float* tab_im,
   return launch_fwd<true>(t, coh, coh_bf16, nu, robust, partial, stream);
 }
 
-// Batched backward: partial (B, num_blocks, 8, mp, npad) scratch, out
-// (8, B*mp, npad) = [d tab_re (4 planes); d tab_im (4 planes)], each
-// lane's d cost_b / d tables on its own rows.
+// Batched backward (kernel #6, nc = 1): as fused_cost_bwd per lane, with
+// g (B, F, 8, rowsp), partial (B, fused_cost_bwd_num_tables(rowsp), 8,
+// mp, npad) and out (8, B*mp, npad), each lane's d cost_b / d tables on
+// its own rows.  One station plan (plan_pos, plan_seg) for every lane:
+// the lanes share ant_p/ant_q.  cudaErrorInvalidValue for lanes outside
+// 1..65535.
 int fused_cost_batch_bwd(const float* tab_re, const float* tab_im,
                          const void* coh, int coh_bf16, const int* ant_p,
                          const int* ant_q, const float* vis,
                          const float* mask, const float* nu, int lanes,
                          int mp, int npad, int F, int rowsp, int robust,
-                         float* partial, float* out, void* stream) {
+                         const int* plan_pos, const int* plan_seg,
+                         int stages, float* g, float* partial, float* out,
+                         void* stream) {
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, nullptr, vis, mask,
                            mp, 1, npad, F, rowsp, lanes);
-  return launch_bwd<true>(t, coh, coh_bf16, nu, robust, partial, out, stream);
+  return cost_bwd<true>(t, coh, coh_bf16, nu, robust,
+                        make_plan(plan_pos, plan_seg, nullptr, rowsp),
+                        stages, g, partial, out, stream);
 }
 
 // Predict forward (kernel #1): out (F, 8, rowsp) f32, the model of every
@@ -1269,18 +1017,29 @@ int fused_predict_fwd(const float* tab_re, const float* tab_im,
   return launch_predict_fwd(t, coh, coh_bf16, out, stream);
 }
 
-// Predict backward (kernel #2): g (F, 8, rowsp) f32 upstream cotangent of
-// the model; partial (num_blocks, 8, mp*nc, npad) scratch; out
-// (8, mp*nc, npad) = [d tab_re (4 planes); d tab_im (4 planes)].
-// Returns the first non-zero cudaGetLastError().
+// Predict backward (kernel #2): the gradient kernel (stages & 2) on the
+// upstream model cotangent g (F, 8, rowsp) f32 writes partial
+// (fused_cost_bwd_num_tables(rowsp), 8, mp*nc, npad); the sum (stages &
+// 4) writes out (8, mp*nc, npad) = [d tab_re (4 planes); d tab_im (4
+// planes)].  plan_* as for fused_cost_bwd.  Returns the first non-zero
+// CUDA error.
 int fused_predict_bwd(const float* tab_re, const float* tab_im,
                       const void* coh, int coh_bf16, const int* ant_p,
                       const int* ant_q, const int* cmap, const float* g,
                       int mp, int nc, int npad, int F, int rowsp,
-                      float* partial, float* out, void* stream) {
+                      const int* plan_pos, const int* plan_seg,
+                      const int* plan_of, int stages, float* partial,
+                      float* out, void* stream) {
   const Tile t = make_tile(tab_re, tab_im, ant_p, ant_q, cmap, nullptr,
                            nullptr, mp, nc, npad, F, rowsp, 1);
-  return launch_predict_bwd(t, coh, coh_bf16, g, partial, out, stream);
+  const GradPlan plan = make_plan(plan_pos, plan_seg, plan_of, rowsp);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return coh_bf16 ? launch_grad_sum<__nv_bfloat16, false>(
+                        t, static_cast<const __nv_bfloat16*>(coh), g, plan,
+                        stages, partial, out, st)
+                  : launch_grad_sum<float, false>(
+                        t, static_cast<const float*>(coh), g, plan, stages,
+                        partial, out, st);
 }
 
 }  // extern "C"

@@ -48,17 +48,20 @@ SIGNATURES = {
         # lanes, mp, npad, F, rowsp, robust, partial, stream
         "fused_cost_batch_fwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _P, _P], _I),
-        # ... partial, out, stream
+        # ..., robust, plan_pos, plan_seg, stages, g, partial, out, stream
         "fused_cost_batch_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+                                  _I, _I, _I, _I, _I, _I, _P, _P,
+                                  _I, _P, _P, _P, _P], _I),
         # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, cmap, mp, nc, npad,
         # F, rowsp, out, stream
         "fused_predict_fwd": ([_P, _P, _P, _I, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P, _P], _I),
         # tab_re, tab_im, coh, coh_bf16, ant_p, ant_q, cmap, g, mp, nc,
-        # npad, F, rowsp, partial, out, stream
+        # npad, F, rowsp, plan_pos, plan_seg, plan_of, stages, partial,
+        # out, stream
         "fused_predict_bwd": ([_P, _P, _P, _I, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _P, _P, _P], _I),
+                               _I, _I, _I, _I, _I, _P, _P, _P,
+                               _I, _P, _P, _P], _I),
     },
     # the kbisect probes #7-#10, one source each (tools/kbisect.py)
     # tab, oh, mp, npad, T, partial, out, stream; mp

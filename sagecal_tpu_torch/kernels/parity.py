@@ -7,8 +7,10 @@ gradient error relative to the gradient's norm: elementwise f32
 gradient checks fail on summation order alone), the predict (model
 error relative to its max abs, gradient as for the objective, under a
 seeded upstream cotangent) and the batched objective, with whether two
-backward launches give bit-identical tables.  Each kernel pair has its
-work count (bytes and operations) for its bound.
+backward launches give bit-identical tables.  Each comparison builds its
+problem's backward station plan once (:func:`plan_of`) and passes it to
+every backward, as a solve does.  Each kernel pair has its work count
+(bytes and operations) for its bound.
 
 The visibilities are drawn independently of the model, so the residual
 is of the model's size: the comparison then measures the kernels'
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.ops.rime_kernel import (
-    FusedSkyGradientError, _nu_cell, _nu_lanes, fused_cost_batch_bwd_cuda,
+    BwdPlan, FusedSkyGradientError, _nu_cell, _nu_lanes,
+    fused_cost_batch_bwd_cuda,
     fused_cost_bwd_cuda, fused_cost_packed, fused_cost_packed_batch,
     fused_cost_packed_batch_plain, fused_cost_packed_hybrid,
     fused_cost_packed_plain, fused_predict_bwd_cuda, fused_predict_packed,
@@ -86,9 +89,18 @@ def random_cost_problem(M: int, N: int, F: int, rows: int, nc: int = 1,
     )
 
 
-def value_and_grad(prob: CostProblem, nu=None, plain: bool = False):
+def plan_of(prob) -> BwdPlan:
+    """The backward station plan of a problem's indices (a batch's lanes
+    share theirs)."""
+    cmap, nc = getattr(prob, "cmap", None), getattr(prob, "nc", 1)
+    return BwdPlan(prob.ant_p, prob.ant_q, cmap, nc, prob.tab_re.shape[2])
+
+
+def value_and_grad(prob: CostProblem, nu=None, plain: bool = False,
+                   plan=None):
     """(cost, d cost / d tab_re, d cost / d tab_im) through the wrapper
-    (kernels on CUDA tensors) or through the plain version."""
+    (kernels on CUDA tensors; ``plan`` its station plan, None to build
+    one) or through the plain version."""
     a = prob.tab_re.detach().clone().requires_grad_(True)
     b = prob.tab_im.detach().clone().requires_grad_(True)
     if plain:
@@ -96,25 +108,27 @@ def value_and_grad(prob: CostProblem, nu=None, plain: bool = False):
                                        prob.nc)
     elif prob.nc > 1:
         cost = fused_cost_packed_hybrid(a, b, *prob.inputs, prob.cmap,
-                                        prob.nc, nu)
+                                        prob.nc, nu, plan=plan)
     else:
-        cost = fused_cost_packed(a, b, *prob.inputs, nu)
+        cost = fused_cost_packed(a, b, *prob.inputs, nu, plan=plan)
     ga, gb = torch.autograd.grad(cost, (a, b))
     return cost.detach(), ga, gb
 
 
-def compare_with_plain(prob: CostProblem, nu=None) -> dict:
-    """Kernels vs plain version on the same inputs: {"cost_rel",
+def compare_with_plain(prob: CostProblem, nu=None, plan=None) -> dict:
+    """Kernels vs plain version on the same inputs (``plan``: the
+    problem's station plan, None to build one here): {"cost_rel",
     "cost_abs_err", "grad_rel", "grad_max_abs_err", "bitwise_repeat"}."""
-    ck, gka, gkb = value_and_grad(prob, nu)
+    plan = plan_of(prob) if plan is None else plan
+    ck, gka, gkb = value_and_grad(prob, nu, plan=plan)
     cp, gpa, gpb = value_and_grad(prob, nu, plain=True)
     gk = torch.cat([gka.reshape(-1), gkb.reshape(-1)]).double()
     gp = torch.cat([gpa.reshape(-1), gpb.reshape(-1)]).double()
     args = (prob.tab_re, prob.tab_im, *prob.inputs,
             _nu_cell(nu, prob.tab_re.device), nu is not None, prob.cmap,
             prob.nc)
-    r1 = fused_cost_bwd_cuda(*args)
-    r2 = fused_cost_bwd_cuda(*args)
+    r1 = fused_cost_bwd_cuda(*args, plan=plan)
+    r2 = fused_cost_bwd_cuda(*args, plan=plan)
     return {
         "cost_rel": abs(float(ck) - float(cp)) / abs(float(cp)),
         "cost_abs_err": abs(float(ck) - float(cp)),
@@ -128,16 +142,24 @@ def compare_with_plain(prob: CostProblem, nu=None) -> dict:
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# words an SM's load path serves from L1 or shared memory a clock (32
+# banks of 4 bytes), over 132 SMs at the clock that gives the f32 peak
+# (128 FMA lanes an SM, 2 flops each): an eighth of the f32 rate, 8.4e12
+# words (33.5 TB) a second
+GATHER_WORDS_PER_S = F32_FLOPS_PER_S * 32 / 256
 
 
-def roofline(nbytes: int, flops: int) -> dict:
+def roofline(nbytes: int, flops: int, gathers: int = 0) -> dict:
     """The least time the card could take for this work: bytes over the
-    memory rate or operations over the f32 peak, whichever is larger."""
+    memory rate, or operations, whichever is larger.  The operations'
+    time is the larger of the flops over the f32 peak and ``gathers``
+    (words a kernel picks by index from a table that sits on chip) over
+    the rate the SMs serve them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S, gathers / GATHER_WORDS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, "gathers": gathers}
 
 
 # real f32 operations per (cluster, channel, row): the model's two 2x2
@@ -180,18 +202,20 @@ def model_cotangent(prob: CostProblem, seed: int = 0) -> torch.Tensor:
     return torch.as_tensor(g, dtype=torch.float32).to(prob.tab_re.device)
 
 
-def predict_and_grad(prob: CostProblem, g, plain: bool = False):
+def predict_and_grad(prob: CostProblem, g, plain: bool = False, plan=None):
     """(model (F, 8, rowsp), d <g, model> / d tab_re, ... / d tab_im)
-    through the wrapper (kernels on CUDA tensors) or the plain version."""
+    through the wrapper (kernels on CUDA tensors; ``plan`` as for
+    :func:`value_and_grad`) or the plain version."""
     a = prob.tab_re.detach().clone().requires_grad_(True)
     b = prob.tab_im.detach().clone().requires_grad_(True)
     args = (prob.coh_ri, prob.ant_p, prob.ant_q)
     if plain:
         model = fused_predict_packed_plain(a, b, *args, prob.cmap, prob.nc)
     elif prob.nc > 1:
-        model = fused_predict_packed_hybrid(a, b, *args, prob.cmap, prob.nc)
+        model = fused_predict_packed_hybrid(a, b, *args, prob.cmap, prob.nc,
+                                            plan=plan)
     else:
-        model = fused_predict_packed(a, b, *args)
+        model = fused_predict_packed(a, b, *args, plan=plan)
     ga, gb = torch.autograd.grad(model, (a, b), g)
     return model.detach(), ga, gb
 
@@ -210,22 +234,24 @@ def sky_gradient_raises(prob: CostProblem, g) -> bool:
     return False
 
 
-def compare_predict_with_plain(prob: CostProblem, seed: int = 0) -> dict:
+def compare_predict_with_plain(prob: CostProblem, seed: int = 0,
+                               plan=None) -> dict:
     """Kernels #1/#2 vs the plain predict on the same inputs and a seeded
-    upstream cotangent: {"model_rel" (max abs error over the model's max
-    abs), "model_max_abs_err", "grad_rel" (error norm over the
-    cotangent's norm), "grad_max_abs_err", "bitwise_repeat",
-    "sky_error_raised"}."""
+    upstream cotangent (``plan`` as for :func:`compare_with_plain`):
+    {"model_rel" (max abs error over the model's max abs),
+    "model_max_abs_err", "grad_rel" (error norm over the cotangent's
+    norm), "grad_max_abs_err", "bitwise_repeat", "sky_error_raised"}."""
     g = model_cotangent(prob, seed)
-    mk, gka, gkb = predict_and_grad(prob, g)
+    plan = plan_of(prob) if plan is None else plan
+    mk, gka, gkb = predict_and_grad(prob, g, plan=plan)
     mpl, gpa, gpb = predict_and_grad(prob, g, plain=True)
     gk = torch.cat([gka.reshape(-1), gkb.reshape(-1)]).double()
     gp = torch.cat([gpa.reshape(-1), gpb.reshape(-1)]).double()
     merr = float((mk.double() - mpl.double()).abs().max())
     args = (prob.tab_re, prob.tab_im, prob.coh_ri, prob.ant_p, prob.ant_q, g,
             prob.cmap, prob.nc)
-    r1 = fused_predict_bwd_cuda(*args)
-    r2 = fused_predict_bwd_cuda(*args)
+    r1 = fused_predict_bwd_cuda(*args, plan=plan)
+    r2 = fused_predict_bwd_cuda(*args, plan=plan)
     return {
         "model_rel": merr / float(mpl.abs().max()),
         "model_max_abs_err": merr,
@@ -306,26 +332,32 @@ def lane_weights(B: int, seed: int = 0) -> torch.Tensor:
 
 
 def value_and_grad_batch(prob: BatchCostProblem, nu=None, weights=None,
-                         plain: bool = False):
+                         plain: bool = False, plan=None):
     """((B,) costs, d sum(w * costs) / d tab_re, ... / d tab_im) through
-    the wrapper (kernels on CUDA tensors) or the plain version."""
+    the wrapper (kernels on CUDA tensors; ``plan`` as for
+    :func:`value_and_grad`) or the plain version."""
     a = prob.tab_re.detach().clone().requires_grad_(True)
     b = prob.tab_im.detach().clone().requires_grad_(True)
-    fn = fused_cost_packed_batch_plain if plain else fused_cost_packed_batch
-    costs = fn(a, b, *prob.inputs, nu)
+    if plain:
+        costs = fused_cost_packed_batch_plain(a, b, *prob.inputs, nu)
+    else:
+        costs = fused_cost_packed_batch(a, b, *prob.inputs, nu, plan=plan)
     w = torch.ones_like(costs) if weights is None else weights.to(costs)
     ga, gb = torch.autograd.grad(costs, (a, b), w)
     return costs.detach(), ga, gb
 
 
-def compare_batch_with_plain(prob: BatchCostProblem, nu=None) -> dict:
+def compare_batch_with_plain(prob: BatchCostProblem, nu=None,
+                             plan=None) -> dict:
     """Batched kernels vs plain version on the same inputs, with seeded
-    per-lane cotangents: {"cost_rel" (worst lane), "cost_abs_err",
-    "grad_rel", "grad_max_abs_err", "bitwise_repeat", "pad_lanes_zero"}
-    (the last: every padded lane's cost and table rows exactly 0)."""
+    per-lane cotangents (``plan`` as for :func:`compare_with_plain`):
+    {"cost_rel" (worst lane), "cost_abs_err", "grad_rel",
+    "grad_max_abs_err", "bitwise_repeat", "pad_lanes_zero"} (the last:
+    every padded lane's cost and table rows exactly 0)."""
     B = prob.vis_ri.shape[0]
     w = lane_weights(B)
-    ck, gka, gkb = value_and_grad_batch(prob, nu, w)
+    plan = plan_of(prob) if plan is None else plan
+    ck, gka, gkb = value_and_grad_batch(prob, nu, w, plan=plan)
     cp, gpa, gpb = value_and_grad_batch(prob, nu, w, plain=True)
     real = torch.as_tensor(prob.valid)
     ckd, cpd = ck.double().cpu(), cp.double().cpu()
@@ -333,8 +365,8 @@ def compare_batch_with_plain(prob: BatchCostProblem, nu=None) -> dict:
     gp = torch.cat([gpa.reshape(-1), gpb.reshape(-1)]).double()
     args = (prob.tab_re, prob.tab_im, *prob.inputs,
             _nu_lanes(nu, B, prob.tab_re.device), nu is not None)
-    r1 = fused_cost_batch_bwd_cuda(*args)
-    r2 = fused_cost_batch_bwd_cuda(*args)
+    r1 = fused_cost_batch_bwd_cuda(*args, plan=plan)
+    r2 = fused_cost_batch_bwd_cuda(*args, plan=plan)
     mp = prob.tab_re.shape[1] // B
     pad_zero = True
     for lane in np.flatnonzero(~prob.valid):
@@ -474,23 +506,28 @@ def probe_library_call(name: str, inputs):
 
 
 def kbisect_work(name: str, inputs) -> tuple:
-    """(bytes, flops) probe ``name`` needs on these inputs: every input
-    read once, the output written once; the flops its function does (a
-    and f count only the in-range station indices, which select
-    something)."""
+    """(bytes, flops, gathers): the least work probe ``name``'s function
+    needs on these inputs.  Every input read once, the output written
+    once; c and b the flops of their sums.  a and f depend on a column
+    only through its station ``s = antp[t]``, so their least work
+    reduces the table per station first (a: ``S[k, s] = sum_m tab[4m +
+    k, s]``, f: ``P[s] = sum_m tab0 tab1 + tab2 tab3``; one flop per
+    table word either way) and then gathers 4 words (a, which also adds
+    its R revisits of a column) or 1 (f) per in-range index.  Out of
+    range indices select nothing."""
     nbytes = sum(x.numel() * x.element_size() for x in inputs)
     if name == "c":
         tab, oh = inputs
         rows, cols = tab.shape[0], oh.shape[1]
-        return nbytes + 4 * cols, 2 * rows * oh.shape[0] * cols + rows * cols
+        flops = 2 * rows * oh.shape[0] * cols + rows * cols
+        return nbytes + 4 * cols, flops, 0
     if name == "b":
         mp, _, _, rows = inputs[0].shape
-        return nbytes + 4 * 8 * rows, 2 * mp * 8 * rows
+        return nbytes + 4 * 8 * rows, 2 * mp * 8 * rows, 0
     antp, tab = inputs
     npad = tab.shape[-1]
     valid = int(((antp >= 0) & (antp < npad)).sum())
     if name == "a":
-        block = _kbisect().T
-        mp, nrev = tab.shape[0] // 4, antp.shape[1] // block
-        return nbytes + 4 * 4 * block, 4 * mp * valid + 4 * block * (nrev - 1)
-    return nbytes + 4 * antp.shape[1], 4 * tab.shape[1] * valid
+        return (nbytes + 4 * 4 * _kbisect().T, tab.numel() + 4 * valid,
+                4 * valid)
+    return nbytes + 4 * antp.shape[1], tab.numel(), valid

@@ -28,11 +28,11 @@ visibilities and mask are constants of the solve).
   autograd); the CPU tests and ``chip_smoke.py`` hold the kernels
   against it.
 - :func:`fused_cost_fwd_cuda` / :func:`fused_cost_bwd_cuda` launch the
-  kernels; each counts its launches in a ``launches`` attribute.  The
-  backward (#4) takes the tile's :class:`BwdPlan`, the (role, row) ->
-  station order of each row tile, which a solve builds once and passes
-  to :func:`fused_cost_packed` / :func:`fused_cost_packed_hybrid`
-  (``plan=``).
+  kernels; each counts its launches in a ``launches`` attribute.  Every
+  backward (#4, the predict's #2, the batched #6) takes the tile's
+  :class:`BwdPlan`, the (role, row) -> station order of each row tile,
+  which a caller builds once and passes to the wrappers (``plan=``); a
+  plan refuses index tensors it was not built from.
 - The fused predict V itself, as (F, 8, rowsp) planes, with its plain
   version (:func:`fused_predict_packed_plain`, sharing the RIME products
   of :func:`_model_plain` with the objective's) and launchers
@@ -309,8 +309,28 @@ def _distinct_rows(x):
     return torch.unique(x, dim=0, return_inverse=True)
 
 
+def _same_tensor(built, x) -> bool:
+    """Whether ``x`` is the tensor ``built`` records (``_source``): the
+    same memory, shape, strides and dtype, unmodified since (its version
+    counter, shared with its views, has not moved).  The plan holds the
+    tensor, so its memory cannot pass to another.  No device sync."""
+    if built is None or x is None:
+        return built is None and x is None
+    t, version = built
+    same = x is t or (x.data_ptr() == t.data_ptr() and x.dtype == t.dtype
+                      and x.shape == t.shape and x.stride() == t.stride()
+                      and x.device == t.device)
+    return same and x._version == version
+
+
+def _source(x):
+    return None if x is None else (x, x._version)
+
+
 class BwdPlan:
-    """The station plan of kernel #4's gradient kernel for one tile.
+    """The station plan of the backward's gradient kernel for one tile
+    (kernels #4 and #2), or for every lane of a bucket (#6: the lanes
+    share their stations).
 
     Each row tile of ``BWD_TILE`` rows has ``2 * BWD_TILE`` (role, row)
     items, item ``i = role * BWD_TILE + (row - tile start)``, role 0 the
@@ -326,10 +346,13 @@ class BwdPlan:
     - ``of_cluster`` (mp,) int32: cluster m's plan (nc > 1; else (1,)).
 
     It depends on the station indices and the chunk map only, never on
-    the gains, so a solve builds it once per tile (``_make_fused_joint_cost``)
-    and every backward launch reuses it.  Built on their device with
-    stable torch ops; station indices must lie in ``[0, npad)`` and
-    chunks in ``[0, nc)`` (ValueError otherwise)."""
+    the gains, so a solve builds it once per tile
+    (``_make_fused_joint_cost``, once per bucket in
+    ``_make_fused_joint_cost_batch``) and every backward launch reuses
+    it.  It records the index tensors it was built from, and
+    :meth:`check` refuses a launch that passes others.  Built on their
+    device with stable torch ops; station indices must lie in ``[0,
+    npad)`` and chunks in ``[0, nc)`` (ValueError otherwise)."""
 
     def __init__(self, ant_p, ant_q, cmap, nc: int, npad: int):
         ap, aq = ant_p.reshape(-1).long(), ant_q.reshape(-1).long()
@@ -364,11 +387,14 @@ class BwdPlan:
         self.of_cluster = of_cluster.to(torch.int32).contiguous()
         self.nc, self.npad = nc, npad
         self.rowsp, self.ntiles = rowsp, ntiles
+        self._built_from = {"ant_p": _source(ant_p), "ant_q": _source(ant_q),
+                            "cmap": _source(cmap if nc > 1 else None)}
 
-    def check(self, rowsp: int, npad: int, nc: int, mp: int, dev):
-        """Raise ValueError unless this plan is for these shapes and on
-        ``dev``."""
-        want = (rowsp, npad, nc)
+    def check(self, ant_p, ant_q, cmap, npad: int, nc: int, mp: int):
+        """Raise ValueError unless this plan is for these shapes, on the
+        indices' device, and was built from these very index tensors
+        (``cmap`` read when nc > 1), unmodified since."""
+        want = (ant_p.shape[-1], npad, nc)
         if (self.rowsp, self.npad, self.nc) != want:
             have = (self.rowsp, self.npad, self.nc)
             raise ValueError(f"plan for (rowsp, npad, nc) = {have}, "
@@ -376,8 +402,39 @@ class BwdPlan:
         if nc > 1 and self.of_cluster.numel() != mp:
             raise ValueError(f"plan for {self.of_cluster.numel()} clusters, "
                              f"want {mp}")
-        if self.pos.device != dev:
-            raise ValueError(f"plan on {self.pos.device}, inputs on {dev}")
+        if self.pos.device != ant_p.device:
+            raise ValueError(f"plan on {self.pos.device}, inputs on "
+                             f"{ant_p.device}")
+        given = {"ant_p": ant_p, "ant_q": ant_q,
+                 "cmap": cmap if nc > 1 else None}
+        for name, x in given.items():
+            if not _same_tensor(self._built_from[name], x):
+                raise ValueError(f"plan built from another {name} (or one "
+                                 f"modified since): build one for these "
+                                 f"indices")
+
+
+def _scratch(bufs, shapes: dict, dev) -> dict:
+    """``bufs`` (a dict, or None for new) with an f32 buffer of each
+    ``name: shape`` of ``shapes`` that it lacks."""
+    bufs = {} if bufs is None else bufs
+    for name, shape in shapes.items():
+        if name not in bufs:
+            bufs[name] = torch.empty(shape, dtype=torch.float32, device=dev)
+    return bufs
+
+
+def _check_stages(stages: int, full: int, scratch):
+    """Raise ValueError unless ``stages`` launches the whole backward or
+    the caller passes the ``scratch`` buffers a partial launch fills: a
+    partial launch leaves the returned tables unwritten."""
+    if stages & ~full or not stages:
+        raise ValueError(f"stages {stages} is not a subset of {full}")
+    if stages != full and scratch is None:
+        raise ValueError(f"stages {stages} launches part of the backward "
+                         f"and leaves its tables unwritten: pass the "
+                         f"scratch dict it fills (only stages={full} "
+                         f"returns the gradient)")
 
 
 def fused_cost_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
@@ -392,25 +449,23 @@ def fused_cost_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
     ``stages`` (bit 1 cotangent, 2 gradient, 4 sum) and ``scratch`` (a
     dict of the buffers "g", "partial", "out", filled on first use and
     reused) let a timing run launch one kernel at a time; only
-    ``stages=7`` gives the tables."""
+    ``stages=7`` gives the tables, and any other value needs
+    ``scratch`` (ValueError otherwise)."""
     from sagecal_tpu_torch.kernels.build import load
 
+    _check_stages(stages, 7, scratch)
     _check_cuda_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                        nu_arr, cmap, nc)
     mp, F, _, rowsp = coh_ri.shape
     dev, npad = tab_re.device, tab_re.shape[2]
     if plan is None:
         plan = BwdPlan(ant_p, ant_q, cmap, nc, npad)
-    plan.check(rowsp, npad, nc, mp, dev)
+    plan.check(ant_p, ant_q, cmap, npad, nc, mp)
     lib = load("fused_cost")
     ntables = lib.fused_cost_bwd_num_tables(rowsp)
-    shapes = {"g": (F, 8, rowsp),
-              "partial": (ntables * 8 * tab_re.shape[1] * npad,),
-              "out": (8,) + tuple(tab_re.shape[1:])}
-    bufs = {} if scratch is None else scratch
-    for name, shape in shapes.items():
-        if name not in bufs:
-            bufs[name] = torch.empty(shape, dtype=torch.float32, device=dev)
+    bufs = _scratch(scratch, {
+        "g": (F, 8, rowsp), "partial": (ntables * 8 * tab_re.shape[1] * npad,),
+        "out": (8,) + tuple(tab_re.shape[1:])}, dev)
     args = _launch_args(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
                         nu_arr, cmap, nc, robust)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -452,6 +507,8 @@ class _FusedCost(torch.autograd.Function):
 
 def _fused_cost(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p, nu,
                 cmap, nc, plan=None):
+    if plan is not None:  # on either device: a CPU run refuses it as a launch
+        plan.check(ant_p, ant_q, cmap, tab_re.shape[2], nc, coh_ri.shape[0])
     if not tab_re.is_cuda:
         return fused_cost_packed_plain(tab_re, tab_im, coh_ri, ant_p, ant_q,
                                        vis_ri, mask_p, nu, cmap, nc)
@@ -530,32 +587,45 @@ def fused_predict_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap=None,
 
 
 def fused_predict_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, g_ri,
-                           cmap=None, nc: int = 1):
+                           cmap=None, nc: int = 1, plan=None, stages: int = 6,
+                           scratch=None):
     """Launch kernel #2 on the model cotangent ``g_ri`` (F, 8, rowsp):
     (d tab_re, d tab_im), each (4, mp*nc, npad), bit-identical on repeat.
-    Replaces ``_fused_predict_bwd_impl``."""
+    Replaces ``_fused_predict_bwd_impl``.
+
+    Two launches, #4's gradient kernel on ``g_ri`` (one partial table per
+    8 row tiles) and their ordered sum.  ``plan``: the tile's
+    :class:`BwdPlan` (built here when None).  ``stages`` (bit 2
+    gradient, 4 sum) and ``scratch`` (buffers "partial", "out") as for
+    :func:`fused_cost_bwd_cuda`; only ``stages=6`` gives the tables, and
+    any other value needs ``scratch``."""
     from sagecal_tpu_torch.kernels.build import load
 
+    _check_stages(stages, 6, scratch)
     mp, F, _, rowsp = coh_ri.shape
     want = _model_inputs(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc)
     want["g_ri"] = (g_ri, (F, 8, rowsp), (torch.float32,))
     _check_tensors(tab_re.device, want)
+    dev, npad = tab_re.device, tab_re.shape[2]
+    if plan is None:
+        plan = BwdPlan(ant_p, ant_q, cmap, nc, npad)
+    plan.check(ant_p, ant_q, cmap, npad, nc, mp)
     lib = load("fused_cost")
-    dev = tab_re.device
-    nb = lib.fused_cost_num_blocks(rowsp)
-    n = 8 * tab_re.shape[1] * tab_re.shape[2]
-    partial = torch.empty((nb * n,), dtype=torch.float32, device=dev)
-    out = torch.empty((8,) + tuple(tab_re.shape[1:]), dtype=torch.float32,
-                      device=dev)
+    ntables = lib.fused_cost_bwd_num_tables(rowsp)
+    bufs = _scratch(scratch, {
+        "partial": (ntables * 8 * tab_re.shape[1] * npad,),
+        "out": (8,) + tuple(tab_re.shape[1:])}, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(lib.fused_predict_bwd(
         tab_re.data_ptr(), tab_im.data_ptr(), coh_ri.data_ptr(),
         int(coh_ri.dtype == torch.bfloat16), ant_p.data_ptr(),
         ant_q.data_ptr(), cmap.data_ptr() if nc > 1 else None,
-        g_ri.data_ptr(), mp, nc, tab_re.shape[2], F, rowsp,
-        partial.data_ptr(), out.data_ptr(), stream), "fused_predict_bwd")
+        g_ri.data_ptr(), mp, nc, npad, F, rowsp, plan.pos.data_ptr(),
+        plan.seg.data_ptr(), plan.of_cluster.data_ptr(), stages,
+        bufs["partial"].data_ptr(), bufs["out"].data_ptr(), stream),
+        "fused_predict_bwd")
     fused_predict_bwd_cuda.launches += 1
-    return out[:4], out[4:]
+    return bufs["out"][:4], bufs["out"][4:]
 
 
 fused_predict_fwd_cuda.launches = 0
@@ -565,12 +635,14 @@ fused_predict_bwd_cuda.launches = 0
 class _FusedPredict(torch.autograd.Function):
     """The fused predict: kernels #1/#2 on CUDA tensors, the plain version
     (and its autograd VJP) on CPU tensors.  The backward raises
-    :class:`FusedSkyGradientError` when a coherency gradient is asked."""
+    :class:`FusedSkyGradientError` when a coherency gradient is asked.
+    ``plan``: the tile's :class:`BwdPlan` for #2 (None: built per
+    backward)."""
 
     @staticmethod
-    def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc):
+    def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc, plan):
         ctx.save_for_backward(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap)
-        ctx.nc = nc
+        ctx.nc, ctx.plan = nc, plan
         if tab_re.is_cuda:
             return fused_predict_fwd_cuda(tab_re, tab_im, coh_ri, ant_p,
                                           ant_q, cmap, nc)
@@ -588,7 +660,7 @@ class _FusedPredict(torch.autograd.Function):
         if tab_re.is_cuda:
             dre, dim = fused_predict_bwd_cuda(tab_re, tab_im, coh_ri, ant_p,
                                               ant_q, g_ri.contiguous(), cmap,
-                                              ctx.nc)
+                                              ctx.nc, ctx.plan)
         else:
             with torch.enable_grad():
                 a = tab_re.detach().requires_grad_(True)
@@ -596,24 +668,33 @@ class _FusedPredict(torch.autograd.Function):
                 model = fused_predict_packed_plain(a, b, coh_ri, ant_p, ant_q,
                                                    cmap, ctx.nc)
                 dre, dim = torch.autograd.grad(model, (a, b), g_ri)
-        return (dre, dim) + (None,) * 5
+        return (dre, dim) + (None,) * 6
 
 
-def fused_predict_packed(tab_re, tab_im, coh_ri, ant_p, ant_q):
+def _fused_predict(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc, plan):
+    if plan is not None:  # on either device, as _fused_cost
+        plan.check(ant_p, ant_q, cmap, tab_re.shape[2], nc, coh_ri.shape[0])
+    return _FusedPredict.apply(tab_re.contiguous(), tab_im.contiguous(),
+                               coh_ri, ant_p, ant_q, cmap, nc, plan)
+
+
+def fused_predict_packed(tab_re, tab_im, coh_ri, ant_p, ant_q, *, plan=None):
     """Full-model RIME predict, packed layout (module doc): the model
     (F, 8, rowsp) f32.  Differentiable with respect to ``tab_re`` /
     ``tab_im`` only.  CUDA tensors launch kernels #1/#2 (or raise); CPU
-    tensors, and only those, take the plain version."""
-    return _FusedPredict.apply(tab_re.contiguous(), tab_im.contiguous(),
-                               coh_ri, ant_p, ant_q, None, 1)
+    tensors, and only those, take the plain version.  ``plan``: the
+    tile's :class:`BwdPlan`, built once by a caller that runs many
+    backwards (else each backward on the card builds its own)."""
+    return _fused_predict(tab_re, tab_im, coh_ri, ant_p, ant_q, None, 1, plan)
 
 
 def fused_predict_packed_hybrid(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap,
-                                nc):
+                                nc, *, plan=None):
     """Hybrid-chunk (nc > 1) predict: tables carry one row per (cluster,
-    chunk); ``cmap`` (mp, rowsp) int32 selects each row's chunk."""
-    return _FusedPredict.apply(tab_re.contiguous(), tab_im.contiguous(),
-                               coh_ri, ant_p, ant_q, cmap, nc)
+    chunk); ``cmap`` (mp, rowsp) int32 selects each row's chunk.
+    ``plan`` as for :func:`fused_predict_packed`."""
+    return _fused_predict(tab_re, tab_im, coh_ri, ant_p, ant_q, cmap, nc,
+                          plan)
 
 
 # ---------------------------------------------------- batched objective
@@ -760,29 +841,43 @@ def fused_cost_batch_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
 
 
 def fused_cost_batch_bwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
-                              mask_p, nu_lanes, robust: bool):
-    """Launch the batched backward kernels: (d tab_re, d tab_im), each
-    (4, B*mp, npad), lane b's d cost_b / d tables on its own rows;
-    bit-identical on repeat.  Replaces ``_fused_cost_batch_bwd_impl``."""
+                              mask_p, nu_lanes, robust: bool, plan=None,
+                              stages: int = 7, scratch=None):
+    """Launch the batched backward kernels (#6): (d tab_re, d tab_im),
+    each (4, B*mp, npad), lane b's d cost_b / d tables on its own rows;
+    bit-identical on repeat.  Replaces ``_fused_cost_batch_bwd_impl``.
+
+    #4's three kernels with the lane on the grid: the cotangent kernel
+    (g, (B, F, 8, rowsp)), the gradient kernel (per lane one partial
+    table per 8 row tiles) and their ordered sum.  ``plan``: one
+    :class:`BwdPlan` of the shared ``ant_p``/``ant_q`` for every lane
+    (built here when None).  ``stages`` and ``scratch`` as for
+    :func:`fused_cost_bwd_cuda`."""
     from sagecal_tpu_torch.kernels.build import load
 
+    _check_stages(stages, 7, scratch)
     _check_cuda_inputs_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
                              mask_p, nu_lanes)
+    B, F, _, rowsp = vis_ri.shape
+    dev, npad = tab_re.device, tab_re.shape[2]
+    if plan is None:
+        plan = BwdPlan(ant_p, ant_q, None, 1, npad)
+    plan.check(ant_p, ant_q, None, npad, 1, tab_re.shape[1] // B)
     lib = load("fused_cost")
-    dev = tab_re.device
-    nb = lib.fused_cost_num_blocks(vis_ri.shape[3])
-    n = 8 * tab_re.shape[1] * tab_re.shape[2]  # = B * (8 * mp * npad)
-    partial = torch.empty((nb * n,), dtype=torch.float32, device=dev)
-    out = torch.empty((8,) + tuple(tab_re.shape[1:]), dtype=torch.float32,
-                      device=dev)
+    ntables = lib.fused_cost_bwd_num_tables(rowsp)
+    bufs = _scratch(scratch, {
+        "g": (B, F, 8, rowsp),
+        "partial": (ntables * 8 * tab_re.shape[1] * npad,),  # per lane
+        "out": (8,) + tuple(tab_re.shape[1:])}, dev)
     args = _launch_args_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
                               mask_p, nu_lanes, robust)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib.fused_cost_batch_bwd(*args, partial.data_ptr(),
-                                       out.data_ptr(), stream),
-              "fused_cost_batch_bwd")
+    _raise_on(lib.fused_cost_batch_bwd(
+        *args, plan.pos.data_ptr(), plan.seg.data_ptr(), stages,
+        bufs["g"].data_ptr(), bufs["partial"].data_ptr(),
+        bufs["out"].data_ptr(), stream), "fused_cost_batch_bwd")
     fused_cost_batch_bwd_cuda.launches += 1
-    return out[:4], out[4:]
+    return bufs["out"][:4], bufs["out"][4:]
 
 
 fused_cost_batch_fwd_cuda.launches = 0
@@ -794,10 +889,10 @@ class _FusedCostBatch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri, mask_p,
-                nu_lanes, robust):
+                nu_lanes, robust, plan):
         ctx.save_for_backward(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
                               mask_p, nu_lanes)
-        ctx.robust = robust
+        ctx.robust, ctx.plan = robust, plan
         return fused_cost_batch_fwd_cuda(tab_re, tab_im, coh_ri, ant_p, ant_q,
                                          vis_ri, mask_p, nu_lanes,
                                          robust).sum(1)
@@ -805,25 +900,31 @@ class _FusedCostBatch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gbar):
         saved = ctx.saved_tensors
-        dre, dim = fused_cost_batch_bwd_cuda(*saved, ctx.robust)
+        dre, dim = fused_cost_batch_bwd_cuda(*saved, ctx.robust, ctx.plan)
         # the kernel gives d cost_b / d tables; the per-lane upstream
         # cotangent (B,) scales each lane's row block here (:1318-1324)
         B = saved[5].shape[0]
         scale = gbar.repeat_interleave(dre.shape[1] // B)[None, :, None]
-        return (scale * dre, scale * dim) + (None,) * 7
+        return (scale * dre, scale * dim) + (None,) * 8
 
 
 def fused_cost_packed_batch(tab_re, tab_im, coh_ri, ant_p, ant_q, vis_ri,
-                            mask_p, nu=None):
+                            mask_p, nu=None, *, plan=None):
     """Per-lane calibration objectives (B,) for a batch of lanes (section
     comment above), ``nu`` None for the Gaussian cost or a float / (B,)
     tensor for the Student's-t cost.  Differentiable with respect to
     ``tab_re``/``tab_im`` only.  CUDA tensors launch the batched kernels
-    (or raise); CPU tensors, and only those, take the plain version."""
+    (or raise); CPU tensors, and only those, take the plain version.
+    ``plan``: one :class:`BwdPlan` of the shared ``ant_p``/``ant_q``,
+    built once per bucket by a caller that runs many backwards (else
+    each backward on the card builds its own)."""
+    if plan is not None:  # on either device, as _fused_cost
+        plan.check(ant_p, ant_q, None, tab_re.shape[2], 1,
+                   tab_re.shape[1] // vis_ri.shape[0])
     if not tab_re.is_cuda:
         return fused_cost_packed_batch_plain(tab_re, tab_im, coh_ri, ant_p,
                                              ant_q, vis_ri, mask_p, nu)
     nu_lanes = _nu_lanes(nu, vis_ri.shape[0], tab_re.device)
     return _FusedCostBatch.apply(
         tab_re.contiguous(), tab_im.contiguous(), coh_ri, ant_p, ant_q,
-        vis_ri, mask_p, nu_lanes, nu is not None)
+        vis_ri, mask_p, nu_lanes, nu is not None, plan)

@@ -305,12 +305,14 @@ def _make_fused_joint_cost_batch(data, cdata, B, M, n8, robust, mean_nu_b,
     launch of the batched kernels (``fused_cost_packed_batch``), (B, M*8N)
     parameters -> (B,) per-lane costs.  ``data``/``cdata`` carry a leading
     lane axis; every lane shares lane 0's ``ant_p``/``ant_q`` (the router
-    checks it).  ``mean_nu_b``: (B,) per-lane nu on the device.
+    checks it), so one backward station plan (``BwdPlan``), built here
+    from lane 0's packed indices, serves every lane and every launch.
+    ``mean_nu_b``: (B,) per-lane nu on the device.
     ``valid``: optional (B,) lane mask zeroing padded lanes' cost and
     cotangent.  f32 data only; ``coh_dtype="bf16"`` stores the coherency
     stack as bfloat16 (f32 math)."""
     from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_cost_packed_batch, pack_cost_inputs_batch,
+        BwdPlan, fused_cost_packed_batch, pack_cost_inputs_batch,
         pack_gain_tables_batch,
     )
 
@@ -320,12 +322,13 @@ def _make_fused_joint_cost_batch(data, cdata, B, M, n8, robust, mean_nu_b,
         data.vis, data.mask, cdata.coh, ant_p, ant_q, valid=valid)
     coh_ri = coh_ri.to(coh_store)
     nu_c = mean_nu_b if robust else None
+    plan = BwdPlan(antp, antq, None, 1, n8 // 8)
 
     def cost_fn(pflat_b):
         jones = params_to_jones(pflat_b.reshape(B, M, n8).float())
         tre, tim = pack_gain_tables_batch(jones)
         return fused_cost_packed_batch(tre, tim, coh_ri, antp, antq, vis_ri,
-                                       mask_p, nu_c)
+                                       mask_p, nu_c, plan=plan)
 
     return cost_fn
 

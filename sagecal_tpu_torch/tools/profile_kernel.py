@@ -14,7 +14,8 @@ events, from the tile's starting gains:
   beside the torch-op ``predict_full_model``;
 - the composed robust cost ``sum log1p(|vis - model|^2 mask / nu)``
   (nu = 5) on kernel #1;
-- that cost with its gradient (kernels #1 and #2);
+- that cost with its gradient (kernels #1 and #2, #2 on the tile's
+  station plan, built once);
 - a 20-iteration ``lbfgs_fit`` on the composed cost, which must lower it,
   and the launches of #1 and #2 it made (the path's use of the kernels,
   without the timing repeats above);
@@ -96,8 +97,8 @@ def profile(data, cdata, p0, card: str) -> dict:
     device."""
     from sagecal_tpu_torch.core.types import params_to_jones
     from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_predict_bwd_cuda, fused_predict_fwd_cuda, fused_predict_packed,
-        pack_gain_tables, pack_predict_inputs,
+        BwdPlan, fused_predict_bwd_cuda, fused_predict_fwd_cuda,
+        fused_predict_packed, pack_gain_tables, pack_predict_inputs,
     )
     from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit
     from sagecal_tpu_torch.solvers.sage import predict_full_model
@@ -108,11 +109,13 @@ def profile(data, cdata, p0, card: str) -> dict:
     vis_ri, mask_p, coh_ri, antp, antq, _ = pack_predict_inputs(
         data.vis, data.mask, cdata.coh, data.ant_p, data.ant_q)
     p = p0.float().reshape(-1).contiguous()
+    # #2's station plan, built once for the tile as a solve builds #4's
+    plan = BwdPlan(antp, antq, None, 1, n8 // 8)
 
     def model_of(pflat):
         jones = params_to_jones(pflat.reshape(M, n8))
         tre, tim = pack_gain_tables(jones, M)
-        return fused_predict_packed(tre, tim, coh_ri, antp, antq)
+        return fused_predict_packed(tre, tim, coh_ri, antp, antq, plan=plan)
 
     def cost_fn(pflat):
         d = (vis_ri - model_of(pflat)) * mask_p[:, None, :]

@@ -1,12 +1,16 @@
-"""Kernel #4's station plan (``ops/rime_kernel.py::BwdPlan``) on the CPU.
+"""The backwards' station plan (``ops/rime_kernel.py::BwdPlan``) on the
+CPU.
 
 The plan orders each row tile's (role, row) items by (chunk, station)
-for the backward's gradient kernel.  Here it is held against a numpy
-stable argsort, built twice, and used for a gradient: per-item
-contributions (autograd through each row's gathered gains, float64)
-summed segment by segment through the plan give the tables that
+for the gradient kernel of the backwards #4, #6 and #2.  Here it is held
+against a numpy stable argsort, built twice, and used for a gradient:
+per-item contributions (autograd through each row's gathered gains,
+float64) summed segment by segment through the plan give the tables that
 ``fused_cost_packed_plain`` gives, and, on f32 inputs, those of the JAX
-package's Pallas kernel in interpret mode.
+package's Pallas kernel in interpret mode.  The predict backward and the
+batched objective (B lanes sharing one plan) are held to theirs in
+``test_torch_bwd_plan_batch.py``, with the plan's refusal of indices it
+was not built from.
 
 Tolerances: the plan is exact (integer equality).  The f64 segment sums
 agree with autograd's f64 gradient to 1e-12 of its norm (summation order
@@ -148,11 +152,13 @@ def test_plan_refuses_bad_indices_and_other_shapes():
     bad[0, 0] = 2
     with pytest.raises(ValueError, match="chunk"):
         BwdPlan(t(ant_p), t(ant_q), torch.as_tensor(bad), 2, 8)
-    plan = BwdPlan(t(ant_p), t(ant_q), None, 1, 8)
-    plan.check(300, 8, 1, 4, torch.device("cpu"))
-    for args in ((301, 8, 1), (300, 9, 1), (300, 8, 2)):
+    ap, aq = t(ant_p), t(ant_q)
+    plan = BwdPlan(ap, aq, None, 1, 8)
+    plan.check(ap, aq, None, 8, 1, 4)
+    for args in ((ap[:, 1:], aq[:, 1:], 8, 1), (ap, aq, 9, 1),
+                 (ap, aq, 8, 2)):
         with pytest.raises(ValueError):
-            plan.check(*args, 4, torch.device("cpu"))
+            plan.check(args[0], args[1], None, *args[2:], 4)
 
 
 def _problem(rng, M, N, npad, F, rows, nc, dtype):
@@ -177,10 +183,12 @@ def _problem(rng, M, N, npad, F, rows, nc, dtype):
         cmap=None if cmap is None else torch.as_tensor(cmap), nc=nc)
 
 
-def plan_gradient(p, plan, nu):
-    """d cost / d (tab_re, tab_im) from per-item contributions (autograd
-    through each row's gathered gains, float64) summed per segment of the
-    plan, tile by tile, in sorted order."""
+def plan_gradient(p, plan, nu=None, g=None):
+    """d cost / d (tab_re, tab_im) — or, given an upstream model
+    cotangent ``g`` (F, 8, rowsp), d sum(g * model) / d (tab_re, tab_im)
+    as the predict backward #2 gives it — from per-item contributions
+    (autograd through each row's gathered gains, float64) summed per
+    segment of the plan, tile by tile, in sorted order."""
     from sagecal_tpu_torch.ops.rime_kernel import (
         _cost_of_model, _model_from_gains,
     )
@@ -196,8 +204,12 @@ def plan_gradient(p, plan, nu):
               .clone().requires_grad_(True) for ant in (ap, aq)]
     gains = [tuple(x[k][:, None] for k in range(4)) for x in leaves]
     V = _model_from_gains(gains[0], gains[1], p["coh_ri"].double())
-    cost = _cost_of_model(V, p["vis_ri"].double(), p["mask_p"].double(), nu)
-    dgp, dgq = torch.autograd.grad(cost, leaves)
+    if g is None:
+        scalar = _cost_of_model(V, p["vis_ri"].double(),
+                                p["mask_p"].double(), nu)
+    else:
+        scalar = (g.double() * torch.cat([V.real, V.imag], dim=1)).sum()
+    dgp, dgq = torch.autograd.grad(scalar, leaves)
     # torch gives a real cost's gradient in a complex leaf as
     # d/d re + i d/d im: its real and imaginary parts are the items' 8 sums
     item = torch.cat([torch.cat([d.real, d.imag]) for d in (dgp, dgq)], 2)

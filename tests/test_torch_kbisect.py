@@ -179,6 +179,38 @@ def test_library_call_computes_the_probes_function(name):
                                atol=1e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("name", ["a", "f"])
+def test_least_work_route_computes_the_probes_function(name, monkeypatch):
+    """The work ``kbisect_work`` counts for a and f (the bound chip_smoke
+    prints) is enough for their function: one reduction of the table per
+    station, then 4 gathered words (a) or 1 (f) per in-range index, give
+    the formula's output, out-of-range indices included."""
+    monkeypatch.setattr(tk, "T", 64)
+    gen = torch.Generator().manual_seed(5)
+    inputs = parity.random_probe_inputs(name, gen, mp=13, T=tk.T, R=3,
+                                        npad=100)
+    (antp, tab), _ = parity.mix_out_of_range(name, inputs)
+    a = antp.numpy().reshape(-1)
+    ok = (a >= 0) & (a < tab.shape[-1])
+    t64 = tab.numpy().astype(np.float64)
+    if name == "a":
+        per_station = t64.reshape(-1, 4, t64.shape[-1]).sum(0)  # (4, npad)
+        picked = np.where(ok, per_station[:, np.where(ok, a, 0)], 0.0)
+        got = picked.reshape(4, -1, tk.T).sum(1)[None]
+    else:
+        per_station = (t64[0] * t64[1] + t64[2] * t64[3]).sum(0)  # (npad,)
+        got = np.where(ok, per_station[np.where(ok, a, 0)], 0.0)[None]
+    want = _formula64(name, (antp, tab))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+    nbytes, flops, gathers = parity.kbisect_work(name, (antp, tab))
+    words = 4 if name == "a" else 1
+    out_words = 4 * tk.T if name == "a" else a.size
+    assert gathers == words * int(ok.sum())
+    assert flops == tab.numel() + (gathers if name == "a" else 0)
+    assert nbytes == 4 * (antp.numel() + tab.numel() + out_words)
+
+
 def test_run_prints_an_ok_line_for_each_variant(capsys):
     out = tk.run(list(NAMES), device="cpu")
     lines = capsys.readouterr().out.splitlines()

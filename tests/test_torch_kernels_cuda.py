@@ -17,6 +17,12 @@ kernels; torch's reductions in the plain version).  The backward must be
 bit-identical on repeat: it uses no floating-point atomics.  A batched
 lane whose mask is zero (a ragged bucket's pad) must give exactly zero
 cost and cotangent.  The predict: model error <= 1e-5 of its max abs.
+The backwards #4, #6 and #2 share one gradient kernel; each is held at
+its edge shapes (``EDGE_4``, ``EDGE_6``, ``EDGE_2``; #6's and #2's
+gradients within 1e-6 of their norm, as their f32 sums differ from the
+plain version's in order only, bf16 coherencies being upcast exactly on
+both sides), and a plan built once, a plan built per launch and the
+kernels launched one at a time must give the same bits.
 The LM assembly and a whole default-mode solve must be bit-identical on
 repeat: they sum in a fixed order too.  The kbisect probes: max abs
 error <= 1e-5 of the plain output's max abs, bit-identical on repeat,
@@ -121,6 +127,67 @@ def test_cost_bwd_plan_given_or_built_and_stages_agree_bitwise(cuda):
         assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
 
 
+# kernel #2's edge shapes, as EDGE_4 (it runs #4's gradient and sum
+# kernels on the caller's cotangent): rows past 2048 with a ragged end;
+# clusters not a multiple of 3; npad 200 and F 3; bf16 with rows that do
+# (2336) and do not (2333) take 16-byte copies; nc 3; and npad 3000, where
+# the (chunk, station) keys are split over blocks
+EDGE_2 = [  # (M, N, F, rows, nc, coh dtype)
+    (11, 30, 2, 2333, 1, torch.float32),
+    (5, 200, 3, 2333, 1, torch.float32),
+    (11, 30, 2, 2333, 1, torch.bfloat16),
+    (7, 20, 2, 2336, 1, torch.bfloat16),
+    (7, 20, 3, 2333, 3, torch.float32),
+    (7, 20, 2, 2336, 3, torch.bfloat16),
+    (3, 3000, 2, 2336, 1, torch.float32),
+]
+
+
+@pytest.mark.parametrize(
+    "M,N,F,rows,nc,coh_dtype", EDGE_2,
+    ids=[f"M{c[0]}-npad{c[1]}-F{c[2]}-rows{c[3]}-nc{c[4]}-"
+         f"{str(c[5]).split('.')[-1]}" for c in EDGE_2])
+def test_predict_bwd_edge_shapes_match_plain(cuda, M, N, F, rows, nc,
+                                             coh_dtype):
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_predict_with_plain, random_cost_problem,
+    )
+
+    prob = random_cost_problem(M, N, F, rows, nc=nc, coh_dtype=coh_dtype,
+                               seed=6, device=cuda)
+    out = compare_predict_with_plain(prob, seed=2)
+    assert out["model_rel"] <= 1e-5, out
+    assert out["grad_rel"] <= 1e-6, out  # summation order only
+    assert out["bitwise_repeat"], out
+
+
+def test_predict_bwd_plan_given_or_built_and_stages_agree_bitwise(cuda):
+    """#2 on a plan built once gives the same bits as on one built per
+    launch, and its two kernels launched one at a time (gradient, sum)
+    give the whole launch's tables; the plan of other indices of the same
+    shape is refused."""
+    from sagecal_tpu_torch.kernels.parity import (
+        model_cotangent, plan_of, random_cost_problem,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import fused_predict_bwd_cuda
+
+    prob = random_cost_problem(7, 20, 2, 1111, nc=3, seed=3, device=cuda)
+    args = (prob.tab_re, prob.tab_im, prob.coh_ri, prob.ant_p, prob.ant_q,
+            model_cotangent(prob, 4), prob.cmap, prob.nc)
+    whole = fused_predict_bwd_cuda(*args)
+    plan = plan_of(prob)
+    planned = fused_predict_bwd_cuda(*args, plan=plan)
+    scratch = {}
+    for stages in (2, 4):
+        staged = fused_predict_bwd_cuda(*args, plan=plan, stages=stages,
+                                        scratch=scratch)
+    for got in (planned, staged):
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    other = args[:3] + (prob.ant_p.clone(),) + args[4:]
+    with pytest.raises(ValueError, match="plan built from another"):
+        fused_predict_bwd_cuda(*other, plan=plan)
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     from sagecal_tpu_torch.kernels.parity import (
         random_cost_problem, value_and_grad,
@@ -178,6 +245,67 @@ def test_batched_kernels_match_plain(cuda, nu, coh_dtype, nvalid):
     assert out["grad_rel"] <= 1e-5, out
     assert out["bitwise_repeat"], out
     assert out["pad_lanes_zero"], out
+
+
+# kernel #6's edge shapes: B = 1 and B = 16 with an all-zero lane; rows
+# past 2048 with a ragged end; clusters not a multiple of 3; npad 200 and
+# F 3; bf16 with (2336 rows) and without (2333) 16-byte copies; robust
+# (per-lane nu) and Gaussian
+EDGE_6 = [  # (B, M, N, F, rows, coh dtype, nu, valid lanes)
+    (1, 8, 62, 2, 2333, torch.float32, "per-lane", None),
+    (16, 8, 30, 2, 2333, torch.float32, "per-lane", 15),
+    (4, 11, 30, 2, 2336, torch.bfloat16, None, 3),
+    (3, 5, 200, 3, 2333, torch.float32, 5.0, None),
+    (3, 7, 20, 2, 2333, torch.bfloat16, "per-lane", 2),
+]
+
+
+@pytest.mark.parametrize(
+    "B,M,N,F,rows,coh_dtype,nu,nvalid", EDGE_6,
+    ids=[f"B{c[0]}-M{c[1]}-npad{c[2]}-F{c[3]}-rows{c[4]}-"
+         f"{str(c[5]).split('.')[-1]}-{c[6] or 'gauss'}-valid{c[7] or c[0]}"
+         for c in EDGE_6])
+def test_batched_bwd_edge_shapes_match_plain(cuda, B, M, N, F, rows,
+                                             coh_dtype, nu, nvalid):
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_batch_with_plain, random_cost_problem_batch,
+    )
+
+    prob = random_cost_problem_batch(B, M, N, F, rows, coh_dtype=coh_dtype,
+                                     seed=5, nvalid=nvalid, device=cuda)
+    if nu == "per-lane":
+        nu = torch.linspace(2.0, 12.0, B, device=cuda)
+    out = compare_batch_with_plain(prob, nu)
+    assert out["cost_rel"] <= 1e-5, out
+    assert out["grad_rel"] <= 1e-6, out  # summation order only
+    assert out["bitwise_repeat"], out
+    assert out["pad_lanes_zero"], out
+
+
+def test_batched_bwd_plan_given_or_built_and_stages_agree_bitwise(cuda):
+    """#6 on one plan for the lanes, built once, gives the same bits as
+    on one built per launch, and its three kernels launched one at a time
+    (cotangent, gradient, sum) give the whole launch's tables."""
+    from sagecal_tpu_torch.kernels.parity import (
+        plan_of, random_cost_problem_batch,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        _nu_lanes, fused_cost_batch_bwd_cuda,
+    )
+
+    prob = random_cost_problem_batch(3, 7, 20, 2, 1111, seed=3, nvalid=2,
+                                     device=cuda)
+    args = (prob.tab_re, prob.tab_im, *prob.inputs,
+            _nu_lanes(torch.tensor([2.0, 5.0, 9.0]), 3, cuda), True)
+    whole = fused_cost_batch_bwd_cuda(*args)
+    plan = plan_of(prob)
+    planned = fused_cost_batch_bwd_cuda(*args, plan=plan)
+    scratch = {}
+    for stages in (1, 2, 4):
+        staged = fused_cost_batch_bwd_cuda(*args, plan=plan, stages=stages,
+                                           scratch=scratch)
+    for got in (planned, staged):
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
 
 
 def test_batched_kernels_count_launches_and_solo_ones_do_not(cuda):
