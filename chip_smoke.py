@@ -42,13 +42,21 @@ each printing lines of its own; any failure exits non-zero:
             ``vis - predict_full_model`` within 1e-5 of that's max abs,
             ``simulate_visibilities`` modes 1-3 agree with their
             definitions and the ``ccid_index`` correction runs;
-5. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
+5. warm     a warm-started tile: the north-star geometry with an LSM sky
+            of 8 point clusters (the serve lane's), built from files as
+            in phase 4, solved once by ``solve_tile`` (fused, the main
+            path's depth), then twice from that solution: res_1 below
+            res_0 cold, warm res_1 not above warm res_0, both objective
+            kernels launched in a warm run (counts set to 0 just before
+            it), the two warm runs bit-identical; its wall time printed;
+6. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
             fused predict, the composed robust cost on it, its gradient
             and a 20-iteration LBFGS that must lower the cost; kernels #1
             and #2 must launch (counts set to 0 just before; the launches
             the LBFGS itself made are the path's count); then
-            ``kdiag.py``'s three rungs for kernel #1;
-6. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
+            ``kdiag.py``'s three rungs for kernel #1, on the device alone
+            and host-paced;
+7. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
             variants c b a d e f on the card (counts set to 0 just
             before): every variant prints ok, each value within 1e-5
             relative of the JAX package's (``KBISECT_JAX_VALUES``), the
@@ -65,15 +73,17 @@ each printing lines of its own; any failure exits non-zero:
             reduction of the table per station, then 4 or 1 gathered
             words per index, ``kernels/parity.py::kbisect_work``) and its
             plain version's (and, for c and b, one ``torch.einsum``
-            computing the same function);
-7. times    phase wall times, each solo kernel's time from CUDA events
+            computing the same function); a and f also in each form of
+            their launch (two launches, each of them alone, one launch),
+            beside the launch floor (an empty launch on the device alone);
+8. times    phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
             time (#4 and #2 with the tile's station plan built once, as
             the solve does, and split on the device alone into their
             kernels: #4 cotangent, gradient and sum, #2 gradient and sum),
             and peak device memory, each beside the card's name and power
             limit;
-8. serve    the batched serve solve of one bucket of 8 requests, each a
+9. serve    the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
@@ -93,7 +103,7 @@ each printing lines of its own; any failure exits non-zero:
             the batched kernels' times beside their bounds (#6 on one
             station plan for the bucket, split into its cotangent,
             gradient and sum kernels on the device alone), and the plan
-            build times of phases 3 and 8.
+            build times of phases 3 and 9.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -132,6 +142,9 @@ SERVE_B, SERVE_CLUSTERS, SERVE_RAGGED = 8, 8, 6
 # the serve defaults' depth: mode 3, 3 EM passes, max_iter 2, max_lbfgs 10
 SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 3, 2, 10
 SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
+# the warm-started tile: the serve lane's sky size at the north-star
+# geometry (~1 s an EM pass), at the main path's depth
+WARM_CLUSTERS = SERVE_CLUSTERS
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -307,10 +320,11 @@ def write_sky(dirname: str, seed: int = 7, nclusters: int = NCLUSTERS,
     return sky, clus
 
 
-def main_tile(dirname: str):
+def main_tile(dirname: str, nclusters: int = NCLUSTERS):
     """The main path's tile as a user builds it from files: sky and
-    cluster file -> observed visibilities -> coherencies.  Returns
-    (VisData, ClusterData, p0, seconds spent on the coherencies)."""
+    cluster file -> observed visibilities -> coherencies, ``nclusters``
+    point clusters at the north-star geometry.  Returns (VisData,
+    ClusterData, p0, seconds spent on the coherencies)."""
     from sagecal_tpu_torch.core.types import jones_to_params
     from sagecal_tpu_torch.io.simulate import (
         corrupt_and_observe, make_visdata, random_jones,
@@ -318,18 +332,18 @@ def main_tile(dirname: str):
     from sagecal_tpu_torch.io.skymodel import load_sky
     from sagecal_tpu_torch.solvers.sage import build_cluster_data
 
-    sky, clus = write_sky(dirname)
+    sky, clus = write_sky(dirname, nclusters=nclusters)
     clusters, cdefs, _ = load_sky(sky, clus, RA0, DEC0)
     data = make_visdata(nstations=NSTATIONS, tilesz=TILESZ, nchan=NCHAN,
                         dec0=DEC0, seed=0)
     assert data.rows == ROWS, data.rows
-    truth = random_jones(NCLUSTERS, NSTATIONS, seed=3, amp=0.2)
+    truth = random_jones(nclusters, NSTATIONS, seed=3, amp=0.2)
     data = corrupt_and_observe(data, clusters, jones=truth, noise_sigma=1e-3,
                                seed=1, fdelta=data.deltaf)
     t = sync_clock()
     cdata = build_cluster_data(data, clusters, [c.nchunk for c in cdefs])
     coh_s = sync_clock() - t
-    p0 = jones_to_params(random_jones(NCLUSTERS, NSTATIONS, seed=9, amp=0.0))
+    p0 = jones_to_params(random_jones(nclusters, NSTATIONS, seed=9, amp=0.0))
     return data, cdata, p0[:, None, :], coh_s
 
 
@@ -488,8 +502,55 @@ def phase_residual(data, cdata, res):
             "correction_rel": corr_err}
 
 
+def phase_warm(args, dirname: str):
+    """The warm-started tile (module doc, phase 5)."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+    )
+    from sagecal_tpu_torch.solvers.sage import solve_tile
+
+    t0 = sync_clock()
+    data, cdata, p0, _ = main_tile(dirname, WARM_CLUSTERS)
+    cfg = main_config(args)
+    cold = solve_tile(data, cdata, p0, cfg)
+    fused_cost_fwd_cuda.launches = 0
+    fused_cost_bwd_cuda.launches = 0
+    warm = solve_tile(data, cdata, cold.p, cfg)
+    launches = {"fused_cost_fwd": fused_cost_fwd_cuda.launches,
+                "fused_cost_bwd": fused_cost_bwd_cuda.launches}
+    warm2 = solve_tile(data, cdata, cold.p, cfg)
+    secs = sync_clock() - t0
+    r = {"cold_res_0": float(cold.res_0), "cold_res_1": float(cold.res_1),
+         "warm_res_0": float(warm.res_0), "warm_res_1": float(warm.res_1)}
+    start_rel = abs(r["warm_res_0"] - r["cold_res_1"]) / r["cold_res_1"]
+    same = bitwise(warm, warm2)
+    print(f"[warm] {WARM_CLUSTERS} clusters at the north-star geometry, "
+          f"fused: cold res_0={r['cold_res_0']:.6e} res_1="
+          f"{r['cold_res_1']:.6e}; warm res_0={r['warm_res_0']:.6e} "
+          f"(rel {start_rel:.2e} from the cold res_1) res_1="
+          f"{r['warm_res_1']:.6e}; two warm runs bit-identical {same}; "
+          f"launches in a warm run {launches}; wall time {secs:.1f} s",
+          flush=True)
+    if not all(np.isfinite(v) for v in r.values()):
+        fail("warm-started tile: non-finite residuals")
+    if not torch.isfinite(warm.p).all():
+        fail("warm-started tile: non-finite solutions")
+    if not r["cold_res_1"] < r["cold_res_0"]:
+        fail("warm-started tile: the cold solve did not reduce the residual")
+    if not r["warm_res_1"] <= r["warm_res_0"]:
+        fail(f"warm-started tile: res_1 {r['warm_res_1']} rose above res_0 "
+             f"{r['warm_res_0']}")
+    if not same:
+        fail("warm-started tile: two warm runs gave different bits")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched in the warm solve")
+    return {**r, "start_rel": start_rel, "bitwise": same,
+            "launches": launches, "seconds": secs}
+
+
 def phase_predict(data, cdata, p0, card: str):
-    """The predict path: ``tools/profile_kernel``'s profile (phase 5)."""
+    """The predict path: ``tools/profile_kernel``'s profile (phase 6)."""
     from sagecal_tpu_torch.ops.rime_kernel import (
         fused_predict_bwd_cuda, fused_predict_fwd_cuda,
     )
@@ -582,15 +643,18 @@ def bisect_parity():
     return worst
 
 
-def bisect_times() -> dict:
+def bisect_times():
     """Each probe's kernel, plain-version and (for c and b) library-call
-    times at both shapes beside its bound: {kernel: {shape: {...}}}.  The
-    kernel and the library call are timed on the device alone
-    (``device_ms``), since at kbisect's shape (and for a and f at both)
-    their host work outlasts their kernels; ``host_paced_ms`` is the
-    kernel's time over back-to-back calls (``cuda_ms``), host included.
-    The library call must agree with the plain version as the kernel
-    does."""
+    times at both shapes beside its bound: ({kernel: {shape: {...}}},
+    launch floor ms).  The kernel and the library call are timed on the
+    device alone (``device_ms``), since at kbisect's shape (and for a and
+    f at both) their host work outlasts their kernels; ``host_paced_ms``
+    is the kernel's time over back-to-back calls (``cuda_ms``), host
+    included.  a and f are also timed in each form of their launch (two
+    launches, and each of those alone: reduce, gather; one launch), of
+    which the default (``ms``) is one.  The launch floor is ``device_ms``
+    of an empty launch (``torch.cuda._sleep(0)``).  The library call must
+    agree with the plain version as the kernel does."""
     from sagecal_tpu_torch.kernels.parity import (
         kbisect_work, probe_library_call, random_probe_inputs, roofline,
     )
@@ -599,6 +663,7 @@ def bisect_times() -> dict:
     from sagecal_tpu_torch.utils.precision import full_f32
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
     out = {}
     for k, name in PROBES.items():
         out[k] = {}
@@ -610,6 +675,14 @@ def bisect_times() -> dict:
             reps = 50 if shape == "north-star" and name in "cb" else 200
             row = {"ms": device_ms(lambda: kern(*args), reps),
                    "host_paced_ms": cuda_ms(lambda: kern(*args), reps)}
+            if name in "af":  # each form of the launch, and the parts
+                sc = {}
+                kern(*args, stages=3, scratch=sc)
+                row["forms_device_ms"] = {
+                    form: device_ms(lambda st=st: kern(*args, stages=st,
+                                                       scratch=sc), reps)
+                    for form, st in (("two launches", 3), ("reduce alone", 1),
+                                     ("gather alone", 2), ("one launch", 4))}
             with torch.no_grad():
                 row["plain_ms"] = cuda_ms(lambda: plain(*args), 20)
                 lib = probe_library_call(name, args)
@@ -629,31 +702,37 @@ def bisect_times() -> dict:
             out[k][shape] = row
             del args
     torch.cuda.empty_cache()
-    return out
+    return out, floor_ms
 
 
 def phase_bisect(card: str):
-    """The kbisect tool on the card (module doc, phase 6)."""
+    """The kbisect tool on the card (module doc, phase 7)."""
     t = time.perf_counter()
     vals, launches = bisect_run()
     worst = bisect_parity()
-    times = bisect_times()
+    times, floor_ms = bisect_times()
+    print(f"[times] ({card}) launch floor (an empty launch, device only): "
+          f"{floor_ms:.4f} ms", flush=True)
     for k, rows in times.items():
         for shape, v in rows.items():
             lib = ("" if v["library_ms"] is None
                    else f", torch.einsum {v['library_ms']:.4f} ms (rel "
                         f"{v['library_rel']:.1e} vs plain)")
+            split = ("" if "forms_device_ms" not in v else
+                     "; device only: " + ", ".join(
+                         f"{form} {ms:.4f} ms"
+                         for form, ms in v["forms_device_ms"].items()))
             print(f"[times] ({card}) {k} at {shape} {v['shape']}: "
                   f"{v['ms']:.4f} ms on the device ({v['host_paced_ms']:.4f} "
                   f"ms host-paced), bound {v['bound_ms']:.6f} ms "
                   f"({v['bound_by']}: {v['bytes']} B, {v['flops']} flop, "
                   f"{v['gathers']} gathered words), "
-                  f"plain {v['plain_ms']:.4f} ms{lib}, {launches[k]} launch "
-                  f"per kbisect run", flush=True)
+                  f"plain {v['plain_ms']:.4f} ms{lib}{split}, {launches[k]} "
+                  f"launch per kbisect run", flush=True)
     secs = time.perf_counter() - t
     print(f"[bisect] phase wall time {secs:.1f} s", flush=True)
     return {"values": vals, "launches": launches, "worst": worst,
-            "times": times, "seconds": secs}
+            "times": times, "launch_floor_ms": floor_ms, "seconds": secs}
 
 
 def split_device_ms(launch, parts: dict, whole: int) -> dict:
@@ -857,7 +936,7 @@ def serve_solve(reqs, idx, config, valid=None, fused=True):
 
 
 def phase_serve(dirname: str):
-    """The batched serve solve of one bucket (module doc, phase 8)."""
+    """The batched serve solve of one bucket (module doc, phase 9)."""
     from sagecal_tpu_torch.serve import bucket_of, pad_indices
     from sagecal_tpu_torch.solvers.batched import (
         choose_batched_path, derive_lane_generators, stack_lanes,
@@ -1042,6 +1121,8 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         data, cdata, p0, coh_s = main_tile(d)
         main_out = phase_main(args, d, data, cdata, p0)
+    with tempfile.TemporaryDirectory() as d:
+        warm_out = phase_warm(args, d)
     pred_out = phase_predict(data, cdata, p0, card)
     del data, cdata
     torch.cuda.empty_cache()
@@ -1108,7 +1189,8 @@ def main():
         })
     if args.json_out:
         with open(args.json_out, "w") as fh:
-            json.dump({"card": card, "main": main_out, "predict": pred_out,
+            json.dump({"card": card, "main": main_out, "warm": warm_out,
+                       "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,

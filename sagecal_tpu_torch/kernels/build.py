@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds.  Libraries go to ``sagecal_tpu_torch/_build/`` (git
-ignored), named by a hash of the source and flags, so an edited source
-is rebuilt and an unchanged one is reused.  Nothing is built when this
-module is imported: :func:`load` builds at first use, and
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+ignored), named by a hash of the source, the headers beside it and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  Nothing is built when this module is imported: :func:`load`
+builds at first use, and :func:`build_all` starts one ``nvcc`` per
+source, all at once.
 """
 
 from __future__ import annotations
@@ -69,10 +70,14 @@ SIGNATURES = {
                   "kbisect_c_row_tiles": ([_I], _I)},
     # coh, mp, rows, out, stream
     "kbisect_b": {"kbisect_b": ([_P, _I, _I, _P, _P], _I)},
-    # antp, tab, mp, npad, R, T, partial, out, stream
-    "kbisect_a": {"kbisect_a": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I)},
-    # antp, tab, mp, npad, T, out, stream
-    "kbisect_f": {"kbisect_f": ([_P, _P, _I, _I, _I, _P, _P], _I)},
+    # antp, tab, mp, npad, R, T, stages, S, out, stream; ; mp, npad, T
+    "kbisect_a": {"kbisect_a": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+                  "kbisect_a_one_launch_max_npad": ([], _I),
+                  "kbisect_a_default_stages": ([_I, _I, _I], _I)},
+    # antp, tab, mp, npad, T, stages, P, out, stream; ; mp, npad, T
+    "kbisect_f": {"kbisect_f": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+                  "kbisect_f_one_launch_max_npad": ([], _I),
+                  "kbisect_f_default_stages": ([_I, _I, _I], _I)},
 }
 
 _loaded: dict = {}
@@ -93,9 +98,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it, which it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

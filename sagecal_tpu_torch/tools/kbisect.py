@@ -51,7 +51,7 @@ import torch
 
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.ops.rime_kernel import (
-    _check_tensors, _raise_on, fused_predict_packed,
+    _check_tensors, _raise_on, _scratch, fused_predict_packed,
 )
 from sagecal_tpu_torch.utils.precision import full_f32
 
@@ -154,6 +154,45 @@ def probe_b(coh):
     return probe_b_plain(coh)
 
 
+# ------------------------------------------ #9 and #10: the gather probes
+#
+# Probes a and f depend on a column only through its station, so each
+# kernel reduces the table per station first ("sums": a (npad, 4), f
+# (npad,)) and gathers second, in one of two forms: two launches (the
+# reduction into "sums", then the gather; ``stages`` 3, or bit 1 and bit 2
+# one at a time on a ``scratch`` dict), or one launch in which every block
+# reduces the whole table into its own shared memory before its gather
+# (``stages`` 4; npad up to the kernel's ``*_one_launch_max_npad``).
+# ``stages=None`` takes the kernel's default for the shape
+# (``*_default_stages``): one launch where few blocks each reduce a small
+# table, two otherwise (as measured on the H100: PERF.md).
+
+
+def _gather_buffers(lib, name: str, mp: int, npad: int, cols: int, stages,
+                    scratch, shapes: dict, dev):
+    """(stages, buffers) of one gather-probe launch: ``stages`` resolved
+    (None -> the kernel's default for mp, npad and ``cols`` columns), and
+    ``scratch`` (filled on first use and reused) or new buffers.
+    ValueError for a stage value other than 1-4, for a partial launch (1
+    or 2) without ``scratch``, and for the one-launch form above its
+    npad."""
+    if stages is None:
+        stages = getattr(lib, f"kbisect_{name}_default_stages")(mp, npad,
+                                                                  cols)
+    if stages not in (1, 2, 3, 4):
+        raise ValueError(f"stages {stages}: 1 reduce, 2 gather, 3 both, "
+                         f"4 the one-launch form")
+    if stages in (1, 2) and scratch is None:
+        raise ValueError(f"stages {stages} launches half of the probe and "
+                         f"leaves its output unwritten: pass the scratch "
+                         f"dict it fills")
+    cap = getattr(lib, f"kbisect_{name}_one_launch_max_npad")()
+    if stages == 4 and npad > cap:
+        raise ValueError(f"the one-launch form holds at most {cap} stations "
+                         f"in shared memory, got npad {npad}")
+    return stages, _scratch(scratch, shapes, dev)
+
+
 # ------------------------------------------------------- #9: variant a
 
 
@@ -174,9 +213,10 @@ def probe_a_plain(antp, tab):
     return g.reshape(rows // 4, 4, -1, T).sum(0).sum(1)[None]
 
 
-def probe_a_cuda(antp, tab):
+def probe_a_cuda(antp, tab, stages=None, scratch=None):
     """Launch kernel #9 (``csrc/kbisect_a.cu``): (1, 4, T) f32.
-    Replaces ``kbisect.py``'s ``variant_a``."""
+    Replaces ``kbisect.py``'s ``variant_a``.  ``stages`` and ``scratch``:
+    the form of the launch (the gather probes' section)."""
     from sagecal_tpu_torch.kernels.build import load
 
     nrev = _revisits(antp)
@@ -185,14 +225,16 @@ def probe_a_cuda(antp, tab):
         raise ValueError(f"tab rows {rows} are not 4 per cluster")
     _check_tensors(antp.device, {"antp": (antp, (1, nrev * T), _I32),
                                  "tab": (tab, (rows, npad), _F32)})
-    dev = antp.device
-    partial = torch.empty((nrev, 4, T), dtype=torch.float32, device=dev)
-    out = torch.empty((1, 4, T), dtype=torch.float32, device=dev)
-    _raise_on(load("kbisect_a").kbisect_a(
-        antp.data_ptr(), tab.data_ptr(), rows // 4, npad, nrev, T,
-        partial.data_ptr(), out.data_ptr(), _stream(antp)), "kbisect_a")
+    lib = load("kbisect_a")
+    stages, bufs = _gather_buffers(
+        lib, "a", rows // 4, npad, T, stages, scratch,
+        {"sums": (npad, 4), "out": (1, 4, T)}, antp.device)
+    _raise_on(lib.kbisect_a(
+        antp.data_ptr(), tab.data_ptr(), rows // 4, npad, nrev, T, stages,
+        bufs["sums"].data_ptr(), bufs["out"].data_ptr(), _stream(antp)),
+        "kbisect_a")
     probe_a_cuda.launches += 1
-    return out
+    return bufs["out"]
 
 
 def probe_a(antp, tab):
@@ -212,21 +254,26 @@ def probe_f_plain(antp, tab):
     return (g[0] * g[1] + g[2] * g[3]).sum(0, keepdim=True)
 
 
-def probe_f_cuda(antp, tab):
+def probe_f_cuda(antp, tab, stages=None, scratch=None):
     """Launch kernel #10 (``csrc/kbisect_f.cu``): (1, T) f32.  Replaces
-    ``kbisect.py``'s ``variant_f``."""
+    ``kbisect.py``'s ``variant_f``.  ``stages`` and ``scratch``: the form
+    of the launch (the gather probes' section)."""
     from sagecal_tpu_torch.kernels.build import load
 
     cols = antp.shape[-1]
     mp, npad = (tab.shape[1], tab.shape[2]) if tab.ndim == 3 else (-1, -1)
     _check_tensors(antp.device, {"antp": (antp, (1, cols), _I32),
                                  "tab": (tab, (4, mp, npad), _F32)})
-    out = torch.empty((1, cols), dtype=torch.float32, device=antp.device)
-    _raise_on(load("kbisect_f").kbisect_f(
-        antp.data_ptr(), tab.data_ptr(), mp, npad, cols, out.data_ptr(),
-        _stream(antp)), "kbisect_f")
+    lib = load("kbisect_f")
+    stages, bufs = _gather_buffers(
+        lib, "f", mp, npad, cols, stages, scratch,
+        {"sums": (npad,), "out": (1, cols)}, antp.device)
+    _raise_on(lib.kbisect_f(
+        antp.data_ptr(), tab.data_ptr(), mp, npad, cols, stages,
+        bufs["sums"].data_ptr(), bufs["out"].data_ptr(), _stream(antp)),
+        "kbisect_f")
     probe_f_cuda.launches += 1
-    return out
+    return bufs["out"]
 
 
 def probe_f(antp, tab):

@@ -22,8 +22,8 @@ events, from the tile's starting gains:
 - the HBM bandwidth the forward implies (coherency bytes over its time).
 
 Then kernel #1 alone at ``kdiag.py``'s three rungs (Mp 8/40/104, F 2,
-4,096/32,768/113,664 rows, 62 stations, random inputs) beside each
-rung's bytes bound.  Every line carries the card's name and power limit.
+4,096/32,768/113,664 rows, 62 stations, random inputs), on the device
+alone and host-paced, beside each rung's bytes bound.  Every line carries the card's name and power limit.
 """
 
 import argparse
@@ -171,7 +171,10 @@ def profile(data, cdata, p0, card: str) -> dict:
 
 def kdiag_ladder(card: str) -> list:
     """Kernel #1 at ``kdiag.py``'s rungs: random inputs, 62 stations in
-    tables padded to 128, nc = 1.  Returns one dict per rung."""
+    tables padded to 128, nc = 1.  Timed on the device alone
+    (``device_ms``: at the small rungs the host's per-call work outlasts
+    the kernel) and host-paced (``cuda_ms``) beside it.  Returns one dict
+    per rung."""
     from sagecal_tpu_torch.kernels.parity import (
         CostProblem, fused_predict_work, roofline,
     )
@@ -188,15 +191,17 @@ def kdiag_ladder(card: str) -> list:
             tab_re=randn(4, mp, KDIAG_NPAD), tab_im=randn(4, mp, KDIAG_NPAD),
             coh_ri=randn(mp, F, 8, rows), ant_p=stations(), ant_q=stations(),
             vis_ri=None, mask_p=None, cmap=None, nc=1)
-        ms = cuda_ms(lambda: fused_predict_fwd_cuda(
-            prob.tab_re, prob.tab_im, prob.coh_ri, prob.ant_p, prob.ant_q),
-            20)
+        launch = lambda: fused_predict_fwd_cuda(
+            prob.tab_re, prob.tab_im, prob.coh_ri, prob.ant_p, prob.ant_q)
+        ms = device_ms(launch, 20)
         work = fused_predict_work(prob)["fwd"]
         rung = {"mp": mp, "F": F, "rows": rows, "ms": ms,
+                "host_paced_ms": cuda_ms(launch, 20),
                 "gb_s": work[0] / (ms * 1e-3) / 1e9, **roofline(*work)}
         rungs.append(rung)
         print(f"[kdiag] ({card}) Mp={mp} F={F} rows={rows}: "
-              f"{ms:.4f} ms, bound {rung['bound_ms']:.4f} ms "
+              f"{ms:.4f} ms on the device ({rung['host_paced_ms']:.4f} ms "
+              f"host-paced), bound {rung['bound_ms']:.4f} ms "
               f"({rung['bound_by']}), "
               f"{rung['gb_s']:.0f} GB/s", flush=True)
         del prob

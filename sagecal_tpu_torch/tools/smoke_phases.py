@@ -27,23 +27,30 @@ import time
 # the phases chip_smoke.main calls, in order; a name a checkout lacks is
 # skipped
 PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
-          "phase_main", "phase_predict", "phase_bisect", "phase_times",
-          "serve_parity", "phase_serve", "serve_times")
+          "phase_main", "phase_warm", "phase_predict", "phase_bisect",
+          "phase_times", "serve_parity", "phase_serve", "serve_times")
 
 
 def timed(module, seconds: dict):
     """Wrap ``module``'s phase functions so that each adds its wall
-    seconds to ``seconds``."""
+    seconds to ``seconds``; a phase called from inside another (the warm
+    phase builds its tile with ``main_tile``) counts in the outer one
+    only."""
+    running = []
     for name in PHASES:
         fn = getattr(module, name, None)
         if fn is None:
             continue
 
         def run(*args, _fn=fn, _name=name, **kwargs):
+            if running:
+                return _fn(*args, **kwargs)
+            running.append(_name)
             t0 = time.perf_counter()
             try:
                 return _fn(*args, **kwargs)
             finally:
+                running.pop()
                 seconds[_name] = (seconds.get(_name, 0.0)
                                   + time.perf_counter() - t0)
 

@@ -27,6 +27,7 @@ MODULES = (
     "sagecal_tpu_torch.ops.residual", "sagecal_tpu_torch.parallel.manifold",
     "sagecal_tpu_torch.core.segment", "sagecal_tpu_torch.tools.profile_kernel",
     "sagecal_tpu_torch.tools.kbisect", "sagecal_tpu_torch.tools.smoke_phases",
+    "sagecal_tpu_torch.tools.probe_outputs",
 )
 
 

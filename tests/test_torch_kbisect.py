@@ -211,6 +211,69 @@ def test_least_work_route_computes_the_probes_function(name, monkeypatch):
     assert nbytes == 4 * (antp.numel() + tab.numel() + out_words)
 
 
+class _GatherLib:
+    """The two shape functions of a gather probe's library, as the
+    kernels define them (``csrc/kbisect_a.cu``, ``kbisect_f.cu``)."""
+
+    def __init__(self, name):
+        self.name, self.cap = name, {"a": 2048, "f": 12288}[name]
+
+    def __getattr__(self, fn):
+        if fn.endswith("_one_launch_max_npad"):
+            return lambda: self.cap
+        return lambda mp, npad, T: 4 if mp * npad <= 4096 else 3
+
+
+@pytest.mark.parametrize("name", ["a", "f"])
+@pytest.mark.parametrize("stages,with_scratch,error", [
+    (0, False, "1 reduce"), (5, False, "1 reduce"),
+    (1, False, "scratch"), (2, False, "scratch"),
+    (4, False, None), (3, False, None), (1, True, None), (None, False, None)])
+def test_gather_probe_launch_forms_are_checked(name, stages, with_scratch,
+                                               error):
+    """The gather probes' launch forms (#9/#10): stage values 1-4 only, a
+    half launch only with the scratch it fills, the one-launch form only
+    up to its npad; None takes the library's default; a scratch dict is
+    filled with the buffers and reused."""
+    shapes = {"sums": (100, 4) if name == "a" else (100,), "out": (1, 8)}
+    scratch = {} if with_scratch else None
+    lib = _GatherLib(name)
+    if error:
+        with pytest.raises(ValueError, match=error):
+            tk._gather_buffers(lib, name, 8, 100, 8, stages, scratch, shapes,
+                               "cpu")
+        return
+    got, bufs = tk._gather_buffers(lib, name, 8, 100, 8, stages, scratch,
+                                   shapes, "cpu")
+    assert got == (4 if stages is None else stages)
+    assert {k: tuple(v.shape) for k, v in bufs.items()} == shapes
+    if scratch is not None:
+        assert bufs is scratch
+        again, _ = tk._gather_buffers(lib, name, 8, 100, 8, stages, scratch,
+                                      shapes, "cpu")
+        assert scratch["sums"] is bufs["sums"] and again == stages
+    with pytest.raises(ValueError, match="one-launch"):
+        tk._gather_buffers(lib, name, 8, lib.cap + 1, 8, 4, None,
+                           shapes, "cpu")
+
+
+def test_probe_outputs_compare_reports_bits(tmp_path, capsys):
+    """``tools/probe_outputs.py compare``: bitwise equality and the max
+    abs difference of each saved output; exit 1 when a save lacks one."""
+    from sagecal_tpu_torch.tools import probe_outputs
+
+    x = torch.arange(6, dtype=torch.float32)
+    a, b, c = (str(tmp_path / f"{n}.pt") for n in "abc")
+    torch.save({"f kbisect": x, "a kbisect": x}, a)
+    torch.save({"f kbisect": x.clone(), "a kbisect": x + 0.5}, b)
+    torch.save({"f kbisect": x}, c)
+    assert probe_outputs.compare(a, b) == 0
+    out = capsys.readouterr().out
+    assert "f kbisect: bitwise equal True, max abs difference 0.000e+00" in out
+    assert "a kbisect: bitwise equal False, max abs difference 5.000e-01" in out
+    assert probe_outputs.compare(a, c) == 1
+
+
 def test_run_prints_an_ok_line_for_each_variant(capsys):
     out = tk.run(list(NAMES), device="cpu")
     lines = capsys.readouterr().out.splitlines()

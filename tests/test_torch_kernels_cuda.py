@@ -541,6 +541,129 @@ def test_kbisect_wrappers_reject_mixes_and_dtypes(cuda, name):
             fn(*args)
 
 
+# #9 and #10 reduce the table per station, then gather:
+# npad around and far above a reduce block's 16-station slice, column
+# counts off the gather blocks (f: 256 columns, a: 16), and the table
+# through shared memory only in the one-launch form (stages 4).
+
+GATHER_NPAD = [7, 100, 128, 3000]
+
+
+def _gather_inputs(name, device, mp, npad, T=1000, R=3, seed=3,
+                   stations=None):
+    """Seeded inputs of probe a or f with every station of the table
+    drawn (``stations`` defaults to npad)."""
+    from sagecal_tpu_torch.kernels.parity import random_probe_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return random_probe_inputs(name, gen, mp=mp, T=T, R=R, npad=npad,
+                               stations=stations or npad)
+
+
+@pytest.mark.parametrize("npad", GATHER_NPAD)
+@pytest.mark.parametrize("name", ["a", "f"])
+def test_kbisect_gather_probes_match_plain_at_npad(cuda, name, npad,
+                                                   monkeypatch):
+    """Within 1e-5 of the plain output's max abs and bit-identical on
+    repeat, at a column count that is not a multiple of the gather block
+    (f: T 1000 of 256-column blocks; a: T 100 of 16-column blocks)."""
+    from sagecal_tpu_torch.kernels.parity import compare_probe_with_plain
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    monkeypatch.setattr(kb, "T", 100)
+    inputs = _gather_inputs(name, cuda, 13, npad, T=kb.T if name == "a"
+                            else 1000)
+    out = compare_probe_with_plain(name, inputs)
+    assert out["rel"] <= 1e-5 and out["bitwise_repeat"], out
+
+
+@pytest.mark.parametrize("name", ["a", "f"])
+def test_kbisect_gather_probes_take_npad_above_shared_memory(cuda, name):
+    """npad 20,000 (S or P beyond a block's shared memory): the default
+    two launches keep the sums in global memory and match the plain
+    version; the one-launch form, which holds them in shared memory,
+    refuses with ValueError."""
+    from sagecal_tpu_torch.kernels.parity import compare_probe_with_plain
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    inputs = _gather_inputs(name, cuda, 5, 20000, T=512 if name == "f"
+                            else kb.T, R=2)
+    out = compare_probe_with_plain(name, inputs)
+    assert out["rel"] <= 1e-5 and out["bitwise_repeat"], out
+    with pytest.raises(ValueError, match="one-launch"):
+        getattr(kb, f"probe_{name}_cuda")(*inputs, stages=4)
+
+
+@pytest.mark.parametrize("name,T", [("a", 256), ("f", 256), ("f", 113664)],
+                         ids=["a-T256", "f-T256", "f-T113664"])
+def test_kbisect_gather_probe_forms_agree(cuda, name, T):
+    """The two-launch form's reduction and gather launched one at a time
+    on one scratch give its bits; the one-launch form matches the plain
+    version within 1e-5 of its max abs, bit-identical on repeat; the
+    default launch gives the bits of the form the kernel names as its
+    default for the shape; stage values other than 1-4, and a half launch
+    without scratch, raise ValueError.  mp 104; a at the north-star width
+    (R 444 x the tool's T 256), f at kbisect's T and the north-star
+    width's."""
+    from sagecal_tpu_torch.kernels.build import load
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    inputs = _gather_inputs(name, cuda, 104, 128, T=T, R=444, stations=62)
+    launch = getattr(kb, f"probe_{name}_cuda")
+    two = launch(*inputs, stages=3).clone()
+    scratch = {}
+    launch(*inputs, stages=1, scratch=scratch)
+    launch(*inputs, stages=2, scratch=scratch)
+    assert torch.equal(scratch["out"], two)
+    one = launch(*inputs, stages=4).clone()
+    assert torch.equal(launch(*inputs, stages=4), one)
+    plain = getattr(kb, f"probe_{name}_plain")(*inputs)
+    for out in (one, two):
+        err = float((out.double() - plain.double()).abs().max())
+        assert err <= 1e-5 * float(plain.abs().max())
+    default = getattr(load(f"kbisect_{name}"),
+                      f"kbisect_{name}_default_stages")(104, 128, T)
+    assert torch.equal(launch(*inputs), {3: two, 4: one}[default])
+    for bad in ({"stages": 0}, {"stages": 5}, {"stages": 1},
+                {"stages": 2}):
+        with pytest.raises(ValueError):
+            launch(*inputs, **bad)
+
+
+def test_kbisect_probe_f_columns_of_one_station_agree_bitwise(cuda):
+    """#10 reduces per station: every column of one station gets the same
+    bits, whatever its place in the launch."""
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    antp, tab = _gather_inputs("f", cuda, 104, 128, T=113664, stations=62)
+    out = kb.probe_f(antp, tab)[0]
+    a = antp[0].long()
+    for s in range(62):
+        col = out[a == s]
+        assert col.numel() > 0 and bool((col == col[0]).all()), s
+
+
+@pytest.mark.parametrize("R", [1, 444])
+def test_kbisect_probe_a_at_revisits(cuda, R):
+    """#9 at one revisit (one r chunk of 64 used) and at the north-star
+    width's 444 (each chunk 7 revisits): within 1e-5 of the plain
+    output's max abs, bit-identical on repeat; with out-of-range indices
+    mixed in (R 444; at R 1 ``mix_out_of_range`` empties every column),
+    exact zeros where every index of a column is out of range."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_probe_with_plain, mix_out_of_range,
+    )
+
+    inputs = _gather_inputs("a", cuda, 104, 128, T=256, R=R, stations=62)
+    out = compare_probe_with_plain("a", inputs)
+    assert out["rel"] <= 1e-5 and out["bitwise_repeat"], out
+    if R == 1:
+        return
+    mixed, zero = mix_out_of_range("a", inputs)
+    out = compare_probe_with_plain("a", mixed, zero)
+    assert out["rel"] <= 1e-5 and out["zeros_exact"], out
+
+
 def test_kbisect_tool_matches_jax_values_on_the_card(cuda):
     """Every variant of the tool runs on the card, each probe and the
     predict kernels launch as the variant says, and every value is
