@@ -49,14 +49,36 @@ each printing lines of its own; any failure exits non-zero:
             res_0 cold, warm res_1 not above warm res_0, both objective
             kernels launched in a warm run (counts set to 0 just before
             it), the two warm runs bit-identical; its wall time printed;
-6. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
+6. extended the rest of the single-tile solve at the north-star geometry:
+            an LSM sky of 8 clusters of points, Gaussians, disks, rings
+            and one n0 = 10 shapelet source with its ``.fits.modes``
+            file -> ``load_sky`` (with its shapelet table) ->
+            ``make_visdata`` -> ``corrupt_and_observe`` (noise 1e-3) ->
+            ``build_cluster_data(shapelets=...)``; ``solve_tile`` (fused,
+            the main path's depth) in modes 5 (robust RTR), 6 (robust
+            NSD) and 4 (RTR), then mode 3 with ``param_bound`` (LBFGS-B):
+            each res_1 < res_0 and both objective kernels #3/#4 launched
+            (counts set to 0 just before), every |p| <= the bound under
+            LBFGS-B, a second mode-5 run bit-identical, a mode-5 run on
+            the torch-op joint cost launching neither and within the
+            5e-3 bar of the fused res_1; #3/#4 held against their plain
+            version at this shape (a seeded problem of 8 clusters, and
+            the tile's own packed inputs at its start), Gaussian and
+            robust; the residual step
+            on the mode-5 solution launches #1 once; a bucket of 8 lanes
+            (the sky under 8 sets of true gains) in mode 5 routed to
+            "fused_batch" by ``choose_batched_path`` and solved by
+            ``sagefit_packed_batch``: #5/#6 launched, every lane res_1 <
+            res_0.  Each solve's wall, EM and LBFGS seconds, the RTR/NSD
+            host syncs per cluster solve and peak device memory;
+7. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
             fused predict, the composed robust cost on it, its gradient
             and a 20-iteration LBFGS that must lower the cost; kernels #1
             and #2 must launch (counts set to 0 just before; the launches
             the LBFGS itself made are the path's count); then
             ``kdiag.py``'s three rungs for kernel #1, on the device alone
             and host-paced;
-7. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
+8. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
             variants c b a d e f on the card (counts set to 0 just
             before): every variant prints ok, each value within 1e-5
             relative of the JAX package's (``KBISECT_JAX_VALUES``), the
@@ -76,14 +98,14 @@ each printing lines of its own; any failure exits non-zero:
             computing the same function); a and f also in each form of
             their launch (two launches, each of them alone, one launch),
             beside the launch floor (an empty launch on the device alone);
-8. times    phase wall times, each solo kernel's time from CUDA events
+9. times    phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
             time (#4 and #2 with the tile's station plan built once, as
             the solve does, and split on the device alone into their
             kernels: #4 cotangent, gradient and sum, #2 gradient and sum),
             and peak device memory, each beside the card's name and power
             limit;
-9. serve    the batched serve solve of one bucket of 8 requests, each a
+10. serve   the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
@@ -103,7 +125,7 @@ each printing lines of its own; any failure exits non-zero:
             the batched kernels' times beside their bounds (#6 on one
             station plan for the bucket, split into its cotangent,
             gradient and sum kernels on the device alone), and the plan
-            build times of phases 3 and 9.
+            build times of phases 3 and 10.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -145,6 +167,16 @@ SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
 # the warm-started tile: the serve lane's sky size at the north-star
 # geometry (~1 s an EM pass), at the main path's depth
 WARM_CLUSTERS = SERVE_CLUSTERS
+# the extended-sky tile: per cluster, the types of its sources (the
+# first letter of an LSM name: P point, G Gaussian, D disk, R ring,
+# S shapelet), at the north-star geometry
+EXT_CLUSTERS = ("PP", "GP", "D", "R", "GG", "DR", "SP", "PG")
+EXT_N0, EXT_BETA = 10, 1e-3  # the shapelet source's orders and scale
+EXT_MODES = (5, 6, 4)  # robust RTR, robust NSD, RTR (fused joint LBFGS)
+EXT_BOUND = 1.5  # param_bound of the LBFGS-B solve (mode 3)
+# the extended bucket: B lanes in mode 5, at the serve phase's max_iter
+# and one EM pass (cut depth; the width is the north-star tile's)
+EXT_BUCKET_MAX_EMITER, EXT_BUCKET_MAX_ITER = 1, SERVE_MAX_ITER
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -549,8 +581,321 @@ def phase_warm(args, dirname: str):
             "launches": launches, "seconds": secs}
 
 
+def write_extended_sky(dirname: str, seed: int = 21):
+    """An LSM sky of the EXT_CLUSTERS clusters within ~2 degrees of the
+    phase centre, its cluster file, and the shapelet source's
+    ``.fits.modes`` file (EXT_N0 orders, a dominant zeroth mode)."""
+    rng = np.random.default_rng(seed)
+    sky = os.path.join(dirname, "ext.txt")
+    clus = sky + ".cluster"
+    with open(sky, "w") as fs, open(clus, "w") as fc:
+        fs.write("# name h m s d m s I Q U V si RM eX eY eP f0\n")
+        for k, types in enumerate(EXT_CLUSTERS):
+            names = []
+            for j, t in enumerate(types):
+                dec = DEC0 + math.radians(rng.uniform(-2.0, 2.0))
+                ra = RA0 + math.radians(rng.uniform(-2.0, 2.0)) / math.cos(DEC0)
+                hrs, deg = math.degrees(ra) / 15.0, math.degrees(dec)
+                h, rem = int(hrs), (hrs - int(hrs)) * 60.0
+                d, drem = int(deg), (deg - int(deg)) * 60.0
+                ex, ey, ep = {
+                    "P": (0.0, 0.0, 0.0),
+                    "G": (rng.uniform(3e-4, 1e-3), rng.uniform(3e-4, 1e-3),
+                          rng.uniform(0.0, math.pi)),
+                    "D": (rng.uniform(2e-4, 6e-4), 0.0, 0.0),
+                    "R": (rng.uniform(2e-4, 6e-4), 0.0, 0.0),
+                    "S": (1.2, 0.8, 0.3),
+                }[t]
+                name = f"{t}{k}x{j}"
+                names.append(name)
+                fs.write(f"{name} {h} {int(rem)} {(rem - int(rem)) * 60.0:.6f} "
+                         f"{d} {int(drem)} {(drem - int(drem)) * 60.0:.6f} "
+                         f"{rng.uniform(1.0, 10.0):.6f} 0 0 0 "
+                         f"{rng.uniform(-0.9, 0.0):.4f} 0 {ex:.6e} {ey:.6e} "
+                         f"{ep:.6f} 150e6\n")
+                if t == "S":
+                    modes = 0.3 * rng.standard_normal(EXT_N0 * EXT_N0)
+                    modes[0] = 3.0
+                    with open(os.path.join(dirname, name + ".fits.modes"),
+                              "w") as fm:
+                        fm.write(f"# ra dec\n0 0 0 51 0 0\n{EXT_N0} "
+                                 f"{EXT_BETA}\n")
+                        fm.writelines(f"{i} {m:.8f}\n"
+                                      for i, m in enumerate(modes))
+            fc.write(f"{k} 1 {' '.join(names)}\n")
+    return sky, clus
+
+
+def extended_tile(dirname: str):
+    """The extended-sky tile from files (module doc, phase 6) ->
+    (VisData, ClusterData, p0, clusters, shapelet table, seconds spent
+    on the coherencies)."""
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import (
+        corrupt_and_observe, make_visdata, random_jones,
+    )
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    sky, clus = write_extended_sky(dirname)
+    clusters, cdefs, tab = load_sky(sky, clus, RA0, DEC0)
+    M = len(clusters)
+    data = make_visdata(nstations=NSTATIONS, tilesz=TILESZ, nchan=NCHAN,
+                        dec0=DEC0, seed=0)
+    truth = random_jones(M, NSTATIONS, seed=31, amp=0.2)
+    data = corrupt_and_observe(data, clusters, jones=truth, noise_sigma=1e-3,
+                               seed=32, fdelta=data.deltaf,
+                               shapelet_tables=[tab] * M)
+    t = sync_clock()
+    cdata = build_cluster_data(data, clusters, [c.nchunk for c in cdefs],
+                               shapelets=tab)
+    coh_s = sync_clock() - t
+    p0 = jones_to_params(random_jones(M, NSTATIONS, seed=9, amp=0.0))
+    return data, cdata, p0[:, None, :], clusters, tab, coh_s
+
+
+def extended_parity(data, cdata, p0, nu_solve: float):
+    """Kernels #3/#4 against their plain version at the extended tile's
+    shape (EXT_CLUSTERS clusters, nc 1): a seeded random problem of that
+    size (Gaussian and nu 5) and the tile's own packed inputs at its
+    start ``p0`` (Gaussian and the mode-5 solve's nu), each through the
+    station plan a solve builds from its indices.  At a solution the
+    residual is the noise's size, and the cost's relative error would
+    measure f32 cancellation rather than the kernels' arithmetic."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_with_plain, plan_of, random_cost_problem, tile_cost_problem,
+    )
+
+    probs = {"random": (random_cost_problem(len(EXT_CLUSTERS), NSTATIONS,
+                                            NCHAN, ROWS, nc=1, seed=3,
+                                            device="cuda"), (None, 5.0)),
+             "tile at p0": (tile_cost_problem(data, cdata, p0),
+                            (None, nu_solve))}
+    worst = {"fused_cost_fwd": 0.0, "fused_cost_bwd": 0.0}
+    rows = []
+    for label, (prob, nus) in probs.items():
+        plan = plan_of(prob)
+        for nu in nus:
+            o = compare_with_plain(prob, nu, plan)
+            ok = (o["cost_rel"] <= COST_TOL and o["grad_rel"] <= GRAD_TOL
+                  and o["bitwise_repeat"])
+            print(f"[extended] objective parity, {label}, nu={nu}: "
+                  f"cost_rel={o['cost_rel']:.3e} grad_rel={o['grad_rel']:.3e}"
+                  f" bitwise_repeat={o['bitwise_repeat']} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                fail(f"objective kernel parity at the extended tile, {label}"
+                     f" nu={nu}: {o}")
+            worst["fused_cost_fwd"] = max(worst["fused_cost_fwd"],
+                                          o["cost_abs_err"])
+            worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
+                                          o["grad_max_abs_err"])
+            rows.append(dict(o, problem=label, nu=nu))
+    return {"worst": worst, "cases": rows}
+
+
+def _ext_solve(data, cdata, p0, cfg, label: str):
+    """One ``solve_tile`` with the objective kernels' counts and the RTR
+    host reads set to 0 just before -> (result, record).  A fused solve
+    must launch #3/#4, a torch-op one neither."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+    )
+    from sagecal_tpu_torch.solvers import rtr
+    from sagecal_tpu_torch.solvers.sage import solve_tile
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_cost_fwd_cuda.launches = 0
+    fused_cost_bwd_cuda.launches = 0
+    rtr.host_read.count = 0
+    t0 = sync_clock()
+    res = solve_tile(data, cdata, p0, cfg)
+    wall = sync_clock() - t0
+    solves = cdata.coh.shape[0] * cfg.max_emiter
+    rec = {"mode": cfg.solver_mode, "param_bound": cfg.param_bound,
+           "wall_s": wall, "em_s": res.phase_seconds["em"],
+           "lbfgs_s": res.phase_seconds["lbfgs"],
+           "lbfgs_iterations": res.lbfgs_iterations,
+           "res_0": float(res.res_0), "res_1": float(res.res_1),
+           "mean_nu": float(res.mean_nu),
+           "host_syncs_per_cluster_solve": rtr.host_read.count / solves,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {"fused_cost_fwd": fused_cost_fwd_cuda.launches,
+                        "fused_cost_bwd": fused_cost_bwd_cuda.launches}}
+    print(f"[extended] {label}: {wall:.3f} s (EM {rec['em_s']:.3f} s, "
+          f"LBFGS {rec['lbfgs_s']:.3f} s, {rec['lbfgs_iterations']} "
+          f"iterations), res_0={rec['res_0']:.6e} res_1={rec['res_1']:.6e} "
+          f"nu={rec['mean_nu']:.3f}, RTR/NSD host syncs per cluster solve "
+          f"{rec['host_syncs_per_cluster_solve']:.1f}, peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB, launches {rec['launches']}",
+          flush=True)
+    if not (np.isfinite(rec["res_1"]) and torch.isfinite(res.p).all()):
+        fail(f"extended tile, {label}: non-finite result")
+    if not rec["res_1"] < rec["res_0"]:
+        fail(f"extended tile, {label}: res_1 {rec['res_1']} >= res_0 "
+             f"{rec['res_0']}")
+    for k, n in rec["launches"].items():
+        if cfg.use_fused_predict and n <= 0:
+            fail(f"extended tile, {label}: kernel {k} was not launched")
+        if not cfg.use_fused_predict and n != 0:
+            fail(f"extended tile, {label}: kernel {k} launched {n} times on "
+                 "the torch-op route")
+    return res, rec
+
+
+def phase_extended(args, dirname: str):
+    """The extended-sky tile: solves, residual step, bucket (module doc,
+    phase 6)."""
+    from sagecal_tpu_torch.ops.residual import calculate_residuals, residual_norm
+    from sagecal_tpu_torch.ops.rime_kernel import fused_predict_fwd_cuda
+    from sagecal_tpu_torch.solvers import rtr
+
+    t_start = sync_clock()
+    torch.cuda.reset_peak_memory_stats()
+    data, cdata, p0, clusters, tab, coh_s = extended_tile(dirname)
+    build_peak = torch.cuda.max_memory_allocated()
+    kinds = "".join(EXT_CLUSTERS)
+    print(f"[extended] {len(clusters)} clusters ({kinds.count('P')} points, "
+          f"{kinds.count('G')} Gaussians, {kinds.count('D')} disks, "
+          f"{kinds.count('R')} rings, {kinds.count('S')} shapelet n0="
+          f"{tab.n0max}) at rows={data.rows} stations={NSTATIONS} "
+          f"channels={NCHAN}: coherencies {coh_s:.3f} s, peak device memory "
+          f"of building the tile {build_peak / 2**30:.2f} GiB", flush=True)
+    if not torch.isfinite(cdata.coh).all():
+        fail("extended tile: non-finite coherencies")
+    base = main_config(args)
+    out = {"coherencies_s": coh_s, "build_peak_bytes": build_peak,
+           "rows": data.rows, "solves": {}}
+    results = {}
+    for mode in EXT_MODES:
+        results[mode], out["solves"][f"mode{mode}"] = _ext_solve(
+            data, cdata, p0, base.replace(solver_mode=mode), f"mode {mode}")
+    again, rec = _ext_solve(data, cdata, p0, base.replace(solver_mode=5),
+                            "mode 5 again")
+    out["solves"]["mode5_again"] = rec
+    same = bitwise(results[5], again)
+    print(f"[extended] two mode-5 runs bit-identical in p and res_1: {same}",
+          flush=True)
+    if not same:
+        fail("extended tile: two mode-5 runs gave different bits")
+    out["bitwise_mode5"] = same
+    top, rec = _ext_solve(data, cdata, p0,
+                          base.replace(solver_mode=5, use_fused_predict=False),
+                          "mode 5 torch-op joint cost")
+    r1, r1u = float(results[5].res_1), float(top.res_1)
+    rec["res_1_rel_fused"] = abs(r1 - r1u) / r1u
+    print(f"[extended] mode 5 res_1 rel diff fused vs torch-op "
+          f"{rec['res_1_rel_fused']:.3e} (bar {RES1_TOL})", flush=True)
+    if not rec["res_1_rel_fused"] <= RES1_TOL:
+        fail(f"extended tile: mode-5 fused vs torch-op res_1 differ by more "
+             f"than {RES1_TOL}")
+    out["solves"]["mode5_torch_op"] = rec
+    del top
+    out["parity"] = extended_parity(data, cdata, p0,
+                                    float(results[5].mean_nu))
+    bnd, rec = _ext_solve(data, cdata, p0,
+                          base.replace(param_bound=EXT_BOUND),
+                          f"mode {base.solver_mode} param_bound {EXT_BOUND}")
+    pmax = float(bnd.p.abs().max())
+    nbound = int((bnd.p.abs() == EXT_BOUND).sum())
+    print(f"[extended] LBFGS-B: max |p| {pmax:.6f} <= {EXT_BOUND}: "
+          f"{pmax <= EXT_BOUND}; {nbound} parameters on the bound",
+          flush=True)
+    if not pmax <= EXT_BOUND:
+        fail(f"extended tile: LBFGS-B left |p| = {pmax} > {EXT_BOUND}")
+    rec.update(max_abs_p=pmax, on_bound=nbound)
+    out["solves"]["lbfgsb"] = rec
+
+    fused_predict_fwd_cuda.launches = 0
+    t = sync_clock()
+    xres = calculate_residuals(data, cdata, results[5].p)
+    res_s = sync_clock() - t
+    launches = fused_predict_fwd_cuda.launches
+    norm_rel = (abs(float(residual_norm(xres, data.mask))
+                    - float(results[5].res_1)) / float(results[5].res_1))
+    print(f"[extended] residual step on the mode-5 solution: "
+          f"{res_s * 1e3:.3f} ms, kernel #1 launches {launches}, "
+          f"residual_norm vs res_1 rel {norm_rel:.2e}", flush=True)
+    if launches != 1:
+        fail(f"extended residual step launched kernel #1 {launches} times")
+    if not norm_rel <= MODEL_TOL:
+        fail(f"extended residual_norm differs from res_1 by {norm_rel}")
+    out["residual"] = {"seconds": res_s, "launches": launches,
+                       "norm_rel": norm_rel}
+    del xres
+    out["bucket"] = extended_bucket(data, cdata, p0, clusters, tab)
+    out["seconds"] = sync_clock() - t_start
+    out["host_reads_total"] = rtr.host_read.count
+    print(f"[extended] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def extended_bucket(data, cdata, p0, clusters, tab):
+    """SERVE_B lanes of the extended sky, each under its own true gains
+    and noise, in mode 5: routed and solved as the serve path does."""
+    from sagecal_tpu_torch.io.simulate import corrupt_and_observe, random_jones
+    from sagecal_tpu_torch.solvers import rtr
+    from sagecal_tpu_torch.solvers.batched import (
+        choose_batched_path, derive_lane_generators, sagefit_packed_batch,
+        stack_lanes,
+    )
+    from sagecal_tpu_torch.solvers.sage import SM_RTR_OSRLM_RLBFGS, SageConfig
+
+    M = len(clusters)
+    lanes = []
+    for b in range(SERVE_B):
+        truth = random_jones(M, NSTATIONS, seed=400 + b, amp=0.2)
+        lane = corrupt_and_observe(data, clusters, jones=truth,
+                                   noise_sigma=1e-3, seed=500 + b,
+                                   fdelta=data.deltaf,
+                                   shapelet_tables=[tab] * M)
+        lanes.append((lane, cdata, p0.clone()))
+    data_b, cdata_b, p0_b = stack_lanes(lanes)
+    del lanes
+    cfg = SageConfig(solver_mode=SM_RTR_OSRLM_RLBFGS, use_fused_predict=True,
+                     max_emiter=EXT_BUCKET_MAX_EMITER,
+                     max_iter=EXT_BUCKET_MAX_ITER, max_lbfgs=SERVE_MAX_LBFGS)
+    path, reason = choose_batched_path(data_b, cdata_b, p0_b, cfg)
+    print(f"[extended] bucket of {SERVE_B} lanes, mode 5 (emiter "
+          f"{cfg.max_emiter}, max_iter {cfg.max_iter}, max_lbfgs "
+          f"{cfg.max_lbfgs}): route {path} ({reason})", flush=True)
+    if path != "fused_batch":
+        fail(f"extended bucket routed to {path!r}: {reason}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    rtr.host_read.count = 0
+    t0 = sync_clock()
+    res = sagefit_packed_batch(
+        data_b, cdata_b, data_b.vis.real, data_b.vis.imag, cdata_b.coh.real,
+        cdata_b.coh.imag, p0_b, cfg, derive_lane_generators(SEED,
+                                                            range(SERVE_B)),
+        batched_fused=True)
+    wall = sync_clock() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    syncs = rtr.host_read.count / (SERVE_B * M * cfg.max_emiter)
+    r0, r1 = res.res_0.double().cpu(), res.res_1.double().cpu()
+    print(f"[extended] bucket: {wall:.3f} s (EM {res.phase_seconds['em']:.3f}"
+          f" s, LBFGS {res.phase_seconds['lbfgs']:.3f} s), LBFGS iterations "
+          f"{res.lbfgs_iterations}, RTR host syncs per cluster solve "
+          f"{syncs:.1f}, peak {peak / 2**30:.2f} GiB, launches {launches}",
+          flush=True)
+    print(f"[extended] bucket res_0 {[f'{x:.4e}' for x in r0.tolist()]} "
+          f"res_1 {[f'{x:.4e}' for x in r1.tolist()]}", flush=True)
+    if not (torch.isfinite(r1).all() and (r1 < r0).all()):
+        fail("an extended bucket lane did not reduce its residual")
+    for k in ("fused_cost_batch_fwd", "fused_cost_batch_bwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched in the extended bucket")
+    return {"route": path, "wall_s": wall, "em_s": res.phase_seconds["em"],
+            "lbfgs_s": res.phase_seconds["lbfgs"],
+            "lbfgs_iterations": res.lbfgs_iterations,
+            "host_syncs_per_cluster_solve": syncs, "peak_bytes": peak,
+            "launches": launches, "res_0": r0.tolist(), "res_1": r1.tolist()}
+
+
 def phase_predict(data, cdata, p0, card: str):
-    """The predict path: ``tools/profile_kernel``'s profile (phase 6)."""
+    """The predict path: ``tools/profile_kernel``'s profile (phase 7)."""
     from sagecal_tpu_torch.ops.rime_kernel import (
         fused_predict_bwd_cuda, fused_predict_fwd_cuda,
     )
@@ -706,7 +1051,7 @@ def bisect_times():
 
 
 def phase_bisect(card: str):
-    """The kbisect tool on the card (module doc, phase 7)."""
+    """The kbisect tool on the card (module doc, phase 8)."""
     t = time.perf_counter()
     vals, launches = bisect_run()
     worst = bisect_parity()
@@ -936,7 +1281,7 @@ def serve_solve(reqs, idx, config, valid=None, fused=True):
 
 
 def phase_serve(dirname: str):
-    """The batched serve solve of one bucket (module doc, phase 9)."""
+    """The batched serve solve of one bucket (module doc, phase 10)."""
     from sagecal_tpu_torch.serve import bucket_of, pad_indices
     from sagecal_tpu_torch.solvers.batched import (
         choose_batched_path, derive_lane_generators, stack_lanes,
@@ -1123,6 +1468,10 @@ def main():
         main_out = phase_main(args, d, data, cdata, p0)
     with tempfile.TemporaryDirectory() as d:
         warm_out = phase_warm(args, d)
+    with tempfile.TemporaryDirectory() as d:
+        ext_out = phase_extended(args, d)
+    for k, v in ext_out["parity"]["worst"].items():
+        worst[k] = max(worst[k], v)
     pred_out = phase_predict(data, cdata, p0, card)
     del data, cdata
     torch.cuda.empty_cache()
@@ -1190,6 +1539,7 @@ def main():
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
+                       "extended": ext_out,
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "times": times, "kernels": kernels,

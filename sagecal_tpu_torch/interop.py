@@ -6,17 +6,23 @@
 and ``p0`` on a chosen device; :func:`batch_from_numpy` does the same
 for a serve bucket (a list of tiles, or one dict of stacked arrays);
 :func:`result_to_numpy` turns a port :class:`SageResult`, solo or
-batched, back into numpy.  Numpy only in, numpy only out:
-this module does not import ``sagecal_tpu``.
+batched, back into numpy.  :func:`sources_from_numpy` and
+:func:`shapelets_from_numpy` carry a sky (a ``SourceBatch`` and a
+``ShapeletTable``) across, and :func:`sources_to_numpy` /
+:func:`shapelets_to_numpy` bring it back.  Numpy only in, numpy only
+out: this module does not import ``sagecal_tpu``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from sagecal_tpu_torch.core.types import VisData
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.ops.rime import ShapeletTable, SourceBatch
 from sagecal_tpu_torch.solvers.sage import ClusterData, SageResult
 
 VIS_ARRAYS = ("u", "v", "w", "ant_p", "ant_q", "vis", "mask", "freqs",
@@ -71,3 +77,42 @@ def result_to_numpy(res: SageResult) -> dict:
     as numpy arrays."""
     return {k: getattr(res, k).detach().cpu().numpy()
             for k in ("p", "res_0", "res_1", "mean_nu", "diverged")}
+
+
+SOURCE_FIELDS = tuple(f.name for f in dataclasses.fields(SourceBatch))
+TABLE_ARRAYS = ("modes", "beta", "eX", "eY", "eP")
+
+
+def _field(obj, k):
+    return obj[k] if isinstance(obj, dict) else getattr(obj, k)
+
+
+def sources_from_numpy(src, device=None) -> SourceBatch:
+    """A source batch given as a dict of numpy arrays (or any object with
+    the fields as attributes that ``np.asarray`` reads, e.g. the JAX
+    package's ``SourceBatch``) -> the port's :class:`SourceBatch` on
+    ``device``; dtypes kept (``stype``/``shapelet_idx`` int32)."""
+    dev = resolve_device(device)
+    return SourceBatch(**{
+        k: torch.from_numpy(np.array(_field(src, k))).to(dev)
+        for k in SOURCE_FIELDS})
+
+
+def sources_to_numpy(src: SourceBatch) -> dict:
+    return {k: getattr(src, k).detach().cpu().numpy() for k in SOURCE_FIELDS}
+
+
+def shapelets_from_numpy(tab, device=None) -> ShapeletTable:
+    """A shapelet table (dict of numpy arrays plus ``n0max``, or an
+    object with those attributes) -> the port's :class:`ShapeletTable`."""
+    dev = resolve_device(device)
+    return ShapeletTable(
+        **{k: torch.from_numpy(np.array(_field(tab, k))).to(dev)
+           for k in TABLE_ARRAYS},
+        n0max=int(_field(tab, "n0max")))
+
+
+def shapelets_to_numpy(tab: ShapeletTable) -> dict:
+    out = {k: getattr(tab, k).detach().cpu().numpy() for k in TABLE_ARRAYS}
+    out["n0max"] = tab.n0max
+    return out

@@ -96,13 +96,16 @@ def random_jones(nclus: int, nstations: int, seed: int = 0, amp: float = 0.3,
 
 def corrupt_and_observe(data: VisData, clusters, jones=None,
                         noise_sigma: float = 0.0, seed: int = 1,
-                        fdelta: float = 0.0) -> VisData:
+                        fdelta: float = 0.0,
+                        shapelet_tables=None) -> VisData:
     """Fill ``data.vis`` with sum_k J_p^k C_pq^k J_q^kH + noise (on the
-    tile's device)."""
+    tile's device).  ``shapelet_tables``: optional per-cluster
+    ShapeletTable list for clusters with shapelet members."""
     rng = np.random.default_rng(seed)
     total = predict_model(
         data.u, data.v, data.w, data.freqs, clusters, fdelta,
         jones=jones, ant_p=data.ant_p, ant_q=data.ant_q,
+        shapelet_tables=shapelet_tables,
     )
     if noise_sigma > 0.0:
         nre = rng.standard_normal(tuple(total.shape))

@@ -9,16 +9,19 @@ Counterpart of ``sagecal_tpu/io/skymodel.py`` for point-source skies:
 - the source type comes from the first character of the name (G/g
   Gaussian, D/d disk, R/r ring, S/s shapelet, anything else point).
 
+- shapelet mode files ``<name>.fits.modes`` beside the sky file,
+  gathered into one sky-global :class:`ShapeletTable`;
+- the per-cluster ADMM regularization file (``-G``).
+
 Parsing is numpy on the host; :func:`build_source_batch` puts the
-batches on the requested device.  Shapelet skies raise
-NotImplementedError (they need mode tables the port does not have yet);
-the other extended types parse, and the predict refuses them.
+batches on the requested device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -26,7 +29,7 @@ import torch
 
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.ops.rime import (
-    _NOT_PORTED, ST_DISK, ST_GAUSSIAN, ST_POINT, ST_RING, ST_SHAPELET,
+    ST_DISK, ST_GAUSSIAN, ST_POINT, ST_RING, ST_SHAPELET, ShapeletTable,
     SourceBatch,
 )
 
@@ -133,7 +136,8 @@ def build_source_batch(srcs: list, ra0: float, dec0: float,
                        dtype=torch.float32, device=None) -> SourceBatch:
     """SourceBatch for a list of SkySource at phase centre (ra0, dec0);
     lmn as the reference computes them (nn stored as n-1), projection
-    angles and Gaussian fwhm -> sigma for extended types."""
+    angles and Gaussian fwhm -> sigma for extended types; shapelet
+    sources numbered 0, 1, ... in batch order (``shapelet_idx``)."""
     S = len(srcs)
     g = lambda: np.zeros(S, np.float64)
     ll, mm, nn = g(), g(), g()
@@ -142,6 +146,8 @@ def build_source_batch(srcs: list, ra0: float, dec0: float,
     stype = np.zeros(S, np.int32)
     ex_a, ex_b, ex_cp, ex_sp = g(), g(), np.ones(S), g()
     cxi, sxi, cphi, sphi = np.ones(S), g(), np.ones(S), g()
+    shapelet_idx = np.full(S, -1, np.int32)
+    n_shap = 0
     for i, s in enumerate(srcs):
         dra = s.ra - ra0
         ll[i] = math.cos(s.dec) * math.sin(dra)
@@ -154,8 +160,6 @@ def build_source_batch(srcs: list, ra0: float, dec0: float,
         f0[i], si[i], si1[i], si2[i] = s.f0, s.spec_idx, s.spec_idx1, s.spec_idx2
         st = _source_type(s)
         stype[i] = st
-        if st == ST_SHAPELET:
-            raise NotImplementedError(_NOT_PORTED)
         if st != ST_POINT:
             n_abs = abs(n_raw)
             phi = math.acos(min(1.0, n_abs))
@@ -169,8 +173,14 @@ def build_source_batch(srcs: list, ra0: float, dec0: float,
                 ex_a[i] = s.eX * _FWHM_TO_SIGMA
                 ex_b[i] = s.eY * _FWHM_TO_SIGMA
                 ex_cp[i], ex_sp[i] = math.cos(s.eP), math.sin(s.eP)
-            else:
+            elif st in (ST_DISK, ST_RING):
                 ex_a[i] = s.eX
+            else:
+                ex_a[i] = s.eX if s.eX else 1.0
+                ex_b[i] = s.eY if s.eY else 1.0
+                ex_cp[i], ex_sp[i] = math.cos(s.eP), math.sin(s.eP)
+                shapelet_idx[i] = n_shap
+                n_shap += 1
     dev = resolve_device(device)
     cast = lambda x: torch.as_tensor(x, dtype=dtype).to(dev)
     return SourceBatch(
@@ -180,24 +190,110 @@ def build_source_batch(srcs: list, ra0: float, dec0: float,
         spec_idx2=cast(si2), stype=torch.as_tensor(stype).to(dev),
         ex_a=cast(ex_a), ex_b=cast(ex_b), ex_cp=cast(ex_cp), ex_sp=cast(ex_sp),
         cxi=cast(cxi), sxi=cast(sxi), cphi=cast(cphi), sphi=cast(sphi),
-        shapelet_idx=torch.full((S,), -1, dtype=torch.int32, device=dev),
+        shapelet_idx=torch.as_tensor(shapelet_idx).to(dev),
     )
 
 
 def load_sky(sky_path: str, cluster_path: str, ra0: float, dec0: float,
              dtype=torch.float32, three_term_spectra=None, device=None):
-    """Files -> ([SourceBatch per cluster], [ClusterDef], None).
+    """Files -> ([SourceBatch per cluster], [ClusterDef],
+    ShapeletTable | None).
 
-    The third slot mirrors the JAX package's shapelet table, which a
-    point-source sky never has.  Batches land on ``device`` (CUDA
-    unless ``device="cpu"``)."""
+    Shapelet (S-type) sources also load ``<name>.fits.modes`` from the
+    sky file's directory into ONE sky-global :class:`ShapeletTable`, and
+    each batch's ``shapelet_idx`` is remapped from cluster-local to
+    global rows; the table is None when the sky has no shapelet source.
+    Batches land on ``device`` (CUDA unless ``device="cpu"``)."""
     sky = parse_skymodel(sky_path, three_term_spectra)
     cdefs = parse_clusters(cluster_path)
+    directory = os.path.dirname(os.path.abspath(sky_path))
     batches = []
+    entries = []  # (n0, beta, modes, eX, eY, eP) in global order
     for cd in cdefs:
         missing = [n for n in cd.source_names if n not in sky]
         if missing:
             raise ValueError(f"cluster {cd.cluster_id}: unknown sources {missing}")
-        batches.append(build_source_batch(
-            [sky[n] for n in cd.source_names], ra0, dec0, dtype, device))
-    return batches, cdefs, None
+        srcs = [sky[n] for n in cd.source_names]
+        batch = build_source_batch(srcs, ra0, dec0, dtype, device)
+        shap = [s for s in srcs if _source_type(s) == ST_SHAPELET]
+        if shap:
+            offset = len(entries)
+            for s in shap:
+                n0, beta, modes = read_shapelet_modes(s.name, directory)
+                entries.append((n0, beta, modes, s.eX or 1.0, s.eY or 1.0,
+                                s.eP))
+            idx = batch.shapelet_idx
+            batch.shapelet_idx = torch.where(
+                idx >= 0, idx + offset, torch.full_like(idx, -1))
+        batches.append(batch)
+    tab = (build_shapelet_table(entries, dtype, device) if entries
+           else None)
+    return batches, cdefs, tab
+
+
+def build_shapelet_table(entries, dtype=torch.float32,
+                         device=None) -> ShapeletTable:
+    """A sky-global :class:`ShapeletTable` from ``(n0, beta, modes, eX,
+    eY, eP)`` tuples; models with n0 < n0max zero-pad their (n2, n1)
+    mode grid (exact: unused coefficients contribute nothing)."""
+    n0max = max(e[0] for e in entries)
+    K = len(entries)
+    modes = np.zeros((K, n0max * n0max))
+    beta, eX, eY, eP = (np.empty(K) for _ in range(4))
+    for k, (n0, b, m, ex, ey, ep) in enumerate(entries):
+        grid = np.zeros((n0max, n0max))
+        grid[:n0, :n0] = np.asarray(m).reshape(n0, n0)  # (n2, n1)
+        modes[k] = grid.reshape(-1)
+        beta[k], eX[k], eY[k], eP[k] = b, ex, ey, ep
+    dev = resolve_device(device)
+    cast = lambda x: torch.as_tensor(x, dtype=dtype).to(dev)
+    return ShapeletTable(modes=cast(modes), beta=cast(beta), eX=cast(eX),
+                         eY=cast(eY), eP=cast(eP), n0max=int(n0max))
+
+
+def read_cluster_rho(path: str, cdefs: list, spatialreg: bool = False):
+    """Per-cluster ADMM regularization file (``-G``): one line per
+    cluster, ``cluster_id hybrid admm_rho [spatial_alpha]``.  Values
+    follow ``cdefs`` by cluster id when every id is present, else file
+    order.  Returns (rho (M,), alpha (M,) or None), numpy."""
+    entries = []
+    with open(path) as fh:
+        for line in fh:
+            s = line.strip()
+            if not s or s.startswith("#") or s.startswith("//"):
+                continue
+            tok = s.split()
+            if len(tok) < 3:
+                continue
+            cid, hyb, rho = int(tok[0]), int(tok[1]), float(tok[2])
+            alpha = float(tok[3]) if (spatialreg and len(tok) > 3) else 0.0
+            entries.append((cid, hyb, rho, alpha))
+    M = len(cdefs)
+    if len(entries) < M:
+        raise ValueError(f"{path}: {len(entries)} entries for {M} clusters")
+    by_id = {e[0]: e for e in entries}
+    ordered = ([by_id[cd.cluster_id] for cd in cdefs]
+               if all(cd.cluster_id in by_id for cd in cdefs)
+               else entries[:M])
+    rho = np.asarray([e[2] for e in ordered])
+    alpha = np.asarray([e[3] for e in ordered]) if spatialreg else None
+    return rho, alpha
+
+
+def read_shapelet_modes(name: str, directory: str = "."):
+    """``<name>.fits.modes`` -> (n0, beta, modes (n0*n0,)): after six
+    ignored numbers (RA, Dec), n0 and beta, then (index, value) pairs
+    whose values are taken in file order."""
+    path = os.path.join(directory, name + ".fits.modes")
+    vals = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals.extend(float(t) for t in line.split())
+    n0 = int(vals[6])
+    beta = vals[7]
+    rest = vals[8:]
+    modes = np.array([rest[2 * k + 1] for k in range(n0 * n0)])
+    return n0, beta, modes

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sagecal_tpu_torch.core.types import params_to_jones
 from sagecal_tpu_torch.ops.rime_kernel import (
     BwdPlan, FusedSkyGradientError, _nu_cell, _nu_lanes,
     fused_cost_batch_bwd_cuda,
@@ -32,6 +33,7 @@ from sagecal_tpu_torch.ops.rime_kernel import (
     fused_cost_packed_batch_plain, fused_cost_packed_hybrid,
     fused_cost_packed_plain, fused_predict_bwd_cuda, fused_predict_packed,
     fused_predict_packed_hybrid, fused_predict_packed_plain, pack_gain_tables,
+    pack_predict_inputs,
 )
 
 
@@ -87,6 +89,23 @@ def random_cost_problem(M: int, N: int, F: int, rows: int, nc: int = 1,
         vis_ri=as_t(vis, torch.float32), mask_p=as_t(mask, torch.float32),
         cmap=cmap, nc=nc,
     )
+
+
+def tile_cost_problem(data, cdata, p) -> CostProblem:
+    """A tile's own objective inputs at the solution ``p`` (M, nc, 8N),
+    packed as ``sagefit``'s fused joint cost packs them
+    (``solvers/sage.py::_make_fused_joint_cost``): the kernels can then
+    be held against their plain version at the shapes a solve gives
+    them."""
+    M, nc, n8 = p.shape
+    vis_ri, mask_p, coh_ri, antp, antq, cmap = pack_predict_inputs(
+        data.vis, data.mask, cdata.coh, data.ant_p, data.ant_q,
+        cdata.chunk_map if nc > 1 else None)
+    jones = params_to_jones(p.detach().float())
+    tre, tim = pack_gain_tables(jones if nc > 1 else jones[:, 0], M)
+    return CostProblem(tab_re=tre, tab_im=tim, coh_ri=coh_ri, ant_p=antp,
+                       ant_q=antq, vis_ri=vis_ri, mask_p=mask_p, cmap=cmap,
+                       nc=nc)
 
 
 def plan_of(prob) -> BwdPlan:

@@ -112,10 +112,13 @@ class NormalEqPlan:
     (chunk, p, q), then (chunk, q, p) -> the (chunk, N, N) block grid,
     for the off-diagonal blocks.  Diagonal and off-diagonal blocks have
     plans of their own because a station's block gathers ~tilesz*(N-1)
-    rows and a baseline's ~tilesz."""
+    rows and a baseline's ~tilesz.  The RTR/NSD solvers
+    (``solvers/rtr.py``) sum their per-station gradients on ``station``
+    and their costs on ``cost``."""
 
     def __init__(self, ant_p, ant_q, chunk_map, nchunk: int, N: int):
         cp, cq = chunk_map * N + ant_p, chunk_map * N + ant_q
+        self.idx_p, self.idx_q = cp, cq  # each row's (chunk, station)
         self.nchunk, self.N = nchunk, N
         self.cost = SegmentPlan(chunk_map, nchunk)
         self.station = SegmentPlan(torch.cat([cp, cq]), nchunk * N)

@@ -6,6 +6,7 @@ the M-step is a weighted LM solve with sqrt(w)-scaled residuals, and nu
 is re-estimated by a digamma-score grid search over [nulow, nuhigh]
 (Nd = 30 points, argmin |score|).  ``jax.scipy.special.digamma`` becomes
 ``torch.special.digamma``; the EM ``scan`` is a Python loop.
+:func:`whiten_uv_weights` is the ``-W`` uv-density weight.
 """
 
 from __future__ import annotations
@@ -87,3 +88,12 @@ def robust_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     res = lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
                    sqrt_weights=sqrt_w, plan=plan)
     return res, nu
+
+
+def whiten_uv_weights(u, v, freq0):
+    """uv-density pre-whitening weight of the ``-W`` option:
+    w(d) = 1/(1 + 1.8 exp(-0.05 d)), d = sqrt(u^2 + v^2) in wavelengths,
+    1.0 beyond 400 wavelengths."""
+    ud = torch.sqrt(u * u + v * v) * freq0
+    w = 1.0 / (1.0 + 1.8 * torch.exp(-0.05 * ud))
+    return torch.where(ud > 400.0, torch.ones_like(w), w)

@@ -1,9 +1,11 @@
 """SAGE/EM calibration driver (counterpart of ``sagecal_tpu/solvers/sage.py``).
 
-One tile: coherencies per cluster (:func:`build_cluster_data`), EM passes
-that solve each cluster against the residual with every other cluster's
-model removed (:func:`em_residual_scan`, per-cluster LM, OS-LM or robust
-LM), then one joint LBFGS over all gains.  With
+One tile: coherencies per cluster (:func:`build_cluster_data`, any sky:
+points, Gaussians, disks, rings and shapelets), EM passes that solve each
+cluster against the residual with every other cluster's model removed
+(:func:`em_residual_scan`: per-cluster LM, OS-LM, robust LM, RTR, robust
+RTR or robust NSD), then one joint LBFGS over all gains, or LBFGS-B when
+``param_bound > 0`` keeps every parameter within the bound.  With
 ``SageConfig.use_fused_predict`` every cost and gradient of the joint
 LBFGS goes through the fused-objective CUDA kernels
 (:func:`_make_fused_joint_cost`); otherwise through torch ops
@@ -21,12 +23,16 @@ lock-step on the batched fused-objective kernels
 (:func:`_make_fused_joint_cost_batch`); ``solvers/batched.py`` routes a
 bucket to it.
 
-Ported solver modes: 0 (OS-LM + LBFGS), 1 (LM + LBFGS), 2 (robust LM +
-robust LBFGS), 3 (OS-LM, OS robust LM, robust LBFGS: the CLI default).
-Modes 4-6 (RTR/NSD), ``param_bound > 0`` (LBFGS-B), ``collect_telemetry``
-and ``collect_quality`` raise NotImplementedError until their slice
-(ROADMAP.md Queue A).  ``jax.random`` keys become a ``torch.Generator``
-(CPU) from which the OS-LM row permutations are drawn.
+Solver modes: 0 (OS-LM + LBFGS), 1 (LM + LBFGS), 2 (robust LM + robust
+LBFGS), 3 (OS-LM, OS robust LM, robust LBFGS: the CLI default), 4 (RTR +
+LBFGS), 5 (robust RTR + robust LBFGS), 6 (robust NSD + robust LBFGS); in
+modes 5 and 6 each cluster's nu is carried across EM passes.
+``collect_telemetry`` and ``collect_quality`` raise NotImplementedError
+until their slice (ROADMAP.md Queue A, A3).  ``jax.random`` keys become a
+``torch.Generator`` (CPU) from which the OS-LM row permutations are drawn.
+:func:`sagefit_packed` is the real-array entry (the visibilities and
+coherencies as real and imaginary parts); :func:`solve_tile` takes the
+complex tile to :func:`sagefit` as it is.
 """
 
 from __future__ import annotations
@@ -43,14 +49,18 @@ from sagecal_tpu_torch.core.segment import gather_rows
 from sagecal_tpu_torch.core.types import VisData, corrupt_flat, params_to_jones
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.ops.rime import (
-    SourceBatch, _check_point_only, _predict_coherencies, pad_source_batch,
-    predict_coherencies,
+    _NO_TABLE, ST_POINT, ST_SHAPELET, SourceBatch, _predict_coherencies,
+    pad_source_batch, predict_coherencies,
 )
 from sagecal_tpu_torch.solvers.lbfgs import lbfgs_fit, lbfgs_fit_batched
+from sagecal_tpu_torch.solvers.lbfgsb import lbfgsb_fit
 from sagecal_tpu_torch.solvers.lm import (
     LMConfig, NormalEqPlan, lm_solve, os_lm_solve,
 )
 from sagecal_tpu_torch.solvers.robust import robust_lm_solve
+from sagecal_tpu_torch.solvers.rtr import (
+    RTRConfig, nsd_solve_robust, rtr_solve, rtr_solve_robust,
+)
 from sagecal_tpu_torch.utils.precision import true_f32
 
 # solver modes (values match the reference's Dirac.h)
@@ -64,8 +74,6 @@ SM_NSD_RLBFGS = 6
 
 _ROBUST_MODES = (SM_RLM_RLBFGS, SM_OSLM_OSRLM_RLBFGS, SM_RTR_OSRLM_RLBFGS,
                  SM_NSD_RLBFGS)
-_PORTED_MODES = (SM_OSLM_LBFGS, SM_LM_LBFGS, SM_RLM_RLBFGS,
-                 SM_OSLM_OSRLM_RLBFGS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,19 +154,39 @@ def _chunk_maps(data: VisData, nchunks: Sequence[int]) -> torch.Tensor:
 
 def build_cluster_data(data: VisData, clusters: Sequence[SourceBatch],
                        nchunks: Sequence[int],
-                       fdelta: Optional[float] = None) -> ClusterData:
+                       fdelta: Optional[float] = None,
+                       shapelets=None) -> ClusterData:
     """Coherencies + chunk maps of every cluster, on the tile's device.
 
-    Batched path (clusters padded to the largest source count and
-    predicted in blocks of 16) unless padding would waste more than 4x
-    the source count; then one predict per cluster.  Point skies only."""
+    ``shapelets``: the sky-global ShapeletTable (``io.skymodel.load_sky``);
+    clusters with shapelet members take the per-cluster path with it,
+    the others keep the batched path, and the results are reassembled
+    in cluster order.  Batched path: clusters padded to the largest
+    source count and predicted in blocks of 16, unless padding would
+    waste more than 4x the source count; then one predict per cluster."""
     if fdelta is None:
         fdelta = data.deltaf
-    for c in clusters:
-        _check_point_only(c)
+    if shapelets is not None:
+        shap = [bool((c.stype == ST_SHAPELET).any()) for c in clusters]
+        if any(shap):
+            plain_idx = [i for i, f in enumerate(shap) if not f]
+            plain = build_cluster_data(
+                data, [clusters[i] for i in plain_idx],
+                [nchunks[i] for i in plain_idx], fdelta) if plain_idx else None
+            parts = {i: plain.coh[j] for j, i in enumerate(plain_idx)}
+            for i in (i for i, f in enumerate(shap) if f):
+                parts[i] = predict_coherencies(
+                    data.u, data.v, data.w, data.freqs, clusters[i], fdelta,
+                    shapelets=shapelets)
+            coh = torch.stack([parts[i] for i in range(len(clusters))])
+            return _cluster_data(data, coh, nchunks)
     sizes = [int(c.ll.shape[0]) for c in clusters]
     smax, total = max(sizes), sum(sizes)
     if smax * len(clusters) <= 4 * total and len(clusters) > 1:
+        stypes = torch.cat([c.stype.cpu() for c in clusters])
+        if bool((stypes == ST_SHAPELET).any()):
+            raise ValueError(_NO_TABLE)
+        has_ext = bool((stypes != ST_POINT).any())
         block = 16
         padded = [pad_source_batch(c, smax) for c in clusters]
         parts = []
@@ -168,12 +196,18 @@ def build_cluster_data(data: VisData, clusters: Sequence[SourceBatch],
                 f.name: torch.stack([getattr(g, f.name) for g in group])
                 for f in dataclasses.fields(SourceBatch)})
             parts.append(_predict_coherencies(
-                data.u, data.v, data.w, data.freqs, stacked, float(fdelta), 32))
+                data.u, data.v, data.w, data.freqs, stacked, float(fdelta), 32,
+                None, has_ext))
         coh = torch.cat(parts, dim=0)
     else:
         coh = torch.stack([
-            predict_coherencies(data.u, data.v, data.w, data.freqs, src, fdelta)
+            predict_coherencies(data.u, data.v, data.w, data.freqs, src,
+                                fdelta, shapelets=shapelets)
             for src in clusters])
+    return _cluster_data(data, coh, nchunks)
+
+
+def _cluster_data(data: VisData, coh, nchunks) -> ClusterData:
     return ClusterData(
         coh=coh, chunk_map=_chunk_maps(data, nchunks),
         nchunk=torch.as_tensor(list(nchunks), dtype=torch.int64,
@@ -346,6 +380,11 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
     total_iter = M * config.max_iter
     iter_bar = int(math.ceil((0.80 / M) * total_iter))
 
+    iter_cap = config.max_iter * config.iter_budget_cap
+    rtr_cfg = RTRConfig(itmax_rsd=iter_cap + 5, itmax_rtr=iter_cap + 10)
+    robust_kw = dict(nulow=config.nulow, nuhigh=config.nuhigh,
+                     em_iters=config.em_rounds_robust)
+
     res_0 = _res_norm(data.vis - predict_full_model(p0, cdata, data),
                       data.mask, nreal)
 
@@ -354,7 +393,8 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
         return torch.where(c0 > 0.0, torch.clamp((c0 - c1) / c0, min=0.0),
                            torch.zeros_like(c0))
 
-    # the LM assembly plan of each distinct chunk map, built once per tile
+    # the solvers' fixed-order sums (LM assembly, RTR station sums) of
+    # each distinct chunk map, planned once per tile
     plans = []
 
     def plan_of(cmap_k):
@@ -382,7 +422,22 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
             plan = plan_of(cmap_k)
             nu_k = torch.as_tensor(config.nulow, dtype=p0.dtype,
                                    device=p0.device)
-            if use_robust:
+            itermax = (int(0.20 * nerr_host[k] * total_iter) + iter_bar
+                       if weighted else config.max_iter)
+            if mode == SM_RTR_OSLM_LBFGS:
+                res = rtr_solve(*args, rtr_cfg, itmax_dynamic=itermax,
+                                plan=plan)
+            elif mode == SM_RTR_OSRLM_RLBFGS:
+                res, nu_k = rtr_solve_robust(
+                    *args, rtr_cfg, nu0=nus[k], itmax_dynamic=itermax,
+                    plan=plan, **robust_kw)
+                nu_k = nu_k.to(p0.dtype)
+            elif mode == SM_NSD_RLBFGS:
+                res, nu_k = nsd_solve_robust(
+                    *args, itmax=iter_cap + 15, nu0=nus[k],
+                    itmax_dynamic=itermax, plan=plan, **robust_kw)
+                nu_k = nu_k.to(p0.dtype)
+            elif use_robust:
                 res, nu_k = robust_lm_solve(
                     *args, nu0=config.nulow, nulow=config.nulow,
                     nuhigh=config.nuhigh, em_iters=config.em_rounds_robust,
@@ -392,8 +447,6 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
                 res = os_lm_solve(*args, lmcfg, nsubsets=2, generator=generator,
                                   plan=plan)
             else:
-                itermax = (int(0.20 * nerr_host[k] * total_iter) + iter_bar
-                           if weighted else config.max_iter)
                 res = lm_solve(*args, lmcfg, itmax_dynamic=itermax, plan=plan)
             return res.p, (nerr_of(res), nu_k)
 
@@ -424,18 +477,11 @@ def _finalize(data, cdata, p, res_0, mean_nu) -> SageResult:
 
 
 def _check_supported(config: SageConfig):
-    missing = []
-    if config.solver_mode not in _PORTED_MODES:
-        missing.append(f"solver_mode={config.solver_mode} (RTR/NSD)")
-    if config.param_bound > 0.0:
-        missing.append("param_bound > 0 (LBFGS-B)")
-    if config.collect_telemetry:
-        missing.append("collect_telemetry")
-    if config.collect_quality:
-        missing.append("collect_quality")
+    missing = [k for k in ("collect_telemetry", "collect_quality")
+               if getattr(config, k)]
     if missing:
         raise NotImplementedError(
-            "not ported to sagecal_tpu_torch yet (ROADMAP.md Queue A): "
+            "not ported to sagecal_tpu_torch yet (ROADMAP.md Queue A, A3): "
             + ", ".join(missing))
 
 
@@ -476,8 +522,13 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
                     return torch.log1p(e2 / mean_nu).sum()
                 return e2.sum()
 
-        fit = lbfgs_fit(cost_fn, None, p.reshape(-1), itmax=config.max_lbfgs,
-                        M=config.lbfgs_m)
+        if config.param_bound > 0.0:
+            fit = lbfgsb_fit(cost_fn, None, p.reshape(-1),
+                             lb=-config.param_bound, ub=config.param_bound,
+                             itmax=config.max_lbfgs, M=config.lbfgs_m)
+        else:
+            fit = lbfgs_fit(cost_fn, None, p.reshape(-1),
+                            itmax=config.max_lbfgs, M=config.lbfgs_m)
         p = fit.p.reshape(M, nchunk_max, n8).to(p0.dtype)
         lbfgs_iterations = fit.iterations
     t2 = _clock(dev)
@@ -487,10 +538,29 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
     return res
 
 
+def sagefit_packed(data: VisData, cdata: ClusterData, vis_re, vis_im, coh_re,
+                   coh_im, p0, config: SageConfig = SageConfig(),
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> SageResult:
+    """The tile solve on real arrays: ``data`` with ``vis=None`` and
+    ``cdata`` with ``coh=None``, the visibilities (F, 4, rows) and
+    coherencies (M, F, 4, rows) given as real and imaginary parts, put
+    back together on ``device`` before :func:`sagefit` runs."""
+    dev = resolve_device(device)
+    join = lambda re, im: torch.complex(torch.as_tensor(re).to(dev),
+                                        torch.as_tensor(im).to(dev))
+    return sagefit(data.replace(vis=join(vis_re, vis_im)),
+                   cdata.replace(coh=join(coh_re, coh_im)), p0, config,
+                   generator, device=dev)
+
+
 def solve_tile(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConfig(),
                generator: Optional[torch.Generator] = None, device=None) -> SageResult:
     """Host convenience around :func:`sagefit`: ``p0`` may be numpy; the
-    tile is moved to ``device`` (CUDA unless ``device="cpu"``)."""
+    tile is moved to ``device`` (CUDA unless ``device="cpu"``).  The
+    tile stays complex: :func:`sagefit_packed`'s real/imaginary split
+    exists for callers holding real arrays, and its join would copy the
+    coherency stack."""
     if isinstance(p0, np.ndarray):
         p0 = torch.from_numpy(p0)
     return sagefit(data, cdata, p0, config, generator, device=device)

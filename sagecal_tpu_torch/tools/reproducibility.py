@@ -18,7 +18,7 @@ builders it reuses:
 - main: phase 4's north-star tile, ``solve_tile`` twice with the fused
   joint cost and twice with the torch-op one; every fused vs torch-op
   pair is held to ``RES1_TOL`` as phase 4 holds its pair;
-- serve: phase 8's bucket of 8 requests, the ``fused_batch`` route
+- serve: phase 10's bucket of 8 requests, the ``fused_batch`` route
   twice, the per-lane torch-op route twice and the per-lane fused route
   once.
 

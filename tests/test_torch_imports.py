@@ -28,6 +28,9 @@ MODULES = (
     "sagecal_tpu_torch.core.segment", "sagecal_tpu_torch.tools.profile_kernel",
     "sagecal_tpu_torch.tools.kbisect", "sagecal_tpu_torch.tools.smoke_phases",
     "sagecal_tpu_torch.tools.probe_outputs",
+    "sagecal_tpu_torch.ops.special", "sagecal_tpu_torch.ops.shapelets",
+    "sagecal_tpu_torch.data.simsky", "sagecal_tpu_torch.solvers.rtr",
+    "sagecal_tpu_torch.solvers.lbfgsb", "sagecal_tpu_torch.tools.rtr_profile",
 )
 
 

@@ -23,8 +23,9 @@ gradients within 1e-6 of their norm, as their f32 sums differ from the
 plain version's in order only, bf16 coherencies being upcast exactly on
 both sides), and a plan built once, a plan built per launch and the
 kernels launched one at a time must give the same bits.
-The LM assembly and a whole default-mode solve must be bit-identical on
-repeat: they sum in a fixed order too.  The kbisect probes: max abs
+The LM assembly, the RTR gradient and Hessian-vector product, a whole
+default-mode solve and a mode-5 (robust RTR) solve must be bit-identical
+on repeat: they sum in a fixed order too.  The kbisect probes: max abs
 error <= 1e-5 of the plain output's max abs, bit-identical on repeat,
 exactly 0 where every station index is out of range.
 """
@@ -682,3 +683,48 @@ def test_kbisect_tool_matches_jax_values_on_the_card(cuda):
     for name, v in out.items():
         want = KBISECT_JAX_VALUES[name]
         assert abs(v["val"] - want) <= 1e-5 * abs(want), (name, v)
+
+
+def test_mode5_tile_bit_identical_and_launches_objective(cuda):
+    """A mode-5 tile (robust RTR EM, then the fused robust LBFGS) run
+    twice gives the same bits, and the objective kernels #3/#4 launch."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+    )
+    from sagecal_tpu_torch.solvers.sage import SageConfig, sagefit
+
+    data, cdata, p0 = _small_tile(cuda)
+    cfg = SageConfig(solver_mode=5, max_emiter=2, max_iter=3, max_lbfgs=6,
+                     use_fused_predict=True)
+    fused_cost_fwd_cuda.launches = 0
+    fused_cost_bwd_cuda.launches = 0
+    a = sagefit(data, cdata, p0, cfg, device=cuda)
+    assert fused_cost_fwd_cuda.launches > 0
+    assert fused_cost_bwd_cuda.launches > 0
+    b = sagefit(data, cdata, p0, cfg, device=cuda)
+    assert torch.equal(a.p, b.p) and torch.equal(a.res_1, b.res_1)
+    assert float(a.res_1) < float(a.res_0)
+
+
+def test_rtr_hessian_vector_product_bit_identical_on_repeat(cuda):
+    """The RTR gradient and Hessian-vector product sum per station in a
+    fixed order: no float atomics, the same bits on every call."""
+    from sagecal_tpu_torch.core.types import params_to_jones
+    from sagecal_tpu_torch.solvers.lm import NormalEqPlan
+    from sagecal_tpu_torch.solvers.rtr import _Fns
+
+    data, cdata, p0 = _small_tile(cuda, nstations=40, tilesz=30)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = params_to_jones(p0[0] + 0.05 * torch.randn(
+        p0[0].shape, device=cuda, generator=gen))
+    eta = params_to_jones(torch.randn(p0[0].shape, device=cuda,
+                                      generator=gen))
+    plan = NormalEqPlan(data.ant_p, data.ant_q, cdata.chunk_map[0], 1,
+                   p0.shape[-1] // 8)
+    first = None
+    for _ in range(4):
+        fns = _Fns(data.vis, cdata.coh[0], data.mask, plan)
+        out = (fns.grad(x), fns.hess(x, eta), fns.cost(x))
+        if first is None:
+            first = out
+        assert all(torch.equal(a, b) for a, b in zip(first, out))

@@ -232,3 +232,50 @@ def test_parity_problem_and_work_count_on_cpu():
     assert work["fwd"][0] == inputs + 4
     assert work["bwd"][0] == inputs + 4 * 2 * 4 * 6 * 6
     assert work["fwd"][1] == 128 * 3 * 2 * 150 + 40 * 2 * 150
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_tile_cost_problem_is_the_solves_joint_cost(nc):
+    """``tile_cost_problem`` packs a tile as ``sagefit``'s fused joint
+    cost does: at one solution its plain cost and gradient are the
+    solve's cost function's, bit for bit (CPU: both run the plain
+    version), Gaussian and robust."""
+    from sagecal_tpu_torch.core.types import jones_to_params, params_to_jones
+    from sagecal_tpu_torch.io.simulate import (
+        corrupt_and_observe, make_visdata, random_jones,
+    )
+    from sagecal_tpu_torch.kernels.parity import (
+        tile_cost_problem, value_and_grad,
+    )
+    from sagecal_tpu_torch.ops.rime import point_source_batch
+    from sagecal_tpu_torch.ops.rime_kernel import pack_gain_tables
+    from sagecal_tpu_torch.solvers.sage import (
+        _make_fused_joint_cost, build_cluster_data,
+    )
+
+    N, M = 6, 3
+    data = make_visdata(nstations=N, tilesz=4, nchan=2, seed=2, device="cpu")
+    clusters = [point_source_batch([0.01 * k], [-0.004 * k], [1.0 + k],
+                                   device="cpu") for k in range(M)]
+    data = corrupt_and_observe(data, clusters, noise_sigma=1e-2, seed=4,
+                               jones=random_jones(M, N, seed=5, device="cpu"))
+    cdata = build_cluster_data(data, clusters, [nc, 1, nc])
+    p = jones_to_params(random_jones(M * nc, N, seed=6, amp=0.2,
+                                     device="cpu")).reshape(M, nc, 8 * N)
+    prob = tile_cost_problem(data, cdata, p)
+    assert prob.nc == nc and tuple(prob.tab_re.shape) == (4, M * nc, N)
+    for nu in (None, 5.0):
+        cost_fn = _make_fused_joint_cost(data, cdata, M, nc, 8 * N,
+                                         nu is not None, nu)
+        x = p.reshape(-1).clone().requires_grad_(True)
+        want = cost_fn(x)
+        (g_want,) = torch.autograd.grad(want, x)
+        got, ga, gb = value_and_grad(prob, nu, plain=True)
+        assert float(got) == float(want.detach())
+        # the tables' gradient, taken back through the packing to p
+        y = p.reshape(-1).clone().requires_grad_(True)
+        jones = params_to_jones(y.reshape(M, nc, 8 * N))
+        tre, tim = pack_gain_tables(jones if nc > 1 else jones[:, 0], M)
+        (g_got,) = torch.autograd.grad(
+            (ga.detach() * tre).sum() + (gb.detach() * tim).sum(), y)
+        assert torch.equal(g_got, g_want)

@@ -118,13 +118,52 @@ def test_interop_round_trip(tile):
 
 
 def test_unported_options_refuse(tile):
+    """Only the A3 options (solver telemetry and quality outputs) are
+    still refused; RTR/NSD modes and param_bound run."""
     from sagecal_tpu_torch.solvers.sage import SageConfig
 
-    for kw in (dict(solver_mode=4), dict(solver_mode=6),
-               dict(param_bound=1.0), dict(collect_telemetry=True),
-               dict(collect_quality=True)):
+    for kw in (dict(collect_telemetry=True), dict(collect_quality=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_fit(tile[3], **dict(ENTRY_KW, max_emiter=1, **kw))
+    for kw in (dict(solver_mode=4), dict(solver_mode=6),
+               dict(param_bound=1.5)):
+        out = _port_fit(tile[3], **dict(ENTRY_KW, max_emiter=1, max_iter=2,
+                                        max_lbfgs=2, **kw))
+        assert float(out["res_1"]) < float(out["res_0"])
+    assert SageConfig().collect_quality is False
+
+
+def test_sagefit_packed_matches_jax_and_sagefit(tile):
+    """The real-array entry: the JAX package's ``sagefit_packed`` and the
+    port's agree to the 5e-3 bar; the port's is its own ``sagefit`` and
+    ``solve_tile`` bit for bit."""
+    from sagecal_tpu.solvers.sage import (
+        SageConfig as JCfg, sagefit_packed as jpacked,
+    )
+    from sagecal_tpu_torch.interop import result_to_numpy, tile_from_numpy
+    from sagecal_tpu_torch.solvers.sage import (
+        SageConfig, sagefit, sagefit_packed, solve_tile,
+    )
+
+    data, cdata, p0, arrays = tile
+    kw = dict(ENTRY_KW, max_emiter=2, solver_mode=1)
+    vis, coh = np.asarray(data.vis), np.asarray(cdata.coh)
+    want = jpacked(data.replace(vis=None), cdata._replace(coh=None),
+                   vis.real, vis.imag, coh.real, coh.imag, p0, JCfg(**kw))
+    td, tc, tp = tile_from_numpy(arrays, device="cpu")
+    got = sagefit_packed(td.replace(vis=None), tc.replace(coh=None),
+                         torch.from_numpy(vis.real.copy()),
+                         torch.from_numpy(vis.imag.copy()),
+                         torch.from_numpy(coh.real.copy()),
+                         torch.from_numpy(coh.imag.copy()), tp,
+                         SageConfig(**kw), device="cpu")
+    assert rel(got.res_1, want.res_1) <= RES_TOL
+    assert np.abs(to_np(got.p) - np.asarray(want.p)).max() <= P_ATOL
+    direct = sagefit(td, tc, tp, SageConfig(**kw), device="cpu")
+    tiled = solve_tile(td, tc, tp.numpy(), SageConfig(**kw), device="cpu")
+    for r in (direct, tiled):
+        assert torch.equal(r.p, got.p) and torch.equal(r.res_1, got.res_1)
+    assert set(result_to_numpy(got)) >= {"p", "res_0", "res_1"}
 
 
 def test_solve_tile_without_device_raises_when_cuda_absent(tile, monkeypatch):

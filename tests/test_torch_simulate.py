@@ -110,12 +110,14 @@ def test_load_sky_matches_jax(tmp_path):
 
 
 def test_shapelet_sky_refuses(tmp_path):
+    """An S-type source needs its ``.fits.modes`` file: without it
+    ``load_sky`` raises instead of predicting a point."""
     from sagecal_tpu_torch.io.skymodel import load_sky
 
     (tmp_path / "s.txt").write_text(
         "S1 0 0 0.0 51 30 0.0 2.0 0 0 0 0.0 0 1 1 0 150e6\n")
     (tmp_path / "s.cl").write_text("1 1 S1\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="S1.fits.modes"):
         load_sky(str(tmp_path / "s.txt"), str(tmp_path / "s.cl"), 0.0, 0.9,
                  device="cpu")
 

@@ -106,14 +106,22 @@ def test_predict_coherencies_matches_jax():
 
 
 def test_extended_sources_refuse_not_silently_point():
+    """Extended sources predict as themselves, never as points; a
+    shapelet member without its table is refused."""
     from sagecal_tpu_torch.ops import rime as tr
 
     src = tr.point_source_batch([0.0, 0.01], [0.0, 0.0], [1.0, 1.0],
                                 dtype=torch.float64, device="cpu")
-    src.stype = torch.tensor([tr.ST_POINT, tr.ST_GAUSSIAN], dtype=torch.int32)
-    u = torch.zeros(3, dtype=torch.float64)
+    u = torch.tensor([0.0, 1e-6, 3e-6], dtype=torch.float64)
     f = torch.tensor([150e6], dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    point = tr.predict_coherencies(u, u, u, f, src)
+    src.stype = torch.tensor([tr.ST_POINT, tr.ST_GAUSSIAN], dtype=torch.int32)
+    src.ex_a = torch.tensor([0.0, 1e-3], dtype=torch.float64)
+    src.ex_b = src.ex_a
+    gauss = tr.predict_coherencies(u, u, u, f, src)
+    assert float((gauss - point).abs().max()) > 1e-3
+    src.stype = torch.tensor([tr.ST_POINT, tr.ST_SHAPELET], dtype=torch.int32)
+    with pytest.raises(ValueError, match="ShapeletTable"):
         tr.predict_coherencies(u, u, u, f, src)
 
 
