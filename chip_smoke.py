@@ -71,14 +71,36 @@ each printing lines of its own; any failure exits non-zero:
             ``sagefit_packed_batch``: #5/#6 launched, every lane res_1 <
             res_0.  Each solve's wall, EM and LBFGS seconds, the RTR/NSD
             host syncs per cluster solve and peak device memory;
-7. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
+7. fullbatch the fullbatch app, through the CLI's parser and config
+            (``-j 3 -e 1 -g 6 -l 10 -t 60 --f32 --fused``) and
+            ``run_fullbatch`` on an in-memory ``vis.h5``
+            (``io/memh5.py::MemFile``; the card's machine has no h5py)
+            made by the port's ``create_dataset``/``simulate_dataset``:
+            two tiles of the north-star geometry, phase 4's 100-cluster
+            sky under true gains, noise 1e-3.  Checks: two solution
+            intervals, res_1 < res_0 on each tile, #3/#4 launched in each
+            tile's solve and #1 exactly once in its residual step (counts
+            set to 0 before each tile, read at its closing log line), the
+            residual column equal to ``vis - predict_full_model`` on the
+            tile's gains within 1e-5 of its max abs, a second run
+            bit-identical; ``-a 1`` from the solutions file launches #1
+            once a tile and writes the model.  Then telemetry off and on,
+            on the warm phase's 8-cluster sky: ``solve_tile`` in mode 5
+            bit-identical in p and res_1, with the same #3/#4 launches and
+            no more RTR host reads; the app over one tile with
+            SAGECAL_TELEMETRY 0 and 1, the same results and residual
+            column, and an event log with ``cluster_convergence`` and
+            ``solve_quality``.  Per tile it prints the app's phase seconds
+            and launches, EM/LBFGS seconds and host reads with telemetry
+            off and on, and peak device memory;
+8. predict  ``tools/profile_kernel.py``'s profile at the same tile: the
             fused predict, the composed robust cost on it, its gradient
             and a 20-iteration LBFGS that must lower the cost; kernels #1
             and #2 must launch (counts set to 0 just before; the launches
             the LBFGS itself made are the path's count); then
             ``kdiag.py``'s three rungs for kernel #1, on the device alone
             and host-paced;
-8. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
+9. bisect   ``tools/kbisect.py``, the port of ``kbisect.py``: ``run`` of
             variants c b a d e f on the card (counts set to 0 just
             before): every variant prints ok, each value within 1e-5
             relative of the JAX package's (``KBISECT_JAX_VALUES``), the
@@ -98,14 +120,14 @@ each printing lines of its own; any failure exits non-zero:
             computing the same function); a and f also in each form of
             their launch (two launches, each of them alone, one launch),
             beside the launch floor (an empty launch on the device alone);
-9. times    phase wall times, each solo kernel's time from CUDA events
+10. times   phase wall times, each solo kernel's time from CUDA events
             over many launches beside its bound and the plain version's
             time (#4 and #2 with the tile's station plan built once, as
             the solve does, and split on the device alone into their
             kernels: #4 cotangent, gradient and sum, #2 gradient and sum),
             and peak device memory, each beside the card's name and power
             limit;
-10. serve   the batched serve solve of one bucket of 8 requests, each a
+11. serve   the batched serve solve of one bucket of 8 requests, each a
             north-star-geometry tile (62 stations, 113,460 rows) with its
             own LSM sky of 8 point clusters and its own true gains:
             batched kernels #5/#6 against their plain version at that
@@ -125,7 +147,7 @@ each printing lines of its own; any failure exits non-zero:
             the batched kernels' times beside their bounds (#6 on one
             station plan for the bucket, split into its cotangent,
             gradient and sum kernels on the device alone), and the plan
-            build times of phases 3 and 10.
+            build times of phases 3 and 11.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -140,6 +162,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -177,6 +200,13 @@ EXT_BOUND = 1.5  # param_bound of the LBFGS-B solve (mode 3)
 # the extended bucket: B lanes in mode 5, at the serve phase's max_iter
 # and one EM pass (cut depth; the width is the north-star tile's)
 EXT_BUCKET_MAX_EMITER, EXT_BUCKET_MAX_ITER = 1, SERVE_MAX_ITER
+# the fullbatch app: two tiles of the north-star geometry through the
+# CLI's flags; telemetry off/on in robust RTR (the mode with counted host
+# reads) on the warm phase's sky
+FB_NTIME = 2 * TILESZ
+FB_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
+            "-t", str(TILESZ))
+FB_TEL_MODE = 5
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -894,8 +924,295 @@ def extended_bucket(data, cdata, p0, clusters, tab):
             "launches": launches, "res_0": r0.tolist(), "res_1": r1.tolist()}
 
 
+def fullbatch_dataset(dirname: str, nclusters: int, ntime: int, name: str):
+    """An in-memory ``vis.h5`` (``io/memh5.py::MemFile``) at the
+    north-star geometry, ``ntime`` timeslots x NCHAN channels, made by
+    the port's ``simulate_dataset`` from ``write_sky``'s LSM sky of
+    ``nclusters`` point clusters under true gains, noise 1e-3; its phase
+    centre set to the sky's.  Returns (path, sky file, cluster file)."""
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    sky, clus = write_sky(dirname, nclusters=nclusters, name=name)
+    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
+    truth = random_jones(nclusters, NSTATIONS, seed=3, amp=0.2,
+                         dtype=np.complex128)
+    path = os.path.join(dirname, f"{name}.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=ntime, nchan=NCHAN,
+                     clusters=clusters, jones=truth, noise_sigma=1e-3, seed=0,
+                     dec0=DEC0, open_file=MemFile)
+    MemFile(path, "r+").attrs["ra0"] = RA0
+    return path, sky, clus
+
+
+class TileLog:
+    """The app's ``log``: prints each line, and at each tile's closing
+    line reads the kernels' launch counts of that tile (solve, residual
+    or simulation) and its phase seconds, then sets the counts to 0."""
+
+    def __init__(self):
+        from sagecal_tpu_torch.ops import rime_kernel as rk
+
+        self.kernels = {"fused_cost_fwd": rk.fused_cost_fwd_cuda,
+                        "fused_cost_bwd": rk.fused_cost_bwd_cuda,
+                        "fused_predict_fwd": rk.fused_predict_fwd_cuda}
+        self.tiles = []
+        self.reset()
+
+    def reset(self):
+        for k in self.kernels.values():
+            k.launches = 0
+
+    def __call__(self, msg: str):
+        print(f"[fullbatch] {msg}", flush=True)
+        if re.match(r"tile \d+: (residual|simulated)", msg):
+            phases = {k: float(v) for k, v in
+                      re.findall(r"([\w+-]+)=([0-9.]+)s", msg)}
+            self.tiles.append({
+                "launches": {k: c.launches for k, c in self.kernels.items()},
+                "phase_s": phases})
+            self.reset()
+
+
+def fullbatch_cli(path: str, sky: str, clus: str, sol: str, extra=(),
+                  log=None):
+    """The CLI's path: ``apps.cli``'s parser and config, then
+    ``run_fullbatch`` on the CUDA device over the in-memory file."""
+    from sagecal_tpu_torch.apps.cli import (
+        _warn_dropped_fused, build_parser, config_from_args,
+    )
+    from sagecal_tpu_torch.apps.fullbatch import run_fullbatch
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    args = build_parser().parse_args(["-d", path, "-s", sky, "-c", clus, "-p",
+                                      sol, *FB_FLAGS, *extra])
+    _warn_dropped_fused(args, log or print)
+    return run_fullbatch(config_from_args(args), log=log or print,
+                         open_file=MemFile)
+
+
+def fullbatch_check(run: dict, seen: list, sol: str) -> list:
+    """One app run's checks (module doc, phase 7): two solution
+    intervals, res_1 < res_0 and the kernels' launches per tile, and each
+    tile's residual column against ``vis - predict_full_model`` on the
+    tile's data, coherencies and gains as the residual step got them
+    (``seen``)."""
+    from sagecal_tpu_torch.core.types import params_to_jones
+    from sagecal_tpu_torch.io.solutions import read_solutions
+    from sagecal_tpu_torch.solvers.sage import predict_full_model
+
+    meta, jsol = read_solutions(sol)
+    ntiles = FB_NTIME // TILESZ
+    print(f"[fullbatch] solutions file: {jsol.shape[0]} intervals of "
+          f"{meta['nclus_eff']} columns", flush=True)
+    if jsol.shape != (ntiles, NCLUSTERS, NSTATIONS, 2, 2):
+        fail(f"fullbatch: solutions file holds {jsol.shape}")
+    if len(run["results"]) != ntiles or len(seen) != ntiles:
+        fail(f"fullbatch: {len(run['results'])} tiles solved")
+    for i, ((r0, r1), tile) in enumerate(zip(run["results"], run["tiles"])):
+        n = tile["launches"]
+        if not (np.isfinite(r1) and r1 < r0):
+            fail(f"fullbatch tile {i}: res_1 {r1} not below res_0 {r0}")
+        if n["fused_cost_fwd"] <= 0 or n["fused_cost_bwd"] <= 0:
+            fail(f"fullbatch tile {i}: objective kernels not launched: {n}")
+        if n["fused_predict_fwd"] != 1:
+            fail(f"fullbatch tile {i}: kernel #1 launched "
+                 f"{n['fused_predict_fwd']} times in the residual step")
+    worst = []
+    for i, (full, cdata_full, p) in enumerate(seen):
+        with torch.no_grad():
+            ref = full.vis - predict_full_model(p, cdata_full, full)
+        rows = ref.shape[-1]
+        got = torch.as_tensor(run["column"][i * TILESZ:(i + 1) * TILESZ]).to(
+            ref.device).reshape(rows, NCHAN, 4).permute(1, 2, 0)
+        err = float((got.to(ref.dtype) - ref).abs().max())
+        ref_max = float(ref.abs().max())
+        jt = params_to_jones(p).reshape(jsol.shape[1:]).cpu().numpy()
+        file_rel = float(np.abs(jsol[i] - jt).max() / np.abs(jt).max())
+        worst.append({"max_abs_err": err, "ref_max_abs": ref_max,
+                      "solutions_file_rel": file_rel})
+        print(f"[fullbatch] tile {i}: residual column vs vis - "
+              f"predict_full_model max abs error {err:.3e} of max abs "
+              f"{ref_max:.3e}; solutions file vs the gains rel {file_rel:.1e}",
+              flush=True)
+        if not err <= MODEL_TOL * ref_max:
+            fail(f"fullbatch tile {i}: residual column off by {err}")
+        if not file_rel <= 1e-6:
+            fail(f"fullbatch tile {i}: solutions file off by {file_rel}")
+    return worst
+
+
+def phase_fullbatch(args, dirname: str):
+    """The fullbatch app (module doc, phase 7)."""
+    import sagecal_tpu_torch.apps.fullbatch as fb
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+
+    t_start = sync_clock()
+    t = sync_clock()
+    path, sky, clus = fullbatch_dataset(dirname, NCLUSTERS, FB_NTIME, "fb")
+    make_s = sync_clock() - t
+    print(f"[fullbatch] {FB_NTIME // TILESZ} tiles of {ROWS} rows, "
+          f"{NCLUSTERS} clusters, made in {make_s:.1f} s; flags "
+          f"{' '.join(FB_FLAGS)}", flush=True)
+    out = {"dataset_s": make_s}
+    # the residual step's inputs, kept to recompute each tile's residual
+    seen = []
+    real = fb.calculate_residuals
+
+    def spy(full, cdata_full, p, **kw):
+        seen.append((full, cdata_full, p))
+        return real(full, cdata_full, p, **kw)
+
+    sol = os.path.join(dirname, "fb.solutions")
+    runs = []
+    for k in range(2):
+        log = TileLog()
+        fb.calculate_residuals = spy if k == 0 else real
+        torch.cuda.reset_peak_memory_stats()
+        t = sync_clock()
+        try:
+            results = fullbatch_cli(path, sky, clus, sol, log=log)
+        finally:
+            fb.calculate_residuals = real
+        wall = sync_clock() - t
+        runs.append({"results": results, "tiles": log.tiles, "wall_s": wall,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "solutions": open(sol).read(),
+                     "column": np.asarray(MemFile(path, "r")["corrected"])})
+        print(f"[fullbatch] run {k + 1}: {wall:.1f} s, peak device memory "
+              f"{runs[-1]['peak_bytes'] / 2**30:.2f} GiB; launches per tile "
+              f"{[tile['launches'] for tile in log.tiles]}", flush=True)
+        if k == 0:
+            out["residual"] = fullbatch_check(runs[0], seen, sol)
+            seen.clear()  # frees the tiles before the second run
+    a, b = runs
+    same = (a["results"] == b["results"] and a["solutions"] == b["solutions"]
+            and np.array_equal(a["column"], b["column"]))
+    print(f"[fullbatch] second run bit-identical (res, solutions file, "
+          f"residual column): {same}", flush=True)
+    if not same:
+        fail("fullbatch: a second run gave different bits")
+
+    # -a 1: the model of the solutions just written, through #1
+    log = TileLog()
+    t = sync_clock()
+    sim = fullbatch_cli(path, sky, clus, sol + ".sim",
+                        extra=("-a", "1", "-q", sol), log=log)
+    sim_s = sync_clock() - t
+    vis = np.asarray(MemFile(path, "r")["vis"])
+    model = np.asarray(MemFile(path, "r")["model"])
+    want = vis - a["column"]
+    sim_err = float(np.abs(model - want).max() / np.abs(want).max())
+    sim_launches = [tile["launches"]["fused_predict_fwd"]
+                    for tile in log.tiles]
+    print(f"[fullbatch] -a 1 simulation: {sim_s:.1f} s, kernel #1 launches "
+          f"per tile {sim_launches}, model column vs vis - residual column "
+          f"rel {sim_err:.2e}", flush=True)
+    if sim != [] or sim_launches != [1] * (FB_NTIME // TILESZ):
+        fail(f"fullbatch -a 1: launches {sim_launches}")
+    if not sim_err <= MODEL_TOL:
+        fail(f"fullbatch -a 1: model column off by {sim_err}")
+    remove(path)
+    out.update(runs=[{k: r[k] for k in ("results", "tiles", "wall_s",
+                                        "peak_bytes")} for r in runs],
+               bitwise=same,
+               simulation={"seconds": sim_s, "launches": sim_launches,
+                           "rel": sim_err},
+               telemetry=fullbatch_telemetry(args, dirname))
+    out["seconds"] = sync_clock() - t_start
+    print(f"[fullbatch] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def fullbatch_telemetry(args, dirname: str):
+    """Telemetry off and on: one tile of the warm phase's 8-cluster sky
+    solved by ``solve_tile`` in mode FB_TEL_MODE (robust RTR, fused) with
+    ``collect_telemetry``/``collect_quality`` off, then on (bit-identical
+    p and res_1, the same objective launches, no more RTR host reads),
+    and the app over one tile of it with SAGECAL_TELEMETRY unset, then 1
+    (the same results and residual column; an event log holding
+    ``cluster_convergence`` and ``solve_quality``)."""
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.obs.events import read_events, validate_manifest
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+    from sagecal_tpu_torch.solvers import rtr
+    from sagecal_tpu_torch.solvers.sage import solve_tile
+
+    data, cdata, p0, _ = main_tile(dirname, WARM_CLUSTERS)
+    cfg = main_config(args).replace(solver_mode=FB_TEL_MODE)
+    rec, res = {}, {}
+    for on in (False, True):
+        rk.fused_cost_fwd_cuda.launches = 0
+        rk.fused_cost_bwd_cuda.launches = 0
+        rtr.host_read.count = 0
+        res[on] = solve_tile(data, cdata, p0, cfg.replace(
+            collect_telemetry=on, collect_quality=on))
+        rec["on" if on else "off"] = {
+            "em_s": res[on].phase_seconds["em"],
+            "lbfgs_s": res[on].phase_seconds["lbfgs"],
+            "rtr_host_reads": rtr.host_read.count,
+            "launches": [rk.fused_cost_fwd_cuda.launches,
+                         rk.fused_cost_bwd_cuda.launches]}
+    off, on = rec["off"], rec["on"]
+    same = bitwise(res[False], res[True])
+    nrec = len(res[True].telemetry["em"])
+    print(f"[fullbatch] telemetry off/on, mode {FB_TEL_MODE}, "
+          f"{WARM_CLUSTERS} clusters: EM {off['em_s']:.3f}/{on['em_s']:.3f} "
+          f"s, LBFGS {off['lbfgs_s']:.3f}/{on['lbfgs_s']:.3f} s, "
+          f"rtr.host_read.count {off['rtr_host_reads']}/"
+          f"{on['rtr_host_reads']}, #3/#4 launches {off['launches']}/"
+          f"{on['launches']}; p and res_1 bit-identical {same}; {nrec} EM "
+          f"traces", flush=True)
+    if not same:
+        fail("fullbatch telemetry: p or res_1 changed with telemetry on")
+    if on["rtr_host_reads"] > off["rtr_host_reads"]:
+        fail("fullbatch telemetry: more host reads with telemetry on")
+    if on["launches"] != off["launches"] or min(on["launches"]) <= 0:
+        fail(f"fullbatch telemetry: launches {off['launches']} vs "
+             f"{on['launches']}")
+    del data, cdata, res
+
+    path, sky, clus = fullbatch_dataset(dirname, WARM_CLUSTERS, TILESZ, "tel")
+    events = os.path.join(dirname, "events.jsonl")
+    app = {}
+    for flag in ("0", "1"):
+        os.environ["SAGECAL_TELEMETRY"] = flag
+        os.environ["SAGECAL_EVENT_LOG"] = events
+        try:
+            results = fullbatch_cli(path, sky, clus,
+                                    os.path.join(dirname, "tel.solutions"),
+                                    log=lambda msg: None)
+        finally:
+            del os.environ["SAGECAL_TELEMETRY"], os.environ["SAGECAL_EVENT_LOG"]
+        app[flag] = (results, np.asarray(MemFile(path, "r")["corrected"]))
+    remove(path)
+    kinds = [e["type"] for e in read_events(events)]
+    manifest = read_events(events)[0]
+    app_same = (app["0"][0] == app["1"][0]
+                and np.array_equal(app["0"][1], app["1"][1]))
+    counts = {k: kinds.count(k) for k in ("run_manifest", "cluster_convergence",
+                                          "solve_quality", "tile_done",
+                                          "run_done")}
+    print(f"[fullbatch] app, SAGECAL_TELEMETRY 0/1: results and residual "
+          f"column bit-identical {app_same}; event log {counts}, manifest "
+          f"problems {validate_manifest(manifest)}, device_kind "
+          f"{manifest.get('device_kind')!r}, kernel_path "
+          f"{manifest.get('kernel_path')!r}", flush=True)
+    if not app_same:
+        fail("fullbatch telemetry: the app's results changed with telemetry")
+    if (counts["cluster_convergence"] < WARM_CLUSTERS
+            or counts["solve_quality"] < 1 or counts["run_done"] != 1):
+        fail(f"fullbatch telemetry: event log {counts}")
+    if validate_manifest(manifest) or manifest.get("platform") != "gpu":
+        fail(f"fullbatch telemetry: manifest {manifest}")
+    return {"solve": rec, "bitwise": same, "app_bitwise": app_same,
+            "events": counts}
+
+
 def phase_predict(data, cdata, p0, card: str):
-    """The predict path: ``tools/profile_kernel``'s profile (phase 7)."""
+    """The predict path: ``tools/profile_kernel``'s profile (phase 8)."""
     from sagecal_tpu_torch.ops.rime_kernel import (
         fused_predict_bwd_cuda, fused_predict_fwd_cuda,
     )
@@ -1051,7 +1368,7 @@ def bisect_times():
 
 
 def phase_bisect(card: str):
-    """The kbisect tool on the card (module doc, phase 8)."""
+    """The kbisect tool on the card (module doc, phase 9)."""
     t = time.perf_counter()
     vals, launches = bisect_run()
     worst = bisect_parity()
@@ -1281,7 +1598,7 @@ def serve_solve(reqs, idx, config, valid=None, fused=True):
 
 
 def phase_serve(dirname: str):
-    """The batched serve solve of one bucket (module doc, phase 10)."""
+    """The batched serve solve of one bucket (module doc, phase 11)."""
     from sagecal_tpu_torch.serve import bucket_of, pad_indices
     from sagecal_tpu_torch.solvers.batched import (
         choose_batched_path, derive_lane_generators, stack_lanes,
@@ -1441,7 +1758,10 @@ def serve_times():
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--max-emiter", type=int, default=2)
-    ap.add_argument("--max-iter", type=int, default=6)
+    # 4, not 6, since the fullbatch phase joined: the script stays near
+    # 330 s on the H100 (the main, warm, extended and telemetry solves
+    # run at this depth)
+    ap.add_argument("--max-iter", type=int, default=4)
     ap.add_argument("--max-lbfgs", type=int, default=10)
     ap.add_argument("--json-out", default=None,
                     help="also write every number printed to this file")
@@ -1470,6 +1790,8 @@ def main():
         warm_out = phase_warm(args, d)
     with tempfile.TemporaryDirectory() as d:
         ext_out = phase_extended(args, d)
+    with tempfile.TemporaryDirectory() as d:
+        fb_out = phase_fullbatch(args, d)
     for k, v in ext_out["parity"]["worst"].items():
         worst[k] = max(worst[k], v)
     pred_out = phase_predict(data, cdata, p0, card)
@@ -1539,7 +1861,7 @@ def main():
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
-                       "extended": ext_out,
+                       "extended": ext_out, "fullbatch": fb_out,
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "times": times, "kernels": kernels,

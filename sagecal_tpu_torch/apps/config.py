@@ -1,0 +1,111 @@
+"""Run configuration of the fullbatch app (counterpart of
+``sagecal_tpu/apps/config.py::RunConfig``): the same fields and defaults
+as the reference, ``use_f64=True`` and ``use_fused_predict=False``
+included.  Field names follow the reference's single-letter flags (see
+``cli.py``).  Fields whose feature the port has not reached yet are
+kept, and ``apps/fullbatch.py`` refuses them by name.  The other config
+dataclasses of that module belong to the apps of ROADMAP.md's A7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from sagecal_tpu_torch.solvers.sage import SM_OSLM_OSRLM_RLBFGS
+
+
+@dataclasses.dataclass
+class RunConfig:
+    # data / sky
+    dataset: str = ""  # -d
+    sky_model: str = ""  # -s
+    cluster_file: str = ""  # -F is format in ref; here explicit path
+    out_solutions: str = "solutions.txt"  # -p
+    init_solutions: Optional[str] = None  # -q warm start
+    tilesz: int = 120  # -t
+    # solver (defaults per user_manual.rst:32-58 / data.cpp)
+    max_emiter: int = 3  # -e
+    max_iter: int = 2  # -g
+    max_lbfgs: int = 10  # -l
+    lbfgs_m: int = 7  # -m
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS  # -j
+    nulow: float = 2.0
+    nuhigh: float = 30.0
+    randomize: bool = True  # -R
+    min_uvcut: float = 0.0  # -x
+    max_uvcut: float = 1e20  # -y
+    whiten: bool = False  # -W
+    # simulation (-a) / correction (-E)
+    simulation_mode: int = 0  # 0 calibrate; 1/2/3 = SIMUL_ONLY/ADD/SUB
+    ignore_clusters_file: Optional[str] = None  # -z
+    ccid: Optional[int] = None  # -E cluster id to correct residuals by
+    correction_rho: float = 1e-9
+    phase_only_correction: bool = False
+    # stochastic modes
+    epochs: int = 0  # -N  (>0 selects minibatch mode)
+    minibatches: int = 1  # -M
+    in_column: str = "vis"  # -I input column (data.h DataField)
+    out_column: str = "corrected"  # --out-column (ref -O OutField)
+    sky_format: int = -1  # -F: -1 auto, 0 LSM, 1 three-term spectra
+    bands: int = 1  # -w mini-bands
+    admm_iters: int = 0  # -A (>0 with bands>1 selects consensus)
+    npoly: int = 2  # -P
+    poly_type: int = 2  # -Q (POLY_* in parallel.consensus)
+    admm_rho: float = 5.0  # -r
+    # consensus-layer scaling knobs (parallel/consensus.ConsensusConfig
+    # on the mesh path; parallel/async_consensus on the host minibatch
+    # loop — see USER_MANUAL "Scaling ADMM"):
+    # zstep "reduced" = transpose-reduced Z-step (basis-sized Gram
+    # collectives instead of full-solution psums, arXiv:1504.02147)
+    consensus_zstep: str = "grouped"
+    # >1 splits each x-step below band granularity into this many
+    # cluster factor-node groups (arXiv:1603.02526)
+    consensus_cluster_groups: int = 1
+    # >0 allows bands to contribute Gram terms up to this many rounds
+    # stale (rho-discounted by consensus_staleness_discount per round);
+    # 0 = fully synchronous rounds
+    consensus_staleness: int = 0
+    consensus_staleness_discount: float = 1.0
+    # beam (-B: 0 none, 1 array, 2 array+element, 3 element, 4/5/6 the
+    # same per-channel/wideband — main.cpp DOBEAM_* codes)
+    beam_mode: int = 0
+    element_coeffs: Optional[str] = None  # element-coefficient table file
+    # per-channel re-fit after the averaged solve (-b, doChan;
+    # fullbatch_mode.cpp:453-499)
+    per_channel: bool = False
+    # joint-LBFGS cost through the fused-objective CUDA kernels (f32 only)
+    use_fused_predict: bool = False
+    # coherency-stack storage dtype on the fused path: "f32" (default)
+    # or "bf16" (halved HBM stream, f32 accumulation — ~3 significant
+    # digits of coherency precision; the quality watchdog validates the
+    # solves it produces and its events carry the active coh_dtype)
+    coh_dtype: str = "f32"
+    # per-cluster ADMM rho / spatial alpha file (-G, read_arho_fromfile)
+    rho_file: Optional[str] = None
+    # partial reruns: skip first K tiles, process at most T tiles
+    # (-K/-T, MPI/main.cpp:133-139)
+    skip_tiles: int = 0
+    max_tiles: int = 0  # 0 = no limit
+    # divergence guard (fullbatch_mode.cpp:250,618-632)
+    res_ratio: float = 5.0
+    # quality watchdog escalation: report-only by default; True makes a
+    # diverged solve (non-finite gains/chi^2, residual-ratio blowup,
+    # ADMM consensus runaway) terminate the run with a structured
+    # run_aborted event (obs/quality.py DivergenceAbort)
+    abort_on_divergence: bool = False
+    # influence-function diagnostics in place of residuals (-i,
+    # diagnostics.c / fullbatch_mode.cpp:526-534)
+    influence: bool = False
+    # elastic execution (sagecal_tpu/elastic/): checkpoint_every > 0
+    # writes an atomic solver-state checkpoint every that many tile
+    # boundaries; resume restarts from the newest valid checkpoint
+    # (deriving the effective skip count, truncating any torn trailing
+    # solution interval, warm-starting the gains).  checkpoint_dir
+    # defaults to "<out_solutions>.ckpt".
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    # precision
+    use_f64: bool = True
+    verbose: bool = False  # -V

@@ -1,0 +1,331 @@
+"""Fullbatch calibration driver: the ``sagecal`` main path (counterpart of
+``sagecal_tpu/apps/fullbatch.py``).
+
+Per tile: load -> cluster coherencies -> SAGE solve -> solutions file ->
+residuals -> divergence guard, or with ``simulation_mode`` the model,
+added to or subtracted from the data.  The reference runs its host
+stages under a CPU default device and ships each solve to the
+accelerator; here one device (:func:`run_fullbatch`'s ``device``) holds
+everything: coherencies of the averaged and the full-channel views, the
+solve, the residuals (the fused predict #1 on float32 data), simulation,
+and the gains carried from tile to tile.  The host gets a copy only of
+what it writes (the solutions and the residual or model column), of the
+one ``res_0``/``res_1`` read per tile that the divergence guard needs,
+and, when telemetry or ``abort_on_divergence`` asks for it, of the
+quality bundle the watchdog assesses.
+
+The tile reader is :class:`io.dataset.TilePrefetcher`: its thread loads
+the next tile as CPU tensors while this one is solved; this thread moves
+them to the device, so every CUDA operation runs here in a fixed order.
+OS-LM subsets come from a ``torch.Generator`` per tile derived from
+``(0, tile_no)`` where the reference folds the tile number into a JAX
+key chain.
+
+Options that need a module the port does not have yet raise
+NotImplementedError naming their ROADMAP.md item (:func:`_refuse`).
+The reference's crash handlers, flight recorder and span tracer are not
+flag-driven; they wait for A11.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sagecal_tpu_torch.apps.config import RunConfig
+from sagecal_tpu_torch.core.types import (
+    identity_jones, jones_to_params, params_to_jones,
+)
+from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.io import solutions as solio
+from sagecal_tpu_torch.io.dataset import TilePrefetcher, VisDataset
+from sagecal_tpu_torch.io.skymodel import load_sky
+from sagecal_tpu_torch.obs.events import RunManifest, default_event_log
+from sagecal_tpu_torch.obs.quality import abort_if_diverged, check_and_emit
+from sagecal_tpu_torch.obs.records import sage_convergence_records
+from sagecal_tpu_torch.obs.registry import get_registry, telemetry_enabled
+from sagecal_tpu_torch.ops.residual import (
+    calculate_residuals, simulate_visibilities,
+)
+from sagecal_tpu_torch.solvers.batched import derive_lane_generators
+from sagecal_tpu_torch.solvers.robust import whiten_uv_weights
+from sagecal_tpu_torch.solvers.sage import (
+    SageConfig, build_cluster_data, solve_tile,
+)
+from sagecal_tpu_torch.utils.profiling import PhaseTimer
+
+_FALSY = ("", "0", "false", "no", "off")
+
+
+def _refuse(cfg: RunConfig) -> None:
+    """NotImplementedError for every option whose module is not ported,
+    naming its ROADMAP.md item."""
+    unported = (
+        (cfg.beam_mode, "beam_mode (-B) needs ops/beam.py (ROADMAP.md, A6)"),
+        (cfg.per_channel, "per_channel (-b) needs solvers/batchmode.py "
+                          "(ROADMAP.md, A6)"),
+        (cfg.influence, "influence (-i) needs ops/diagnostics.py "
+                        "(ROADMAP.md, A6)"),
+        (cfg.resume or cfg.checkpoint_every > 0,
+         "resume / checkpoint_every need elastic/checkpoint.py "
+         "(ROADMAP.md, A9)"),
+    )
+    for on, what in unported:
+        if on:
+            raise NotImplementedError(f"not ported yet: {what}")
+    for var in ("SAGECAL_PROFILE_DIR", "SAGECAL_TRANSFER_AUDIT",
+                "SAGECAL_CHECKIFY"):
+        if os.environ.get(var, "").strip().lower() not in _FALSY:
+            raise NotImplementedError(
+                f"not ported yet: {var} (obs/ profiling, transfer audit "
+                f"and contracts, ROADMAP.md, A11)")
+
+
+def _load_ignore_list(path: Optional[str], cdefs) -> list:
+    if not path:
+        return []
+    with open(path) as f:
+        ids = {int(tok) for line in f for tok in line.split()
+               if not line.strip().startswith("#") and tok.strip()}
+    return [i for i, cd in enumerate(cdefs) if cd.cluster_id in ids]
+
+
+def _resolve_ccid(ccid: Optional[int], cdefs) -> Optional[int]:
+    """Reference cluster id (-k) -> cluster array index."""
+    if ccid is None:
+        return None
+    for i, cd in enumerate(cdefs):
+        if cd.cluster_id == ccid:
+            return i
+    return None
+
+
+def _mat_of_flat(x: torch.Tensor) -> np.ndarray:
+    """Flat (F, 4, rows) -> host (rows, F, 2, 2), the on-disk layout."""
+    F, _, rows = x.shape
+    return x.permute(2, 0, 1).reshape(rows, F, 2, 2).cpu().numpy()
+
+
+def _params_of(jones_np, M: int, nchunk_max: int, N: int, cdtype, dev):
+    """One solution interval (K, N, 2, 2) -> p (M, nchunk_max, 8N)."""
+    j = torch.as_tensor(jones_np).to(cdtype).to(dev)
+    return jones_to_params(j).reshape(M, nchunk_max, 8 * N)
+
+
+def run_fullbatch(cfg: RunConfig, log=print, device=None,
+                  open_file=None) -> list:
+    """Calibrate (or simulate) every tile of ``cfg.dataset`` on ``device``
+    (CUDA unless ``device="cpu"``).  ``open_file``: the dataset opener
+    (``io.dataset``; None: ``h5py.File``).  Returns the per-tile
+    (res_0, res_1) list."""
+    _refuse(cfg)
+    dev = resolve_device(device)
+    rdt = torch.float64 if cfg.use_f64 else torch.float32
+    cdtype = torch.complex128 if cfg.use_f64 else torch.complex64
+    ds = VisDataset(cfg.dataset, "r+", open_file)
+    meta = ds.meta
+    clusters, cdefs, shapelets = load_sky(
+        cfg.sky_model, cfg.cluster_file, meta.ra0, meta.dec0, dtype=rdt,
+        three_term_spectra=None if cfg.sky_format < 0 else bool(cfg.sky_format),
+        device=dev)
+    M = len(clusters)
+    nchunks = [cd.nchunk for cd in cdefs]
+    nchunk_max = max(nchunks)
+    N = meta.nstations
+    ignore_idx = _load_ignore_list(cfg.ignore_clusters_file, cdefs)
+    ccid_index = _resolve_ccid(cfg.ccid, cdefs)
+
+    # initial solutions: identity, or the warm start (-q); simulation
+    # advances through the file's intervals tile by tile
+    jones_intervals = None
+    if cfg.init_solutions:
+        _, jones_intervals = solio.read_solutions(cfg.init_solutions)
+        p = _params_of(jones_intervals[0], M, nchunk_max, N, cdtype, dev)
+    else:
+        eye = jones_to_params(identity_jones(N, cdtype, device=dev))
+        p = eye.expand(M, nchunk_max, 8 * N).clone()
+    pinit = p
+
+    fused = cfg.use_fused_predict and not cfg.use_f64
+    scfg = SageConfig(
+        max_emiter=cfg.max_emiter, max_iter=cfg.max_iter,
+        max_lbfgs=cfg.max_lbfgs, lbfgs_m=cfg.lbfgs_m,
+        solver_mode=cfg.solver_mode, nulow=cfg.nulow, nuhigh=cfg.nuhigh,
+        randomize=cfg.randomize, use_fused_predict=fused,
+        coh_dtype=cfg.coh_dtype if fused else "f32",
+        collect_telemetry=telemetry_enabled(),
+        # quality feeds the watchdog: on when telemetry records it or the
+        # run must be able to abort
+        collect_quality=telemetry_enabled() or cfg.abort_on_divergence,
+    )
+    manifest = RunManifest.collect(
+        kernel_path="fused" if fused else "torch", device=dev,
+        x64_enabled=cfg.use_f64, app="fullbatch", dataset=cfg.dataset,
+        solver_mode=cfg.solver_mode, tilesz=cfg.tilesz, n_clusters=M,
+        n_stations=N, simulation_mode=cfg.simulation_mode,
+        coh_dtype=scfg.coh_dtype)
+    elog = default_event_log(manifest=manifest)
+
+    results = []
+    sol_fh = None
+    if cfg.simulation_mode == 0:
+        sol_fh = open(cfg.out_solutions, "w")
+        solio.write_header(sol_fh, meta.freq0, meta.deltaf,
+                           meta.deltat * cfg.tilesz / 60.0, N, M,
+                           M * nchunk_max)
+
+    def _cdata(dat, fdelta=None):
+        return build_cluster_data(dat, clusters, nchunks, fdelta=fdelta,
+                                  shapelets=shapelets)
+
+    timer = PhaseTimer()
+    # -K/-T partial reruns, resolved up front so the prefetcher reads
+    # exactly the tiles the loop consumes
+    pairs = [(i, t0) for i, t0 in enumerate(ds.tiles(cfg.tilesz))
+             if i >= cfg.skip_tiles]
+    if cfg.max_tiles:
+        pairs = pairs[:cfg.max_tiles]
+    load_kw = dict(min_uvcut=cfg.min_uvcut, max_uvcut=cfg.max_uvcut,
+                   dtype=np.float64 if cfg.use_f64 else np.float32,
+                   column=cfg.in_column)
+    specs = [dict(average_channels=False, **load_kw)]
+    if not cfg.simulation_mode:
+        specs.append(dict(average_channels=True, **load_kw))
+    prefetch_cm = TilePrefetcher(cfg.dataset, [t0 for _, t0 in pairs], specs,
+                                 cfg.tilesz, depth=1, open_file=open_file)
+    try:
+        prefetch = iter(prefetch_cm.__enter__())
+
+        def _prepare(t0):
+            """The next tile on the device with its coherencies."""
+            t0_chk, tiles = next(prefetch)
+            if t0_chk != t0:
+                raise RuntimeError(f"prefetch order mismatch: got tile "
+                                   f"{t0_chk}, expected {t0}")
+            full_ = tiles[0].to(dev)
+            data_ = None if cfg.simulation_mode else tiles[1].to(dev)
+            cdata_full_ = _cdata(full_, meta.deltaf / max(meta.nchan, 1))
+            cdata_ = None if cfg.simulation_mode else _cdata(data_)
+            return full_, data_, cdata_full_, cdata_
+
+        prepared = None
+        if pairs:
+            with timer.phase("load+coh"):
+                prepared = _prepare(pairs[0][1])
+        for pi, (tile_no, t0) in enumerate(pairs):
+            tic = time.time()
+            full, data, cdata_full, cdata = prepared
+
+            if cfg.simulation_mode:
+                # the model of the tile's own solution interval
+                psim = None
+                if jones_intervals is not None:
+                    ti = min(tile_no, jones_intervals.shape[0] - 1)
+                    psim = _params_of(jones_intervals[ti], M, nchunk_max, N,
+                                      cdtype, dev)
+                out_vis = simulate_visibilities(
+                    full, cdata_full, psim, mode=cfg.simulation_mode,
+                    ignore_clusters=ignore_idx, ccid_index=ccid_index,
+                    rho=cfg.correction_rho,
+                    phase_only=cfg.phase_only_correction)
+                if pi + 1 < len(pairs):
+                    with timer.phase("load+coh"):
+                        prepared = _prepare(pairs[pi + 1][1])
+                ds.write_tile(t0, _mat_of_flat(out_vis), column="model")
+                if elog is not None:
+                    elog.emit("tile_simulated", tile=t0,
+                              seconds=time.time() - tic,
+                              phase_seconds=timer.tile_timings())
+                log(f"tile {t0}: simulated ({time.time() - tic:.1f}s)")
+                continue
+
+            if cfg.whiten:
+                wts = torch.sqrt(whiten_uv_weights(data.u, data.v,
+                                                   meta.freq0))
+                data = data.replace(vis=data.vis * wts[None, None, :],
+                                    mask=data.mask * (wts[None, :] > 0))
+            with timer.phase("solve"):
+                out = solve_tile(data, cdata, p, scfg,
+                                 derive_lane_generators(0, [tile_no])[0],
+                                 device=dev)
+            if pi + 1 < len(pairs):
+                with timer.phase("load+coh"):
+                    prepared = _prepare(pairs[pi + 1][1])
+            with timer.phase("solve-wait"):  # one read: res_0, res_1, nu
+                res0, res1, mean_nu = torch.stack(
+                    [out.res_0, out.res_1,
+                     out.mean_nu.to(out.res_0.dtype)]).tolist()
+            # divergence guard: reset to the initial gains
+            diverged = (not np.isfinite(res1) or res1 == 0.0
+                        or res1 > cfg.res_ratio * res0)
+            p = pinit if diverged else out.p
+            if diverged:
+                log(f"tile {t0}: diverged ({res0:.3e} -> {res1:.3e}), reset")
+
+            # quality watchdog, joined by the residual-ratio guard
+            q_verdict, q_reasons = "ok", []
+            if out.quality is not None:
+                q_verdict, q_reasons = check_and_emit(
+                    elog, out.quality, log=log, tile=t0, app="fullbatch",
+                    coh_dtype=scfg.coh_dtype)
+            if diverged:
+                why = f"residual_ratio:{res0:.3e}->{res1:.3e}"
+                if q_verdict != "diverged" and elog is not None:
+                    elog.emit("solver_diverged", reasons=[why], tile=t0,
+                              app="fullbatch")
+                q_verdict, q_reasons = "diverged", q_reasons + [why]
+            if cfg.abort_on_divergence:
+                abort_if_diverged(elog, q_verdict, q_reasons, tile=t0,
+                                  app="fullbatch")
+
+            jsol = params_to_jones(p).reshape(M * nchunk_max, N, 2, 2)
+            solio.append_solutions(sol_fh, jsol.cpu().numpy())
+
+            with timer.phase("residual"):
+                res = _mat_of_flat(calculate_residuals(
+                    full, cdata_full, p, ccid_index=ccid_index,
+                    rho=cfg.correction_rho,
+                    phase_only=cfg.phase_only_correction))
+            with timer.phase("write"):
+                ds.write_tile(t0, res, column=cfg.out_column)
+            # gains carry tile to tile, so iterations-to-converge per
+            # tile is the warm start's measured win
+            warm_start = bool(pi > 0 or cfg.init_solutions)
+            iters_tile = None
+            conv_recs = sage_convergence_records(out.telemetry)
+            if conv_recs:
+                iters_tile = int(sum(int(r.get("iterations", 0))
+                                     for r in conv_recs))
+                get_registry().gauge_set(
+                    "tile_iterations_to_converge", iters_tile,
+                    help="summed solver iterations of this tile's solve "
+                         "(warm starts shrink it)", tile=str(t0),
+                    warm_start=str(int(warm_start)))
+            if elog is not None:
+                for rec in conv_recs:
+                    elog.emit("cluster_convergence", tile=t0, **rec)
+                elog.emit("tile_done", tile=t0, res0=res0, res1=res1,
+                          mean_nu=mean_nu, diverged=bool(diverged),
+                          seconds=time.time() - tic, warm_start=warm_start,
+                          iterations=iters_tile,
+                          phase_seconds=timer.tile_timings())
+            log(f"tile {t0}: residual {res0:.6f} -> {res1:.6f} "
+                f"nu {mean_nu:.1f} ({time.time() - tic:.1f}s) "
+                f"[{timer.tile_summary()}]")
+            results.append((res0, res1))
+    finally:
+        # reap the reader thread and its handle even when a tile raises
+        prefetch_cm.__exit__(None, None, None)
+    log(timer.run_summary())
+    if elog is not None:
+        elog.emit("run_done", n_tiles=len(results),
+                  phase_totals=dict(timer.totals))
+        elog.close()
+    if sol_fh:
+        sol_fh.close()
+    ds.close()
+    return results

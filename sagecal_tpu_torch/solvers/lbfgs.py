@@ -15,9 +15,13 @@ reference's ``lbfgs_fit`` / ``lbfgs_fit_minibatch``:
   running dtype).
 
 The JAX ``while_loop``/``cond`` become Python control flow reading one
-scalar per decision.  :func:`lbfgs_fit_batched` runs B independent fits
-in lock-step (one batched cost and gradient call per step, per-lane
-masks), the driver of the batched fused objective.
+scalar per decision.  ``collect_trace`` fills an
+``obs.records.IterTrace`` of ``itmax`` rows (cost, gradient norm,
+accepted alpha, cost evaluations of the line search) from values the
+loop holds already, so it reads nothing more back to the host.
+:func:`lbfgs_fit_batched` runs B independent fits in lock-step (one
+batched cost and gradient call per step, per-lane masks), the driver of
+the batched fused objective.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.obs.records import IterTrace, init_trace, write_trace
 from sagecal_tpu_torch.utils.precision import true_f32
 
 CLM_STOP_THRESH = 1e-9
@@ -91,6 +96,7 @@ class LBFGSResult(NamedTuple):
     cost: torch.Tensor
     gradnorm: torch.Tensor
     iterations: int
+    trace: Optional[IterTrace] = None  # lbfgs_fit's, when collect_trace
 
 
 def _value_and_grad(cost_fn):
@@ -107,11 +113,13 @@ def _value_and_grad(cost_fn):
 def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 50,
               M: int = 7, memory: Optional[LBFGSMemory] = None,
               minibatch: bool = False,
-              vg_fn: Optional[Callable] = None) -> LBFGSResult:
+              vg_fn: Optional[Callable] = None,
+              collect_trace: bool = False) -> LBFGSResult:
     """Generic LBFGS fit.  ``grad_fn`` (optional) supplies the gradient,
     else autograd of ``cost_fn``; ``vg_fn(p) -> (cost, grad)`` overrides
     both.  ``minibatch=True`` with the previous call's ``memory``
-    reproduces ``lbfgs_fit_minibatch``."""
+    reproduces ``lbfgs_fit_minibatch``.  ``collect_trace``: the result's
+    per-iteration trace (module doc)."""
     if vg_fn is None:
         if grad_fn is None:
             vg_fn = _value_and_grad(cost_fn)
@@ -146,6 +154,8 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
     eps = torch.finfo(p0.dtype).eps
     gn0 = float(gradnrm)
     done = not (gn0 == gn0 and abs(gn0) != float("inf") and gn0 > CLM_STOP_THRESH)
+    trace = (init_trace(itmax, (), p0.dtype, p0.device) if collect_trace
+             else None)
     ck = 0
     while ck < itmax and not done:
         pk = _two_loop_direction(g, memory)
@@ -155,6 +165,7 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
         product = ARMIJO_C * float(torch.dot(pk, g))
         if not _armijo_bad(float(f_t), fold, a0, product):
             alphak, f1, g1 = a0, f_t, g_t
+            ls_evals = 1
         else:
             alphak, fnew, ci = a0, float(f_t), 0
             while ci < 15 and _armijo_bad(fnew, fold, alphak, product):
@@ -162,6 +173,8 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
                 fnew = cost_value(x + alphak * pk)
                 ci += 1
             f1, g1 = vg_fn(x + alphak * pk)
+            # the first trial, each halving and the value-and-gradient
+            ls_evals = 2 + ci
         step_ok = (alphak == alphak and abs(alphak) != float("inf")
                    and abs(alphak) >= CLM_EPSILON)
         x1 = x + alphak * pk
@@ -189,10 +202,13 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
         memory.niter += 1
         if step_ok:
             x, f, g, gradnrm = x1, f1, g1, gradnrm1
+        if trace is not None:
+            write_trace(trace, ck, cost=f, grad_norm=gradnrm, step=alphak,
+                        ls_evals=ls_evals)
         done = (not step_ok) or (not grad_ok)
         ck += 1
     return LBFGSResult(p=x, memory=memory, cost=f, gradnorm=gradnrm,
-                       iterations=ck)
+                       iterations=ck, trace=trace)
 
 
 # ------------------------------------------------- batched (lock-step) LBFGS

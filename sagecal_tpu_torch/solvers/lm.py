@@ -25,6 +25,12 @@ for ``M = Jp A``, ``A = C Jq^H`` and ``B = Jp C``,
 Termination follows levmar: max iterations, gradient inf-norm < eps1,
 relative step < eps2, cost < eps3; Nielsen's damping update.  The
 ``while_loop`` is a Python loop that reads one flag per iteration.
+
+``collect_trace`` fills an ``obs.records.IterTrace`` of ``(itmax,
+nchunk)`` rows (NaN past the last iteration run), ``collect_quality`` an
+``ops.quality.SolveQuality`` of the final residual; both are written on
+the device, reading nothing more back, and both off leave the solve as
+it was.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import torch
 
 from sagecal_tpu_torch.core.segment import SegmentPlan
 from sagecal_tpu_torch.core.types import corrupt_flat, params_to_jones, reals_of_flat
+from sagecal_tpu_torch.obs.records import IterTrace, init_trace, write_trace
+from sagecal_tpu_torch.ops.quality import SolveQuality, residual_quality
 from sagecal_tpu_torch.utils.precision import true_f32
 
 
@@ -53,6 +61,8 @@ class LMResult(NamedTuple):
     cost0: torch.Tensor  # (nchunk,) initial cost
     cost: torch.Tensor  # (nchunk,) final cost
     iterations: int
+    trace: Optional[IterTrace] = None  # when collect_trace
+    quality: Optional[SolveQuality] = None  # when collect_quality
 
 
 def _residual_flat(p_all, coh, vis, mask, ant_p, ant_q, chunk_map, sqrt_w):
@@ -196,14 +206,19 @@ def _plan_for(plan, ant_p, ant_q, chunk_map, p0) -> NormalEqPlan:
 def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
              config: LMConfig = LMConfig(), sqrt_weights=None,
              itmax_dynamic: Optional[int] = None,
-             plan: Optional[NormalEqPlan] = None) -> LMResult:
+             plan: Optional[NormalEqPlan] = None,
+             collect_trace: bool = False,
+             collect_quality: bool = False) -> LMResult:
     """Solve min_p sum_rows ||vis - J_p C J_q^H||^2 per hybrid chunk.
 
     vis/coh: (F, 4, rows) complex; mask (F, rows); ant_p/ant_q/chunk_map
     (rows,) int64; p0 (nchunk, 8N).  ``itmax_dynamic`` lowers the
     iteration bound below ``config.itmax`` (the SAGE driver's weighted
     allocation).  ``plan``: the tile's :class:`NormalEqPlan` for these
-    indices (built here when None)."""
+    indices (built here when None).  ``collect_trace`` /
+    ``collect_quality``: the per-iteration trace (cost, gradient
+    inf-norm, ||dp||, one evaluation per live chunk) and the final
+    residual's quality (module doc)."""
     nchunk = p0.shape[0]
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     args = (coh, vis, mask, ant_p, ant_q, chunk_map, plan, sqrt_weights)
@@ -216,6 +231,8 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     p, cost = p0, cost0
     nu = torch.full((nchunk,), 2.0, dtype=p0.dtype, device=p0.device)
     done = torch.zeros((nchunk,), dtype=torch.bool, device=p0.device)
+    trace = (init_trace(config.itmax, (nchunk,), p0.dtype, p0.device)
+             if collect_trace else None)
     it = 0
     while it < it_bound and not bool(done.all()):
         JTJ, JTe, _ = _assemble_normal_eq(p, *args)
@@ -235,10 +252,25 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
         g_inf = JTe.abs().amax(dim=-1)
         small_step = torch.linalg.norm(dp, dim=-1) <= config.eps2 * (
             torch.linalg.norm(p1, dim=-1) + config.eps2)
+        if trace is not None:
+            write_trace(trace, it, cost=cost1, grad_norm=g_inf,
+                        step=torch.linalg.norm(dp, dim=-1),
+                        ls_evals=(~done).to(p.dtype))
         done = done | (g_inf <= config.eps1) | small_step | (cost1 <= config.eps3)
         p, cost = p1, cost1
         it += 1
-    return LMResult(p=p, cost0=cost0, cost=cost, iterations=it)
+    quality = _quality(p, args) if collect_quality else None
+    return LMResult(p=p, cost0=cost0, cost=cost, iterations=it, trace=trace,
+                    quality=quality)
+
+
+def _quality(p, args) -> SolveQuality:
+    """Quality of the residual at ``p`` (``args`` as :func:`_cost_only`
+    takes them after ``p``)."""
+    coh, vis, mask, ant_p, ant_q, chunk_map, plan, sqrt_w = args
+    e = _residual_flat(p, coh, vis, mask, ant_p, ant_q, chunk_map, sqrt_w)
+    return residual_quality(e, p, ant_p, ant_q, chunk_map, p.shape[0],
+                            plan=plan)
 
 
 @true_f32
@@ -246,12 +278,16 @@ def os_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
                 config: LMConfig = LMConfig(), sqrt_weights=None,
                 nsubsets: int = 4, perm=None,
                 generator: Optional[torch.Generator] = None,
-                plan: Optional[NormalEqPlan] = None) -> LMResult:
+                plan: Optional[NormalEqPlan] = None,
+                collect_trace: bool = False,
+                collect_quality: bool = False) -> LMResult:
     """Ordered-subsets accelerated LM: one LM pass per random subset of
     rows (subsets realized as masks).  ``perm`` is the row permutation
     that assigns subsets (row perm[i] goes to subset i % nsubsets); by
     default it is drawn from ``generator`` (a CPU ``torch.Generator``).
-    ``plan`` as for :func:`lm_solve`."""
+    ``plan`` as for :func:`lm_solve`.  The subsets' traces concatenate on
+    the iteration axis; the quality is of the full-mask residual at the
+    final ``p``."""
     rows = vis.shape[-1]
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     if perm is None:
@@ -262,13 +298,19 @@ def os_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     sub_cfg = dataclasses.replace(config, itmax=max(1, config.itmax // nsubsets))
     p = p0
     cost0 = None
+    traces = []
     for s in range(nsubsets):
         m_s = mask * (subset_of_row == s)[None, :].to(mask.dtype)
         res = lm_solve(vis, coh, m_s, ant_p, ant_q, chunk_map, p, sub_cfg,
-                       sqrt_weights, plan=plan)
+                       sqrt_weights, plan=plan, collect_trace=collect_trace)
         p = res.p
         if cost0 is None:
             cost0 = res.cost0 * nsubsets
-    final_cost = _cost_only(p, coh, vis, mask, ant_p, ant_q, chunk_map, plan,
-                            sqrt_weights)
-    return LMResult(p=p, cost0=cost0, cost=final_cost, iterations=config.itmax)
+        traces.append(res.trace)
+    args = (coh, vis, mask, ant_p, ant_q, chunk_map, plan, sqrt_weights)
+    final_cost = _cost_only(p, *args)
+    trace = (IterTrace(*(torch.cat(f) for f in zip(*traces)))
+             if collect_trace else None)
+    quality = _quality(p, args) if collect_quality else None
+    return LMResult(p=p, cost0=cost0, cost=final_cost, iterations=config.itmax,
+                    trace=trace, quality=quality)

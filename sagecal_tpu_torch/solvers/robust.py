@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 from torch.special import digamma
 
+from sagecal_tpu_torch.obs.records import stack_traces, with_nu
+from sagecal_tpu_torch.ops.quality import weight_stats
 from sagecal_tpu_torch.solvers.lm import (
     LMConfig, NormalEqPlan, _plan_for, _residual_flat, lm_solve,
 )
@@ -67,11 +69,19 @@ def update_nu_aecm(logsumw, nu_old, p: int = 8, nulow: float = 2.0,
 def robust_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
                     nu0: float = 2.0, nulow: float = 2.0, nuhigh: float = 30.0,
                     em_iters: int = 3, config: LMConfig = LMConfig(),
-                    plan: Optional[NormalEqPlan] = None):
+                    plan: Optional[NormalEqPlan] = None,
+                    collect_trace: bool = False,
+                    collect_quality: bool = False):
     """Robust LM: EM over (weights, nu) wrapping weighted LM solves.
     Returns (LMResult, nu).  The E-step runs FIRST, from the residual at
     p0, so gross outliers are down-weighted before the first fit.
-    ``plan``: the tile's LM assembly plan (``lm_solve``)."""
+    ``plan``: the tile's LM assembly plan (``lm_solve``).
+
+    ``collect_trace``: the stages' traces stacked in front, ``(em_iters
+    + 1, itmax, nchunk)`` per field (the final weighted solve last), the
+    ``nu`` field holding the nu each stage's weights were built with.
+    ``collect_quality``: the final solve's quality with the converged nu
+    and the Student's-t weight statistics."""
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     mask8 = mask[..., None, :]
     ed0 = _residual_flat(p0, coh, vis, mask, ant_p, ant_q, chunk_map, None)
@@ -79,14 +89,27 @@ def robust_lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
         ed0, torch.as_tensor(nu0, dtype=p0.dtype, device=p0.device),
         nulow, nuhigh, mask=mask8)
     p = p0
+    traces = []
     for _ in range(em_iters):
         res = lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
-                       sqrt_weights=sqrt_w, plan=plan)
+                       sqrt_weights=sqrt_w, plan=plan,
+                       collect_trace=collect_trace)
+        if collect_trace:
+            traces.append(with_nu(res.trace, nu))
         p = res.p
         ed = _residual_flat(p, coh, vis, mask, ant_p, ant_q, chunk_map, None)
         sqrt_w, nu = update_w_and_nu(ed, nu, nulow, nuhigh, mask=mask8)
     res = lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
-                   sqrt_weights=sqrt_w, plan=plan)
+                   sqrt_weights=sqrt_w, plan=plan, collect_trace=collect_trace,
+                   collect_quality=collect_quality)
+    if collect_quality:
+        hist, down, flag = weight_stats(sqrt_w, nu, mask8)
+        res = res._replace(quality=res.quality._replace(
+            nu=nu.to(p0.dtype), weight_hist=hist, downweighted_frac=down,
+            flagged_frac=flag))
+    if collect_trace:
+        traces.append(with_nu(res.trace, nu))
+        res = res._replace(trace=stack_traces(traces))
     return res, nu
 
 

@@ -32,9 +32,16 @@ Hybrid chunks solve in lock-step on a leading chunk axis: each row
 only meets its own chunk's gains, a chunk that has finished is masked
 as the reference's vmap masks it.  The ``while_loop``s become Python
 loops; every decision they read back is counted in
-``host_read.count`` (one host sync each on CUDA).  Solver traces and
-quality outputs (``collect_trace``, ``collect_quality``) are refused
-(ROADMAP.md Queue A, A3).
+``host_read.count`` (one host sync each on CUDA).
+
+``collect_trace`` records the trust-region or NSD iterations in an
+``obs.records.IterTrace`` of ``(itmax, nchunk)`` rows, written per lane
+with ``torch.where`` on the lanes' live mask (rows a lane never ran stay
+NaN, as under the reference's vmapped ``while_loop``); RTR's
+``ls_evals`` is the lane's truncated-CG step count.  ``collect_quality``
+adds the ``ops.quality.SolveQuality`` of the final solution (data term
+only, robust weights with dof 2).  Neither reads anything more back to
+the host, and both off leave the solve as it was.
 """
 
 from __future__ import annotations
@@ -47,7 +54,13 @@ import torch
 from sagecal_tpu_torch.core.types import (
     corrupt_flat, jones_to_params, params_to_jones,
 )
-from sagecal_tpu_torch.solvers.lm import NormalEqPlan, _plan_for
+from sagecal_tpu_torch.obs.records import (
+    init_trace, stack_traces, with_nu, write_trace,
+)
+from sagecal_tpu_torch.ops.quality import residual_quality
+from sagecal_tpu_torch.solvers.lm import (
+    NormalEqPlan, _plan_for, _residual_flat,
+)
 from sagecal_tpu_torch.utils.precision import true_f32
 
 
@@ -81,13 +94,6 @@ def host_read(flag: torch.Tensor) -> bool:
 
 
 host_read.count = 0
-
-
-def _refuse(collect_trace, collect_quality):
-    if collect_trace or collect_quality:
-        raise NotImplementedError(
-            "collect_trace / collect_quality are not ported to "
-            "sagecal_tpu_torch yet (ROADMAP.md Queue A, A3)")
 
 
 def _lane(v):
@@ -246,9 +252,10 @@ def _keep(mask, new, old):
     return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
-def _tcg(fns: _Fns, x, grad, Delta, cfg: RTRConfig, live):
+def _tcg(fns: _Fns, x, grad, Delta, cfg: RTRConfig, live, count=False):
     """Truncated CG (tcg_solve) of every lane in ``live``; the others
-    start stopped and return eta = 0."""
+    start stopped and return eta = 0.  Returns (eta, Heta, steps): with
+    ``count``, each lane's number of CG steps (else None)."""
     r = grad
     z_r = _g(r, r)
     norm_r0 = torch.sqrt(z_r)
@@ -257,6 +264,7 @@ def _tcg(fns: _Fns, x, grad, Delta, cfg: RTRConfig, live):
     e_Pe = e_Pd = torch.zeros_like(z_r)
     d_Pd = z_r
     stop = ~live
+    steps = torch.zeros_like(z_r) if count else None
     Deltasq = Delta * Delta
     j = 0
     while j < cfg.max_inner and host_read((~stop).any()):
@@ -276,6 +284,8 @@ def _tcg(fns: _Fns, x, grad, Delta, cfg: RTRConfig, live):
         z_r_new = _g(r_new, r_new)
         beta = z_r_new / _nz(z_r)
         act = ~stop
+        if count:
+            steps = steps + act.to(steps.dtype)
         eta = _keep(act, eta + _lane(step) * delta, eta)
         Heta = _keep(act, Heta + _lane(step) * Hxd, Heta)
         r = _keep(act & ~stop_new, r_new, r)
@@ -286,13 +296,22 @@ def _tcg(fns: _Fns, x, grad, Delta, cfg: RTRConfig, live):
         z_r = torch.where(act, z_r_new, z_r)
         stop = stop | stop_new
         j += 1
-    return eta, Heta
+    return eta, Heta, steps
 
 
-def _rtr(fns: _Fns, x0, cfg: RTRConfig, itmax_dyn=None):
+def _lane_trace(itmax: int, like):
+    """A NaN trace of (itmax, nchunk) rows, ``nu`` included (the layout
+    of the reference's per-lane traces after its vmap)."""
+    tr = init_trace(itmax, like.shape, like.dtype, like.device)
+    return tr._replace(nu=torch.full_like(tr.cost, float("nan")))
+
+
+def _rtr(fns: _Fns, x0, cfg: RTRConfig, itmax_dyn=None, trace=None):
     """RSD warmup then trust region, every chunk lane in lock-step.
     ``itmax_dyn``: the base iteration budget; the RSD and TR bounds
-    become min(static, dyn + 5) and min(static, dyn + 10)."""
+    become min(static, dyn + 5) and min(static, dyn + 10).  ``trace``:
+    an (itmax_rtr, nchunk) trace to fill, one row per TR iteration of
+    each live lane."""
     rsd_bound = (cfg.itmax_rsd if itmax_dyn is None
                  else min(cfg.itmax_rsd, int(itmax_dyn) + 5))
     rtr_bound = (cfg.itmax_rtr if itmax_dyn is None
@@ -324,7 +343,8 @@ def _rtr(fns: _Fns, x0, cfg: RTRConfig, itmax_dyn=None):
     while k < rtr_bound and host_read((~stop).any()):
         active = ~stop
         g = fns.grad(x)
-        eta, Heta = _tcg(fns, x, g, Delta, cfg, active)
+        eta, Heta, cg_steps = _tcg(fns, x, g, Delta, cfg, active,
+                                   count=trace is not None)
         x_prop = x + eta
         fx_prop = fns.cost(x_prop)
         rhonum = fx - fx_prop
@@ -340,15 +360,22 @@ def _rtr(fns: _Fns, x0, cfg: RTRConfig, itmax_dyn=None):
         x = _keep(accept, x_prop, x)
         fx = torch.where(accept, fx_prop, fx)
         Delta = torch.where(active, Delta_new, Delta)
-        stop = stop | (torch.sqrt(_g(g, g)) < cfg.epsilon)
+        gnorm = torch.sqrt(_g(g, g))
+        if trace is not None:
+            write_trace(trace, k, live=active, cost=fx, grad_norm=gnorm,
+                        step=torch.sqrt(torch.clamp(_g(eta, eta), min=0.0)),
+                        ls_evals=cg_steps)
+        stop = stop | (gnorm < cfg.epsilon)
         k += 1
     better = fx <= fx0
     return _keep(better, x, x0), fx0, torch.where(better, fx, fx0)
 
 
-def _nsd(fns: _Fns, x0, itmax: int, itmax_dyn=None):
+def _nsd(fns: _Fns, x0, itmax: int, itmax_dyn=None, trace=None):
     """Nesterov accelerated manifold descent (nsd_solve_nocuda_robust),
-    every chunk lane in lock-step; the limit is min(itmax, dyn + 15)."""
+    every chunk lane in lock-step; the limit is min(itmax, dyn + 15).
+    ``trace``: an (itmax, nchunk) trace to fill, per live lane the cost
+    after the step, the gradient norm and the step size used."""
     bound = itmax if itmax_dyn is None else min(itmax, int(itmax_dyn) + 15)
     fx0 = fns.cost(x0)
     g = fns.grad(x0)
@@ -358,7 +385,7 @@ def _nsd(fns: _Fns, x0, itmax: int, itmax_dyn=None):
     x, z = x0, x0
     theta = torch.ones_like(t)
     done = torch.zeros_like(t, dtype=torch.bool)
-    for _ in range(min(itmax, bound)):
+    for i in range(min(itmax, bound)):
         if not host_read((~done).any()):
             break
         x1 = z - _lane(t) * g
@@ -376,8 +403,12 @@ def _nsd(fns: _Fns, x0, itmax: int, itmax_dyn=None):
         bad = torch.isnan(dot) | torch.isinf(dot)
         t_hat = 0.5 * ydn * ydn / torch.clamp(dot.abs(), min=1e-30)
         t1 = torch.minimum(1.01 * t, torch.maximum(0.5 * t, t_hat))
+        live = ~done if trace is not None else None
         done = done1 | bad
         x, z, g = _keep(done, x, x1), _keep(done, z, z1), _keep(done, g, g1)
+        if trace is not None:
+            write_trace(trace, i, live=live, cost=fns.cost(x), grad_norm=gn,
+                        step=t)
         t = torch.where(done, t, t1)
         theta = torch.where(done, theta, theta1)
     fx = fns.cost(x)
@@ -393,12 +424,28 @@ def _admm_terms(p0, admm_y, admm_bz, admm_rho):
             rho.expand(p0.shape[0]))
 
 
-def _solve(run, vis, coh, mask, ant_p, ant_q, chunk_map, p0, sqrt_w, plan,
-           admm):
+def _quality_of(p, vis, coh, mask, ant_p, ant_q, chunk_map, plan,
+                sqrt_w=None, nu=None):
+    """Quality at the final solution ``p`` through the LM residual (the
+    same model per chunk as the lane costs, so ``chi2_chunk`` is the
+    solver's final data cost; ADMM terms excluded), robust weights of
+    dof 2."""
+    e = _residual_flat(p, coh, vis, mask, ant_p, ant_q, chunk_map, sqrt_w)
+    return residual_quality(e, p, ant_p, ant_q, chunk_map, p.shape[0], nu=nu,
+                            sqrt_w=sqrt_w, mask8=mask[..., None, :],
+                            weight_dof=2.0, plan=plan)
+
+
+def _solve(run, itmax, vis, coh, mask, ant_p, ant_q, chunk_map, p0, sqrt_w,
+           plan, admm, collect_trace, collect_quality):
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     fns = _Fns(vis, coh, mask, plan, sqrt_w, admm)
-    xf, c0, c1 = run(fns, params_to_jones(p0))
-    return RTRResult(p=jones_to_params(xf), cost0=c0, cost=c1)
+    trace = _lane_trace(itmax, p0[:, 0]) if collect_trace else None
+    xf, c0, c1 = run(fns, params_to_jones(p0), trace)
+    p = jones_to_params(xf)
+    quality = (_quality_of(p, vis, coh, mask, ant_p, ant_q, chunk_map, plan,
+                           sqrt_w) if collect_quality else None)
+    return RTRResult(p=p, cost0=c0, cost=c1, trace=trace, quality=quality)
 
 
 @true_f32
@@ -415,11 +462,13 @@ def rtr_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     against (F, 4, rows); ``itmax_dynamic``: ``sagefit``'s per-cluster
     budget (an int); ``admm_y``/``admm_bz`` (nchunk, 8N) and scalar
     ``admm_rho``: the consensus-augmented cost; ``plan``: the cluster's
-    :class:`NormalEqPlan` (built here when None)."""
-    _refuse(collect_trace, collect_quality)
-    return _solve(lambda f, x0: _rtr(f, x0, config, itmax_dynamic), vis, coh,
-                  mask, ant_p, ant_q, chunk_map, p0, sqrt_weights, plan,
-                  _admm_terms(p0, admm_y, admm_bz, admm_rho))
+    :class:`NormalEqPlan` (built here when None); ``collect_trace`` /
+    ``collect_quality`` as in the module doc."""
+    return _solve(lambda f, x0, tr: _rtr(f, x0, config, itmax_dynamic, tr),
+                  config.itmax_rtr, vis, coh, mask, ant_p, ant_q, chunk_map,
+                  p0, sqrt_weights, plan,
+                  _admm_terms(p0, admm_y, admm_bz, admm_rho), collect_trace,
+                  collect_quality)
 
 
 @true_f32
@@ -430,10 +479,11 @@ def nsd_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0, itmax: int = 10,
               plan: Optional[NormalEqPlan] = None) -> RTRResult:
     """Nesterov steepest descent of every hybrid chunk
     (``nsd_solve_nocuda_robust``); arguments as :func:`rtr_solve`."""
-    _refuse(collect_trace, collect_quality)
-    return _solve(lambda f, x0: _nsd(f, x0, itmax, itmax_dynamic), vis, coh,
-                  mask, ant_p, ant_q, chunk_map, p0, sqrt_weights, plan,
-                  _admm_terms(p0, admm_y, admm_bz, admm_rho))
+    return _solve(lambda f, x0, tr: _nsd(f, x0, itmax, itmax_dynamic, tr),
+                  itmax, vis, coh, mask, ant_p, ant_q, chunk_map, p0,
+                  sqrt_weights, plan,
+                  _admm_terms(p0, admm_y, admm_bz, admm_rho), collect_trace,
+                  collect_quality)
 
 
 def _robust_weights_and_nu(vis, coh, mask, ant_p, ant_q, chunk_map, p, nu,
@@ -455,22 +505,32 @@ def _robust_weights_and_nu(vis, coh, mask, ant_p, ant_q, chunk_map, p, nu,
 
 
 def _robust(solve, vis, coh, mask, ant_p, ant_q, chunk_map, p0, nu0, nulow,
-            nuhigh, em_iters, plan):
+            nuhigh, em_iters, plan, collect_trace, collect_quality):
+    """The Student's-t EM around ``solve(p, sqrt_w, plan, collect_trace)``.
+    Traces stack the EM stages in front, (em_iters, itmax, nchunk), each
+    stage's ``nu`` the nu its weights were built with; quality is of the
+    weights re-estimated at the final solution."""
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     p = p0
     nu = torch.as_tensor(nu0, dtype=p0.dtype).to(p0.device)
-    c0s, c1s = [], []
+    c0s, c1s, traces = [], [], []
     for _ in range(em_iters):
         sqrt_w, nu1 = _robust_weights_and_nu(vis, coh, mask, ant_p, ant_q,
                                              chunk_map, p, nu, nulow, nuhigh)
-        out = solve(p, sqrt_w, plan)
+        out = solve(p, sqrt_w, plan, collect_trace)
         c0s.append(out.cost0)
         c1s.append(out.cost)
+        if collect_trace:
+            traces.append(with_nu(out.trace, nu1))
         p, nu = out.p, nu1
     # nu re-estimated from the final solution, as the reference does
-    _, nu = _robust_weights_and_nu(vis, coh, mask, ant_p, ant_q, chunk_map,
-                                   p, nu, nulow, nuhigh)
-    return RTRResult(p=p, cost0=c0s[0], cost=c1s[-1]), nu
+    sqrt_w, nu = _robust_weights_and_nu(vis, coh, mask, ant_p, ant_q,
+                                        chunk_map, p, nu, nulow, nuhigh)
+    quality = (_quality_of(p, vis, coh, mask, ant_p, ant_q, chunk_map, plan,
+                           sqrt_w, nu) if collect_quality else None)
+    trace = stack_traces(traces) if collect_trace else None
+    return RTRResult(p=p, cost0=c0s[0], cost=c1s[-1], trace=trace,
+                     quality=quality), nu
 
 
 @true_f32
@@ -486,15 +546,15 @@ def rtr_solve_robust(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     weights and nu (:func:`_robust_weights_and_nu`), M-step a weighted
     :func:`rtr_solve`, ``em_iters`` times, then nu once more from the
     final solution.  ``nu0`` may be a tensor (``sagefit`` carries nu
-    across EM passes).  Returns (RTRResult, nu)."""
-    _refuse(collect_trace, collect_quality)
+    across EM passes).  Returns (RTRResult, nu).  ``collect_trace`` /
+    ``collect_quality``: see ``_robust``."""
     return _robust(
-        lambda p, sw, pl: rtr_solve(
+        lambda p, sw, pl, ct: rtr_solve(
             vis, coh, mask, ant_p, ant_q, chunk_map, p, config,
             sqrt_weights=sw, itmax_dynamic=itmax_dynamic, admm_y=admm_y,
-            admm_bz=admm_bz, admm_rho=admm_rho, plan=pl),
+            admm_bz=admm_bz, admm_rho=admm_rho, collect_trace=ct, plan=pl),
         vis, coh, mask, ant_p, ant_q, chunk_map, p0, nu0, nulow, nuhigh,
-        em_iters, plan)
+        em_iters, plan, collect_trace, collect_quality)
 
 
 @true_f32
@@ -508,11 +568,10 @@ def nsd_solve_robust(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     """Robust Nesterov descent (``nsd_solve_nocuda_robust``): the
     Student's-t EM of :func:`rtr_solve_robust` around
     :func:`nsd_solve`.  Returns (RTRResult, nu)."""
-    _refuse(collect_trace, collect_quality)
     return _robust(
-        lambda p, sw, pl: nsd_solve(
+        lambda p, sw, pl, ct: nsd_solve(
             vis, coh, mask, ant_p, ant_q, chunk_map, p, itmax,
             sqrt_weights=sw, itmax_dynamic=itmax_dynamic, admm_y=admm_y,
-            admm_bz=admm_bz, admm_rho=admm_rho, plan=pl),
+            admm_bz=admm_bz, admm_rho=admm_rho, collect_trace=ct, plan=pl),
         vis, coh, mask, ant_p, ant_q, chunk_map, p0, nu0, nulow, nuhigh,
-        em_iters, plan)
+        em_iters, plan, collect_trace, collect_quality)

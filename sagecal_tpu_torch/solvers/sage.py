@@ -27,9 +27,13 @@ Solver modes: 0 (OS-LM + LBFGS), 1 (LM + LBFGS), 2 (robust LM + robust
 LBFGS), 3 (OS-LM, OS robust LM, robust LBFGS: the CLI default), 4 (RTR +
 LBFGS), 5 (robust RTR + robust LBFGS), 6 (robust NSD + robust LBFGS); in
 modes 5 and 6 each cluster's nu is carried across EM passes.
-``collect_telemetry`` and ``collect_quality`` raise NotImplementedError
-until their slice (ROADMAP.md Queue A, A3).  ``jax.random`` keys become a
-``torch.Generator`` (CPU) from which the OS-LM row permutations are drawn.
+``collect_telemetry`` returns every per-cluster solver trace of every EM
+pass and the joint LBFGS's (``SageResult.telemetry``), and
+``collect_quality`` the final pass's per-cluster quality and the whole
+solution's (``SageResult.quality``); both are written on the device and
+read nothing more back to the host, and both off leave the solve as it
+was.  ``jax.random`` keys become a ``torch.Generator`` (CPU) from which
+the OS-LM row permutations are drawn.
 :func:`sagefit_packed` is the real-array entry (the visibilities and
 coherencies as real and imaginary parts); :func:`solve_tile` takes the
 complex tile to :func:`sagefit` as it is.
@@ -46,8 +50,14 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.core.segment import gather_rows
-from sagecal_tpu_torch.core.types import VisData, corrupt_flat, params_to_jones
+from sagecal_tpu_torch.core.types import (
+    VisData, corrupt_flat, params_to_jones, reals_of_flat,
+)
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.obs.records import stack_traces
+from sagecal_tpu_torch.ops.quality import (
+    SolveQuality, chi2_scatter, gain_health, row_chi2, stack_quality,
+)
 from sagecal_tpu_torch.ops.rime import (
     _NO_TABLE, ST_POINT, ST_SHAPELET, SourceBatch, _predict_coherencies,
     pad_source_batch, predict_coherencies,
@@ -95,7 +105,10 @@ class SageConfig:
     # coherency storage on the fused path: "f32" or "bf16" (f32 math)
     coh_dtype: str = "f32"
     iter_budget_cap: int = 3
+    # every solver's per-iteration trace, in SageResult.telemetry
     collect_telemetry: bool = False
+    # the final EM pass's per-cluster SolveQuality and the whole
+    # solution's, in SageResult.quality
     collect_quality: bool = False
 
     def replace(self, **changes) -> "SageConfig":
@@ -133,6 +146,12 @@ class SageResult:
     # device synchronize; LBFGS iterations taken (per lane when batched)
     phase_seconds: dict = dataclasses.field(default_factory=dict)
     lbfgs_iterations: Union[int, List[int]] = 0
+    # collect_telemetry: {"em": (IterTrace per EM pass, leading cluster
+    # axis), "lbfgs": IterTrace or None}
+    telemetry: Optional[dict] = None
+    # collect_quality: {"em": SolveQuality of the final EM pass, leading
+    # cluster axis; "final": SolveQuality of the whole solution}
+    quality: Optional[dict] = None
 
 
 def lane_of(obj, b: int):
@@ -370,7 +389,11 @@ def _make_fused_joint_cost_batch(data, cdata, B, M, n8, robust, mean_nu_b,
 def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
               generator: torch.Generator):
     """The EM passes of :func:`sagefit`: per-cluster solves and nu
-    estimation.  Returns (p, mean_nu, res_0)."""
+    estimation.  Returns (p, mean_nu, res_0, em_traces, em_quality,
+    plans): with ``collect_telemetry`` one IterTrace per pass (leading
+    cluster axis), with ``collect_quality`` the final pass's
+    SolveQuality (leading cluster axis), and the solvers' NormalEqPlans
+    (one per distinct chunk map)."""
     M = cdata.coh.shape[0]
     F, rows = data.vis.shape[-3], data.vis.shape[-1]
     nreal = rows * F * 8
@@ -379,6 +402,7 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
     lmcfg = LMConfig(itmax=config.max_iter)
     total_iter = M * config.max_iter
     iter_bar = int(math.ceil((0.80 / M) * total_iter))
+    collect = config.collect_telemetry
 
     iter_cap = config.max_iter * config.iter_budget_cap
     rtr_cfg = RTRConfig(itmax_rsd=iter_cap + 5, itmax_rtr=iter_cap + 10)
@@ -410,11 +434,15 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
     nerr = torch.zeros((M,), dtype=p0.dtype, device=p0.device)
     weighted = False
     nus = torch.full((M,), config.nulow, dtype=p0.dtype, device=p0.device)
+    em_traces, em_quality = [], None
     for em in range(config.max_emiter):
         last_em = em == config.max_emiter - 1
         use_robust = robust and last_em
         use_os = mode in (SM_OSLM_LBFGS, SM_RLM_RLBFGS,
                           SM_OSLM_OSRLM_RLBFGS) and not last_em
+        # quality of the final pass only: earlier iterates are discarded
+        want_q = config.collect_quality and last_em
+        flags = dict(collect_trace=collect, collect_quality=want_q)
         nerr_host = nerr.tolist()
 
         def solve_one(xeff, coh_k, cmap_k, p_k, k):
@@ -426,39 +454,46 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
                        if weighted else config.max_iter)
             if mode == SM_RTR_OSLM_LBFGS:
                 res = rtr_solve(*args, rtr_cfg, itmax_dynamic=itermax,
-                                plan=plan)
+                                plan=plan, **flags)
             elif mode == SM_RTR_OSRLM_RLBFGS:
                 res, nu_k = rtr_solve_robust(
                     *args, rtr_cfg, nu0=nus[k], itmax_dynamic=itermax,
-                    plan=plan, **robust_kw)
+                    plan=plan, **robust_kw, **flags)
                 nu_k = nu_k.to(p0.dtype)
             elif mode == SM_NSD_RLBFGS:
                 res, nu_k = nsd_solve_robust(
                     *args, itmax=iter_cap + 15, nu0=nus[k],
-                    itmax_dynamic=itermax, plan=plan, **robust_kw)
+                    itmax_dynamic=itermax, plan=plan, **robust_kw, **flags)
                 nu_k = nu_k.to(p0.dtype)
             elif use_robust:
                 res, nu_k = robust_lm_solve(
                     *args, nu0=config.nulow, nulow=config.nulow,
                     nuhigh=config.nuhigh, em_iters=config.em_rounds_robust,
-                    config=LMConfig(itmax=config.max_iter), plan=plan)
+                    config=LMConfig(itmax=config.max_iter), plan=plan,
+                    **flags)
                 nu_k = nu_k.to(p0.dtype)
             elif use_os:
                 res = os_lm_solve(*args, lmcfg, nsubsets=2, generator=generator,
-                                  plan=plan)
+                                  plan=plan, **flags)
             else:
-                res = lm_solve(*args, lmcfg, itmax_dynamic=itermax, plan=plan)
-            return res.p, (nerr_of(res), nu_k)
+                res = lm_solve(*args, lmcfg, itmax_dynamic=itermax, plan=plan,
+                               **flags)
+            return res.p, (nerr_of(res), nu_k, res.trace, res.quality)
 
         p, aux = em_residual_scan(data, cdata, p, list(range(M)), solve_one)
         nerr_new = torch.stack([a[0] for a in aux])
         nus = torch.stack([a[1] for a in aux])
+        if collect:
+            em_traces.append(stack_traces([a[2] for a in aux]))
+        if want_q:
+            em_quality = stack_quality([a[3] for a in aux])
         tot = nerr_new.sum()
         nerr = torch.where(tot > 0.0, nerr_new / tot, nerr_new)
         if config.randomize:
             weighted = not weighted
     mean_nu = torch.clamp(nus.mean(), config.nulow, config.nuhigh)
-    return p, mean_nu, res_0
+    return (p, mean_nu, res_0, em_traces, em_quality,
+            [plan for _, plan in plans])
 
 
 def _clock(device) -> float:
@@ -468,21 +503,38 @@ def _clock(device) -> float:
     return time.perf_counter()
 
 
-def _finalize(data, cdata, p, res_0, mean_nu) -> SageResult:
+def _finalize(data, cdata, p, res_0, mean_nu, config: SageConfig,
+              lbfgs_trace=None, em_traces=(), em_quality=None,
+              plans=()) -> SageResult:
+    """res_1 of the final solution, and the telemetry and quality
+    bundles the config asks for.  The whole-solution quality attributes
+    the full residual (every cluster's model subtracted) per station and
+    baseline on one of the EM's ``plans`` (its chunks summed), with a
+    single chunk, and the gain health of every (cluster, chunk) lane."""
     F, rows = data.vis.shape[-3], data.vis.shape[-1]
-    res_1 = _res_norm(data.vis - predict_full_model(p, cdata, data),
-                      data.mask, rows * F * 8)
+    resid = data.vis - predict_full_model(p, cdata, data)
+    res_1 = _res_norm(resid, data.mask, rows * F * 8)
+    telemetry = ({"em": tuple(em_traces), "lbfgs": lbfgs_trace}
+                 if config.collect_telemetry else None)
+    quality = None
+    if config.collect_quality:
+        N = p.shape[-1] // 8
+        plan = plans[0] if plans else NormalEqPlan(
+            data.ant_p, data.ant_q, torch.zeros_like(data.ant_p), 1, N)
+        e = reals_of_flat(resid * data.mask[..., None, :])
+        chi2_st, chi2_bl, chi2_ch = chi2_scatter(
+            row_chi2(e), data.ant_p, data.ant_q, None, N, 1, plan)
+        nonfinite, amp, amp_sp, ph_sp, dep = gain_health(p)
+        robust = config.solver_mode in _ROBUST_MODES
+        final_q = SolveQuality(
+            chi2_station=chi2_st, chi2_baseline=chi2_bl, chi2_chunk=chi2_ch,
+            nonfinite_count=nonfinite, station_amp=amp,
+            station_amp_spread=amp_sp, station_phase_spread=ph_sp,
+            identity_departure=dep, nu=mean_nu if robust else None)
+        quality = {"em": em_quality, "final": final_q}
     return SageResult(p=p, res_0=res_0, res_1=res_1, mean_nu=mean_nu,
-                      diverged=res_1 > res_0)
-
-
-def _check_supported(config: SageConfig):
-    missing = [k for k in ("collect_telemetry", "collect_quality")
-               if getattr(config, k)]
-    if missing:
-        raise NotImplementedError(
-            "not ported to sagecal_tpu_torch yet (ROADMAP.md Queue A, A3): "
-            + ", ".join(missing))
+                      diverged=res_1 > res_0, telemetry=telemetry,
+                      quality=quality)
 
 
 @true_f32
@@ -493,7 +545,6 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
     Runs on ``device`` (CUDA unless ``device="cpu"``); inputs elsewhere
     are moved there.  ``generator``: CPU ``torch.Generator`` for the
     OS-LM subsets (default: seeded with 0)."""
-    _check_supported(config)
     dev = resolve_device(device)
     data = data if data.device == dev else data.to(dev)
     cdata = cdata if cdata.coh.device == dev else cdata.to(dev)
@@ -505,9 +556,10 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
     robust = config.solver_mode in _ROBUST_MODES
 
     t0 = _clock(dev)
-    p, mean_nu, res_0 = _em_phase(data, cdata, p0, config, generator)
+    p, mean_nu, res_0, em_traces, em_quality, plans = _em_phase(
+        data, cdata, p0, config, generator)
     t1 = _clock(dev)
-    lbfgs_iterations = 0
+    lbfgs_iterations, lbfgs_trace = 0, None
     if config.max_lbfgs > 0:
         if config.use_fused_predict:
             cost_fn = _make_fused_joint_cost(data, cdata, M, nchunk_max, n8,
@@ -528,11 +580,14 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
                              itmax=config.max_lbfgs, M=config.lbfgs_m)
         else:
             fit = lbfgs_fit(cost_fn, None, p.reshape(-1),
-                            itmax=config.max_lbfgs, M=config.lbfgs_m)
+                            itmax=config.max_lbfgs, M=config.lbfgs_m,
+                            collect_trace=config.collect_telemetry)
+            lbfgs_trace = fit.trace
         p = fit.p.reshape(M, nchunk_max, n8).to(p0.dtype)
         lbfgs_iterations = fit.iterations
     t2 = _clock(dev)
-    res = _finalize(data, cdata, p, res_0, mean_nu)
+    res = _finalize(data, cdata, p, res_0, mean_nu, config, lbfgs_trace,
+                    em_traces, em_quality, plans)
     res.phase_seconds = {"em": t1 - t0, "lbfgs": t2 - t1}
     res.lbfgs_iterations = lbfgs_iterations
     return res
@@ -581,7 +636,9 @@ def sagefit_batched_fused(data: VisData, cdata: ClusterData, p0,
     lanes 0..B-1 of seed 0).  ``valid``: optional (B,) lane mask; padded
     lanes run the EM phase on their replicated data, but their mask is
     zeroed in the LBFGS pack, so they add exactly zero cost and
-    cotangent there.
+    cotangent there.  ``collect_quality`` gives each lane's quality, as
+    its own :func:`sagefit` would, stacked on a leading lane axis;
+    ``collect_telemetry`` is refused, as in the reference.
 
     The EM phase is :func:`_em_phase` run lane by lane, each with its own
     generator (the reference vmaps it; the port's EM reads the host,
@@ -600,11 +657,6 @@ def sagefit_batched_fused(data: VisData, cdata: ClusterData, p0,
         raise ValueError(
             "batched fused path supports neither param_bound nor "
             "telemetry traces; use the per-lane path")
-    if config.collect_quality:
-        raise NotImplementedError(
-            "collect_quality is not ported to sagecal_tpu_torch yet "
-            "(ROADMAP.md Queue A, A3)")
-    _check_supported(config)
     dev = resolve_device(device)
     data = data if data.device == dev else data.to(dev)
     cdata = cdata if cdata.coh.device == dev else cdata.to(dev)
@@ -630,11 +682,16 @@ def sagefit_batched_fused(data: VisData, cdata: ClusterData, p0,
         p_b = fit.p.reshape(B, M, nchunk_max, n8).to(p0.dtype)
         iterations = fit.iterations.tolist()
     t2 = _clock(dev)
-    fins = [_finalize(d, c, p_b[b], em[b][2], mean_nu_b[b])
+    fins = [_finalize(d, c, p_b[b], em[b][2], mean_nu_b[b], config,
+                      em_quality=em[b][4], plans=em[b][5])
             for b, (d, c) in enumerate(lanes)]
+    quality = None
+    if config.collect_quality:
+        quality = {k: stack_quality([r.quality[k] for r in fins])
+                   for k in ("em", "final")}
     return SageResult(
         p=p_b, res_0=torch.stack([r.res_0 for r in fins]),
         res_1=torch.stack([r.res_1 for r in fins]), mean_nu=mean_nu_b,
         diverged=torch.stack([r.diverged for r in fins]),
         phase_seconds={"em": t1 - t0, "lbfgs": t2 - t1},
-        lbfgs_iterations=iterations)
+        lbfgs_iterations=iterations, quality=quality)

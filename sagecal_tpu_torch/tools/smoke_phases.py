@@ -27,7 +27,8 @@ import time
 # the phases chip_smoke.main calls, in order; a name a checkout lacks is
 # skipped
 PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
-          "phase_main", "phase_warm", "phase_extended", "phase_predict",
+          "phase_main", "phase_warm", "phase_extended", "phase_fullbatch",
+          "phase_predict",
           "phase_bisect",
           "phase_times", "serve_parity", "phase_serve", "serve_times")
 

@@ -228,6 +228,8 @@ def test_batched_fused_refusals(problem):
         with pytest.raises(ValueError, match="param_bound"):
             sagefit_batched_fused(data, cdata, p0, cfg.replace(**kw),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        sagefit_batched_fused(data, cdata, p0,
-                              cfg.replace(collect_quality=True), device="cpu")
+    # collect_quality, refused until it was ported, now runs
+    out = sagefit_batched_fused(data, cdata, p0,
+                                cfg.replace(collect_quality=True),
+                                device="cpu")
+    assert out.quality["final"].chi2_station.shape[0] == p0.shape[0]

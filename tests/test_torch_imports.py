@@ -31,6 +31,14 @@ MODULES = (
     "sagecal_tpu_torch.ops.special", "sagecal_tpu_torch.ops.shapelets",
     "sagecal_tpu_torch.data.simsky", "sagecal_tpu_torch.solvers.rtr",
     "sagecal_tpu_torch.solvers.lbfgsb", "sagecal_tpu_torch.tools.rtr_profile",
+    "sagecal_tpu_torch.obs.records", "sagecal_tpu_torch.obs.registry",
+    "sagecal_tpu_torch.obs.events", "sagecal_tpu_torch.obs.quality",
+    "sagecal_tpu_torch.ops.quality", "sagecal_tpu_torch.utils.ppm",
+    "sagecal_tpu_torch.utils.profiling", "sagecal_tpu_torch.io.dataset",
+    "sagecal_tpu_torch.io.memh5", "sagecal_tpu_torch.apps.config",
+    "sagecal_tpu_torch.apps.fullbatch", "sagecal_tpu_torch.apps.cli",
+    "sagecal_tpu_torch.tools.solve_outputs",
+    "sagecal_tpu_torch.tools.telemetry_cost",
 )
 
 

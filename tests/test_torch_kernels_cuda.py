@@ -728,3 +728,120 @@ def test_rtr_hessian_vector_product_bit_identical_on_repeat(cuda):
         if first is None:
             first = out
         assert all(torch.equal(a, b) for a, b in zip(first, out))
+
+
+@pytest.mark.parametrize("mode", [3, 5])
+def test_telemetry_and_quality_leave_the_solve_unchanged(cuda, mode):
+    """A fused solve with ``collect_telemetry`` and ``collect_quality``
+    on gives the bits of the same solve with both off, launches the
+    objective kernels as often and reads back to the host no more often
+    (the RTR solver's count, and every stream or device synchronization
+    a CPU-only profiler sees)."""
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_cost_bwd_cuda, fused_cost_fwd_cuda,
+    )
+    from sagecal_tpu_torch.solvers import rtr
+    from sagecal_tpu_torch.solvers.sage import SageConfig, sagefit
+
+    data, cdata, p0 = _small_tile(cuda)
+    cfg = SageConfig(solver_mode=mode, max_emiter=2, max_iter=3, max_lbfgs=6,
+                     use_fused_predict=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for on in (False, True):
+        fused_cost_fwd_cuda.launches = 0
+        fused_cost_bwd_cuda.launches = 0
+        rtr.host_read.count = 0
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = sagefit(data, cdata, p0, cfg.replace(
+                collect_telemetry=on, collect_quality=on), device=cuda)
+        syncs = sum(e.count for e in prof.key_averages()
+                    if "Synchronize" in e.key)
+        runs.append((out, fused_cost_fwd_cuda.launches,
+                     fused_cost_bwd_cuda.launches, rtr.host_read.count,
+                     syncs))
+    (off, *n_off), (on, *n_on) = runs
+    assert torch.equal(off.p, on.p) and torch.equal(off.res_1, on.res_1)
+    assert n_off == n_on and n_on[0] > 0 and n_on[1] > 0
+    assert off.telemetry is None and on.telemetry["lbfgs"] is not None
+    assert torch.isfinite(on.quality["final"].chi2_station).all()
+
+
+# tests/test_apps.py's two-cluster sky (phase centre ra 0, dec 51 deg)
+FB_SKY = """P1 0 0 0.0 51 0 0.0 2.0 0 0 0 0 0 0 0 0 0 0 150e6
+P2 0 2 0.0 50 30 0.0 1.0 0 0 0 0 0 0 0 0 0 0 150e6
+"""
+FB_CLUSTER = "1 1 P1\n2 1 P2\n"
+
+
+def _fullbatch(tmp_path, tag, device):
+    """tests/test_torch_fullbatch.py's two-tile run (7 stations, 2
+    channels, 4 timeslots, tilesz 2) at f32 --fused on an in-memory
+    dataset made on the CPU -> (results, solutions text, residual
+    column, per-kernel launches)."""
+    import math
+
+    import numpy as np
+
+    from sagecal_tpu_torch.apps.config import RunConfig
+    from sagecal_tpu_torch.apps.fullbatch import run_fullbatch
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    sky = tmp_path / "t.sky.txt"
+    sky.write_text(FB_SKY)
+    (tmp_path / "t.sky.txt.cluster").write_text(FB_CLUSTER)
+    dec0 = math.radians(51.0)
+    clusters, _, _ = load_sky(str(sky), str(sky) + ".cluster", 0.0, dec0,
+                              dtype=torch.float64, device="cpu")
+    path = str(tmp_path / f"{tag}.h5")
+    simulate_dataset(path, nstations=7, ntime=4, nchan=2, clusters=clusters,
+                     jones=random_jones(2, 7, seed=3, amp=0.15,
+                                        dtype=np.complex128, device="cpu"),
+                     noise_sigma=1e-4, seed=0, dec0=dec0,
+                     open_file=memh5.MemFile, device="cpu")
+    memh5.MemFile(path, "r+").attrs["dec0"] = dec0
+    cfg = RunConfig(dataset=path, sky_model=str(sky),
+                    cluster_file=str(sky) + ".cluster",
+                    out_solutions=str(tmp_path / f"{tag}.sol"), tilesz=2,
+                    max_emiter=2, max_iter=4, max_lbfgs=6, lbfgs_m=5,
+                    solver_mode=1, use_f64=False, use_fused_predict=True)
+    kernels = (rk.fused_cost_fwd_cuda, rk.fused_cost_bwd_cuda,
+               rk.fused_predict_fwd_cuda)
+    for k in kernels:
+        k.launches = 0
+    results = run_fullbatch(cfg, log=lambda *a: None, device=device,
+                            open_file=memh5.MemFile)
+    launches = [k.launches for k in kernels]
+    sol = (tmp_path / f"{tag}.sol").read_text()
+    resid = np.asarray(memh5.MemFile(path, "r")["corrected"])
+    memh5.remove(path)
+    return results, sol, resid, launches
+
+
+def test_fullbatch_on_the_card_matches_the_cpu_and_repeats(cuda, tmp_path):
+    """The small fullbatch run at f32 --fused on CUDA: within the 5e-3 bar
+    of the port's CPU run (res relative, solutions absolute, residual
+    column of its max abs), bit-identical on repeat; #3/#4 launched and
+    #1 once per tile's residual step."""
+    import numpy as np
+
+    from sagecal_tpu_torch.io.solutions import read_solutions
+
+    cpu = _fullbatch(tmp_path, "cpu", "cpu")
+    a = _fullbatch(tmp_path, "a", cuda)
+    b = _fullbatch(tmp_path, "b", cuda)
+    assert a[0] == b[0] and a[1] == b[1] and np.array_equal(a[2], b[2])
+    assert a[3][0] > 0 and a[3][1] > 0 and a[3][2] == 2
+    assert cpu[3] == [0, 0, 0]
+    for (g0, g1), (w0, w1) in zip(a[0], cpu[0]):
+        assert abs(g1 - w1) <= 5e-3 * w1 and g1 < g0
+    (tmp_path / "x.sol").write_text(a[1])
+    (tmp_path / "y.sol").write_text(cpu[1])
+    ga, wa = (read_solutions(str(tmp_path / n))[1] for n in ("x.sol", "y.sol"))
+    assert ga.shape == (2, 2, 7, 2, 2) and np.abs(ga - wa).max() <= 5e-3
+    assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()

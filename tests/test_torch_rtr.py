@@ -247,9 +247,15 @@ def test_rtr_counts_host_reads_and_refuses_traces(problem):
     import sagecal_tpu_torch.solvers.rtr as tr
 
     _, t_args = _solver_args(problem[3])
+    cfg = tr.RTRConfig(itmax_rsd=2, itmax_rtr=3)
     before = tr.host_read.count
-    tr.rtr_solve(*t_args, tr.RTRConfig(itmax_rsd=2, itmax_rtr=3))
-    assert tr.host_read.count > before
+    plain = tr.rtr_solve(*t_args, cfg)
+    reads = tr.host_read.count - before
+    assert reads > 0
+    # traces and quality, refused until they were ported, now run and
+    # read nothing more back to the host
     for kw in (dict(collect_trace=True), dict(collect_quality=True)):
-        with pytest.raises(NotImplementedError, match="A3"):
-            tr.rtr_solve(*t_args, **kw)
+        before = tr.host_read.count
+        out = tr.rtr_solve(*t_args, cfg, **kw)
+        assert tr.host_read.count - before == reads
+        assert torch.equal(out.p, plain.p)

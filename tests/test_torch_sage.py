@@ -118,13 +118,20 @@ def test_interop_round_trip(tile):
 
 
 def test_unported_options_refuse(tile):
-    """Only the A3 options (solver telemetry and quality outputs) are
-    still refused; RTR/NSD modes and param_bound run."""
-    from sagecal_tpu_torch.solvers.sage import SageConfig
+    """No SageConfig option is refused any more: the A3 options (solver
+    telemetry and quality outputs) return their bundles, and the RTR/NSD
+    modes and param_bound run."""
+    from sagecal_tpu_torch.interop import tile_from_numpy
+    from sagecal_tpu_torch.solvers.sage import SageConfig, sagefit
 
+    td, tc, tp = tile_from_numpy(tile[3], device="cpu")
     for kw in (dict(collect_telemetry=True), dict(collect_quality=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_fit(tile[3], **dict(ENTRY_KW, max_emiter=1, **kw))
+        out = sagefit(td, tc, tp, SageConfig(**dict(ENTRY_KW, max_emiter=1,
+                                                     **kw)), device="cpu")
+        assert (out.telemetry is not None) == kw.get("collect_telemetry",
+                                                     False)
+        assert (out.quality is not None) == kw.get("collect_quality", False)
+        assert float(out.res_1) < float(out.res_0)
     for kw in (dict(solver_mode=4), dict(solver_mode=6),
                dict(param_bound=1.5)):
         out = _port_fit(tile[3], **dict(ENTRY_KW, max_emiter=1, max_iter=2,
