@@ -147,7 +147,32 @@ each printing lines of its own; any failure exits non-zero:
             the batched kernels' times beside their bounds (#6 on one
             station plan for the bucket, split into its cotangent,
             gradient and sum kernels on the device alone), and the plan
-            build times of phases 3 and 11.
+            build times of phases 3 and 11;
+12. service the calibration service through the serve CLI's parser and
+            config (``--f32 --fused --batch 8 -j 3 -e 3 -g 2 -l 10
+            --shadow-rate 0.25``, the reference serve defaults) and
+            ``apps.serve.run_serve`` over an in-memory ``vis.h5`` of 8
+            north-star tiles (``MemFile``) with an LSM sky of 8 point
+            clusters: tenant A's 16 requests make two full buckets of one
+            shape on "fused_batch" (each lane its own tile; the second
+            bucket a cache hit), tenant B's 3 (two clusters at 2 hybrid
+            chunks) one ragged bucket padded to 8 on "fused".  Per
+            dispatch (counts set to 0 just before the solve the cache
+            lookup hands out, read just after it): route and reason (from
+            the result manifests), pack and solve seconds, launches
+            (#5/#6 on "fused_batch", #3/#4 on "fused", each route none of
+            the other's) and peak device memory; no kernel launched
+            outside the solves (tile loading, manifests, shadow
+            re-solves); per run: solves/s, p50 latency, cache stats (2
+            misses, 1 hit, 2 entries), verdicts (none diverged, every
+            res_1 below res_0) and one line per drift record (a valid
+            ledger with a record for every sampled id; verdicts
+            reported, not gated); #3/#4 against their plain version on
+            a real lane of the hybrid bucket (its per-cluster chunk maps,
+            its station plan, at the gains it returned and at those
+            under a seeded kick, nu None and the lane's mean nu); then
+            tenant A's first 8 requests served again by a new service:
+            solutions files and residuals bit-identical.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -158,6 +183,7 @@ LBFGS depth can be cut with the options below; the widths cannot.
 
 import argparse
 import gc
+import inspect
 import itertools
 import json
 import math
@@ -207,6 +233,19 @@ FB_NTIME = 2 * TILESZ
 FB_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
             "-t", str(TILESZ))
 FB_TEL_MODE = 5
+
+# the calibration service: the reference serve defaults (-j 3 -e 3 -g 2
+# -l 10 --batch 8) with --f32 --fused and a quarter of the requests
+# shadow-audited, over one in-memory dataset of SVC_TILES north-star
+# tiles: tenant A's SVC_A requests make two full buckets of one shape,
+# tenant B's SVC_B (SVC_HYBRID hybrid chunks on two clusters) one ragged
+# bucket
+SVC_SHADOW_RATE = 0.25
+SVC_FLAGS = ("--f32", "--fused", "--batch", str(SERVE_B), "-j", "3",
+             "-e", str(SERVE_MAX_EMITER), "-g", str(SERVE_MAX_ITER),
+             "-l", str(SERVE_MAX_LBFGS), "--shadow-rate",
+             str(SVC_SHADOW_RATE))
+SVC_TILES, SVC_A, SVC_B, SVC_HYBRID = 8, 16, 3, 2
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -1708,6 +1747,350 @@ def rel_max(a, b) -> float:
     return ((a - b).abs() / b.abs()).max().item()
 
 
+def service_workload(dirname: str):
+    """The service phase's requests (module doc, phase 12): one
+    in-memory ``vis.h5`` of SVC_TILES north-star tiles made by the
+    port's ``simulate_dataset`` from ``write_sky``'s LSM sky of
+    SERVE_CLUSTERS point clusters under true gains, noise 1e-3; tenant A
+    asks for SVC_A tiles of it with the sky's cluster file, tenant B for
+    SVC_B with a cluster file giving clusters 0 and 1 SVC_HYBRID hybrid
+    chunks.  Returns (request manifest, its requests, dataset path)."""
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.serve.request import load_requests
+
+    sky, clus = write_sky(dirname, seed=11, nclusters=SERVE_CLUSTERS,
+                          name="svc")
+    clus_b = os.path.join(dirname, "svc_hybrid.cluster")
+    with open(clus) as src, open(clus_b, "w") as dst:
+        for k, line in enumerate(src):
+            cid, nchunk, *names = line.split()
+            nchunk = SVC_HYBRID if k < 2 else int(nchunk)
+            dst.write(f"{cid} {nchunk} {' '.join(names)}\n")
+    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
+    truth = random_jones(SERVE_CLUSTERS, NSTATIONS, seed=5, amp=0.2,
+                         dtype=np.complex128)
+    path = os.path.join(dirname, "svc.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=SVC_TILES * TILESZ,
+                     nchan=NCHAN, clusters=clusters, jones=truth,
+                     noise_sigma=1e-3, seed=0, dec0=DEC0, open_file=MemFile)
+    MemFile(path, "r+").attrs["ra0"] = RA0
+
+    def req(rid, tenant, cfile, t0):
+        return {"request_id": rid, "tenant": tenant, "dataset": path,
+                "sky_model": sky, "cluster_file": cfile, "t0": t0,
+                "tilesz": TILESZ}
+
+    reqs = ([req(f"a{i:02d}", "tenantA", clus, (i % SVC_TILES) * TILESZ)
+             for i in range(SVC_A)]
+            + [req(f"b{i:02d}", "tenantB", clus_b, i * TILESZ)
+               for i in range(SVC_B)])
+    manifest = os.path.join(dirname, "requests.json")
+    with open(manifest, "w") as fh:
+        json.dump({"requests": reqs}, fh, indent=1)
+    return manifest, load_requests(manifest), path
+
+
+class DispatchWatch:
+    """The service's batch solves, seen through two public calls:
+    ``solvers.batched.stack_lanes``, where a dispatch's packing starts,
+    and ``ExecutableCache.get_with_status``, the lookup that ends it and
+    hands out the solve.  The callable the lookup returns is wrapped: the
+    kernels' counts are set to 0 and the peak memory is reset just before
+    the solve, and read just after it, with the solve's seconds.  Pack
+    seconds run from the stacking to the lookup, the interval of the
+    service's own ``pack_s`` (the service publishes no pack time; the
+    reference's goes to the lifecycle spans, ROADMAP.md A11).  Launches
+    outside the solves (tile loading, manifests, shadow re-solves) are
+    tallied apart.  Route and reason come from the result manifests
+    (:func:`service_routes`).  The hybrid dispatch's stacked inputs and
+    its result are kept for :func:`service_parity`."""
+
+    def __init__(self):
+        self.dispatches = []
+        self.outside = {k: 0 for k in KERNELS}
+        self.hybrid = None
+        self._t_stack = None
+
+    def _tally(self):
+        for k, n in _read_launches().items():
+            self.outside[k] += n
+        _reset_launches()
+
+    def __enter__(self):
+        from sagecal_tpu_torch.serve.cache import ExecutableCache
+        from sagecal_tpu_torch.solvers import batched
+
+        self._saved = [(batched, "stack_lanes", batched.stack_lanes),
+                       (ExecutableCache, "get_with_status",
+                        ExecutableCache.get_with_status)]
+        stack, lookup = (fn for _, _, fn in self._saved)
+        watch = self
+        _reset_launches()
+
+        def stack_lanes(*a, **kw):
+            watch._t_stack = sync_clock()
+            return stack(*a, **kw)
+
+        def get_with_status(cache, bucket, fingerprint, **kw):
+            pack_s = sync_clock() - watch._t_stack
+            fn, hit = lookup(cache, bucket, fingerprint, **kw)
+
+            def solve(*a, **kw2):
+                args = inspect.signature(fn).bind(*a, **kw2).arguments
+                watch._tally()
+                torch.cuda.reset_peak_memory_stats()
+                t = sync_clock()
+                out = fn(*a, **kw2)
+                solve_s = sync_clock() - t
+                valid, lanes = args.get("valid"), args["p0"].shape[0]
+                watch.dispatches.append({
+                    "bucket": bucket.short(), "cache_hit": hit,
+                    "lanes": lanes,
+                    "real": lanes if valid is None else int(valid.sum()),
+                    "pack_s": pack_s, "solve_s": solve_s,
+                    "launches": _read_launches(),
+                    "peak_bytes": torch.cuda.max_memory_allocated()})
+                _reset_launches()
+                if args["p0"].shape[2] > 1:  # hybrid chunks
+                    watch.hybrid = (args["data"], args["cdata"], out)
+                return out
+
+            return solve, hit
+
+        for (owner, name, _), fn in zip(self._saved,
+                                        (stack_lanes, get_with_status)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        self._tally()
+        return False
+
+
+def service_routes(summary, watch) -> None:
+    """Each dispatch's route and reason from its requests' result
+    manifests (results come in dispatch order, one per real lane);
+    printed with the watch's numbers."""
+    results, i = summary["results"], 0
+    for n, d in enumerate(watch.dispatches, 1):
+        mine, i = results[i:i + d["real"]], i + d["real"]
+        routes = {(r["kernel_path"], r["kernel_path_reason"], r["bucket"])
+                  for r in mine}
+        if len(mine) != d["real"] or len(routes) != 1:
+            fail(f"service: dispatch {n}'s results disagree: {routes}")
+        d["route"], d["reason"], bucket = routes.pop()
+        if bucket != d["bucket"]:
+            fail(f"service: dispatch {n} solved {d['bucket']}, its results "
+                 f"name {bucket}")
+        d["requests"] = [r["request_id"] for r in mine]
+        print(f"[service] dispatch {n}: bucket {d['bucket']} ({d['real']} "
+              f"requests in {d['lanes']} lanes), route {d['route']} "
+              f"({d['reason']}), cache {'hit' if d['cache_hit'] else 'miss'},"
+              f" pack {d['pack_s']:.4f} s, solve {d['solve_s']:.3f} s, "
+              f"launches {d['launches']}, peak "
+              f"{d['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    if i != len(results):
+        fail(f"service: {len(results)} results from {i} solved lanes")
+
+
+def service_parity(hybrid) -> dict:
+    """Kernels #3/#4 against their plain version on one real lane of
+    tenant B's hybrid bucket: the lane's own packed inputs (its chunk
+    maps differ from cluster to cluster) through the station plan a
+    solve builds from them, at the gains its dispatch returned and at
+    those gains under a seeded kick (every chunk's gains then differ, and
+    the residual is of the model's size), each at nu None and at the
+    lane's mean nu."""
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_with_plain, plan_of, tile_cost_problem,
+    )
+    from sagecal_tpu_torch.solvers.sage import lane_of
+
+    data_b, cdata_b, out = hybrid
+    data, cdata = lane_of(data_b, 0), lane_of(cdata_b, 0)
+    if torch.unique(cdata.chunk_map, dim=0).shape[0] < 2:
+        fail("service parity: the lane's clusters share one chunk map")
+    p = out.p[0]
+    kick = np.random.default_rng(SEED).standard_normal(tuple(p.shape))
+    kicked = p + 0.1 * torch.as_tensor(kick, dtype=p.dtype, device=p.device)
+    nu = float(out.mean_nu[0])
+    worst = {"fused_cost_fwd": 0.0, "fused_cost_bwd": 0.0}
+    rows = []
+    for label, gains in (("solution", p), ("solution + kick", kicked)):
+        prob = tile_cost_problem(data, cdata, gains)
+        plan = plan_of(prob)
+        for nu_k in (None, nu):
+            o = compare_with_plain(prob, nu_k, plan)
+            ok = (o["cost_rel"] <= COST_TOL and o["grad_rel"] <= GRAD_TOL
+                  and o["bitwise_repeat"])
+            print(f"[service] objective parity, tenant B lane 0 at its "
+                  f"{label} (nc {prob.nc}), nu={nu_k}: cost_rel="
+                  f"{o['cost_rel']:.3e} grad_rel={o['grad_rel']:.3e} "
+                  f"bitwise_repeat={o['bitwise_repeat']} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                fail(f"objective kernel parity at tenant B's lane, {label} "
+                     f"nu={nu_k}: {o}")
+            worst["fused_cost_fwd"] = max(worst["fused_cost_fwd"],
+                                          o["cost_abs_err"])
+            worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
+                                          o["grad_max_abs_err"])
+            rows.append(dict(o, problem=label, nu=nu_k))
+    return {"worst": worst, "cases": rows}
+
+
+def service_run(manifest: str, reqs, out_dir: str):
+    """One ``run_serve`` through the serve CLI's parser and config over
+    the in-memory dataset -> (summary, DispatchWatch, wall seconds)."""
+    from sagecal_tpu_torch.apps.serve import (
+        build_parser, config_from_args, run_serve,
+    )
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--requests", manifest, "--out-dir", out_dir, *SVC_FLAGS]))
+    with DispatchWatch() as watch:
+        t = sync_clock()
+        summary = run_serve(cfg, requests=reqs, open_file=MemFile,
+                            log=lambda m: print(f"[service] {m}",
+                                                flush=True))
+        wall = sync_clock() - t
+    return summary, watch, wall
+
+
+def service_check(summary, watch) -> None:
+    """Run 1's checks (module doc, phase 12)."""
+    results = summary["results"]
+    if summary["served"] != SVC_A + SVC_B or len(results) != SVC_A + SVC_B:
+        fail(f"service: served {summary['served']} of {SVC_A + SVC_B}")
+    if summary["buckets"] != {"hits": 1, "misses": 2, "entries": 2}:
+        fail(f"service: cache stats {summary['buckets']}")
+    routes = [d["route"] for d in watch.dispatches]
+    if sorted(routes) != ["fused", "fused_batch", "fused_batch"]:
+        fail(f"service: dispatch routes {routes}")
+    kernels = {"fused_batch": ("fused_cost_batch_fwd", "fused_cost_batch_bwd"),
+               "fused": ("fused_cost_fwd", "fused_cost_bwd")}
+    for d in watch.dispatches:
+        own = kernels[d["route"]]
+        other = kernels["fused" if d["route"] == "fused_batch"
+                        else "fused_batch"]
+        if any(d["launches"][k] <= 0 for k in own):
+            fail(f"service: route {d['route']} launched none of {own}: "
+                 f"{d['launches']}")
+        if any(d["launches"][k] != 0 for k in other):
+            fail(f"service: route {d['route']} launched {other}: "
+                 f"{d['launches']}")
+    for r in results:
+        want = "fused" if r["tenant"] == "tenantB" else "fused_batch"
+        if r["kernel_path"] != want:
+            fail(f"service: {r['request_id']} solved on {r['kernel_path']}")
+        if r["verdict"] == "diverged" or not (
+                math.isfinite(r["res_1"]) and r["res_1"] < r["res_0"]):
+            fail(f"service: {r['request_id']} {r['verdict']} "
+                 f"{r['res_0']} -> {r['res_1']}")
+    if any(watch.outside.values()):
+        fail(f"service: kernels launched outside the batch solves (tile "
+             f"loading, manifests, shadow re-solves): {watch.outside}")
+
+
+def service_drift(summary, reqs, out_dir: str) -> list:
+    """The drift ledger of run 1: valid, one record per sampled id;
+    each record printed (reported, not gated on its verdict)."""
+    from sagecal_tpu_torch.obs.shadow import (
+        drift_path, read_drift, shadow_sampled, validate_drift,
+    )
+
+    rows = read_drift(drift_path(out_dir))
+    problems = validate_drift(rows)
+    if problems:
+        fail(f"service: drift ledger malformed: {problems}")
+    sampled = sorted(r.request_id for r in reqs
+                     if shadow_sampled(r.request_id, SVC_SHADOW_RATE))
+    got = sorted(r["request_id"] for r in rows)
+    if got != sampled:
+        fail(f"service: drift records for {got}, sampled {sampled}")
+    for r in rows:
+        print(f"[service] drift {r['request_id']} [{r['path_pair']}] "
+              f"{r['verdict']}: cost_rel_delta {r['cost_rel_delta']:.3e} "
+              f"gain_rel_err_max {r['gain_rel_err_max']:.3e} "
+              f"chi2_rel_delta {r.get('chi2_rel_delta', float('nan')):.3e} "
+              f"shadow {r['shadow_s']:.3f} s"
+              + (f" ({'; '.join(r['reasons'])})" if r["reasons"] else ""),
+              flush=True)
+    return [{k: r.get(k) for k in ("request_id", "path_pair", "verdict",
+                                   "reasons", "cost_rel_delta",
+                                   "gain_rel_err_max", "chi2_rel_delta",
+                                   "shadow_s")} for r in rows]
+
+
+def phase_service(dirname: str):
+    """The calibration service (module doc, phase 12)."""
+    from sagecal_tpu_torch.io.memh5 import remove
+
+    t_start = sync_clock()
+    manifest, reqs, path = service_workload(dirname)
+    make_s = sync_clock() - t_start
+    print(f"[service] {SVC_A} requests of tenant A and {SVC_B} of tenant B "
+          f"({SVC_HYBRID} hybrid chunks on 2 of {SERVE_CLUSTERS} clusters) "
+          f"over {SVC_TILES} tiles of {ROWS} rows, made in {make_s:.1f} s; "
+          f"flags {' '.join(SVC_FLAGS)}", flush=True)
+    out1 = os.path.join(dirname, "out1")
+    summary, watch, wall = service_run(manifest, reqs, out1)
+    verdicts = {}
+    for r in summary["results"]:
+        verdicts[r["verdict"]] = verdicts.get(r["verdict"], 0) + 1
+    service_routes(summary, watch)
+    print(f"[service] run 1: {wall:.1f} s, solves/s "
+          f"{summary['solves_per_sec']:.4f}, p50 latency "
+          f"{summary['p50_latency_s']:.3f} s, cache {summary['buckets']}, "
+          f"verdicts {verdicts}, shadow {summary['shadow']}", flush=True)
+    service_check(summary, watch)
+    drift = service_drift(summary, reqs, out1)
+    parity = service_parity(watch.hybrid)
+    watch.hybrid = None
+
+    # tenant A's first bucket again, in a new service: the same bits
+    again = reqs[:SERVE_B]
+    out2 = os.path.join(dirname, "out2")
+    summary2, watch2, wall2 = service_run(manifest, again, out2)
+    service_routes(summary2, watch2)
+    first = {r["request_id"]: r for r in summary["results"]}
+    same = summary2["served"] == SERVE_B and all(
+        open(r["solutions"], "rb").read()
+        == open(first[r["request_id"]]["solutions"], "rb").read()
+        and (r["res_0"], r["res_1"]) == (first[r["request_id"]]["res_0"],
+                                         first[r["request_id"]]["res_1"])
+        for r in summary2["results"])
+    print(f"[service] run 2 ({SERVE_B} requests of tenant A): {wall2:.1f} s, "
+          f"solutions files and res bit-identical to run 1: {same}",
+          flush=True)
+    if not same:
+        fail("service: serving the same requests again gave other bits")
+    remove(path)
+    out = {
+        "dataset_s": make_s, "wall_s": [wall, wall2],
+        "solves_per_sec": summary["solves_per_sec"],
+        "p50_latency_s": summary["p50_latency_s"],
+        "cache": summary["buckets"], "verdicts": verdicts,
+        "shadow": summary["shadow"], "dispatches": watch.dispatches,
+        "dispatches_run2": watch2.dispatches, "drift": drift,
+        "parity": parity, "launches_outside_solves": watch.outside,
+        "results": [{k: r[k] for k in ("request_id", "kernel_path",
+                                       "verdict", "res_0", "res_1",
+                                       "latency_s")}
+                    for r in summary["results"]],
+        "bitwise_repeat": same,
+    }
+    out["seconds"] = sync_clock() - t_start
+    print(f"[service] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def serve_times():
     """Batched kernel and plain-version times at the serve shapes (f32
     coherencies, robust cost with per-lane nu, as mode 3 runs it); #6 on
@@ -1835,6 +2218,18 @@ def main():
     path.update({k: "the serve path" for k in KERNELS[4:]})
     print_times(card, serve_t, launches, path)
     print_split(card, "fused_cost_batch_bwd", serve_t["fused_cost_batch_bwd"])
+    with tempfile.TemporaryDirectory() as d:
+        svc_out = phase_service(d)
+    for k, v in svc_out["parity"]["worst"].items():
+        worst[k] = max(worst[k], v)
+    print(f"[times] ({card}) service: run 1 {svc_out['wall_s'][0]:.1f} s "
+          f"({SVC_A + SVC_B} requests, {svc_out['solves_per_sec']:.4f} "
+          f"solves/s, p50 latency {svc_out['p50_latency_s']:.3f} s), run 2 "
+          f"{svc_out['wall_s'][1]:.1f} s; per dispatch "
+          + ", ".join(f"{d['route']} pack {d['pack_s']:.4f} s solve "
+                      f"{d['solve_s']:.3f} s peak "
+                      f"{d['peak_bytes'] / 2**30:.2f} GiB"
+                      for d in svc_out["dispatches"]), flush=True)
     print(f"[times] ({card}) BwdPlan build: north-star tile "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in plan_s.items())
           + f"; serve bucket ({SERVE_B} lanes, one plan) "
@@ -1864,6 +2259,7 @@ def main():
                        "extended": ext_out, "fullbatch": fb_out,
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
+                       "service": svc_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,

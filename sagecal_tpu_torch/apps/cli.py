@@ -3,7 +3,8 @@
 
 ``python -m sagecal_tpu_torch.apps.cli -d obs.h5 -s sky.txt -c
 sky.txt.cluster -t 60 ...`` calibrates a ``vis.h5`` tile by tile on the
-CUDA device (``apps/fullbatch.py``).  :func:`main` takes ``device`` for
+CUDA device (``apps/fullbatch.py``); ``... cli serve --requests r.json``
+runs the calibration service (``apps/serve.py``).  :func:`main` takes ``device`` for
 Python callers (``device="cpu"`` in the tests); the command line always
 means the card.  Exit codes: 0 done, 3 when ``--abort-on-divergence``
 stopped a diverged run, 2 for a usage error or a mode the port does not
@@ -17,10 +18,10 @@ import sys
 
 from sagecal_tpu_torch.apps.config import RunConfig
 
-# subcommands of the reference CLI and the ROADMAP.md item that ports
-# each one
+# subcommands of the reference CLI not ported yet and the ROADMAP.md
+# item that ports each one
 _SUBCOMMANDS = {
-    "diag": "A11", "serve": "A5", "fleet": "A9", "load": "A9",
+    "diag": "A11", "fleet": "A9", "load": "A9",
     "stream": "A9", "widefield": "A8", "refine": "A8", "spatial": "A7",
     "convert": "A10",
 }
@@ -296,6 +297,10 @@ def main(argv=None, device=None) -> int:
     """Run the command line ``argv`` (default ``sys.argv[1:]``) on
     ``device`` (None: the CUDA device).  Returns the exit code."""
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        from sagecal_tpu_torch.apps.serve import main as serve_main
+
+        return serve_main(argv[1:], device=device)
     if argv and argv[0] in _SUBCOMMANDS:
         return _not_ported(f"the {argv[0]!r} subcommand",
                            _SUBCOMMANDS[argv[0]])

@@ -3,8 +3,9 @@
 as the reference, ``use_f64=True`` and ``use_fused_predict=False``
 included.  Field names follow the reference's single-letter flags (see
 ``cli.py``).  Fields whose feature the port has not reached yet are
-kept, and ``apps/fullbatch.py`` refuses them by name.  The other config
-dataclasses of that module belong to the apps of ROADMAP.md's A7.
+kept, and ``apps/fullbatch.py`` refuses them by name.  :class:`ServeConfig`
+is the reference's too, for ``apps/serve.py``; the other config
+dataclasses of that module belong to the apps of ROADMAP.md's A7 and A9.
 """
 
 from __future__ import annotations
@@ -109,3 +110,63 @@ class RunConfig:
     # precision
     use_f64: bool = True
     verbose: bool = False  # -V
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The calibration service (``serve/``): the reference's fields and
+    defaults.  Solver fields are SERVICE-WIDE defaults; a request
+    manifest entry may override any of the per-request knobs
+    (``serve/request.py`` SOLVER_KNOBS)."""
+
+    requests: str = ""          # request manifest (JSON) path
+    out_dir: str = "serve-out"  # solutions + result manifests
+    batch: int = 8              # lanes per bucketed batch solve
+    # solver defaults (same semantics as RunConfig)
+    max_emiter: int = 3
+    max_iter: int = 2
+    max_lbfgs: int = 10
+    lbfgs_m: int = 7
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS
+    nulow: float = 2.0
+    nuhigh: float = 30.0
+    randomize: bool = True
+    res_ratio: float = 5.0
+    abort_on_divergence: bool = False
+    # elastic (per-tenant checkpoints; ROADMAP.md, A9: refused until then)
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    use_f64: bool = True
+    # the solves' joint LBFGS on the fused-objective CUDA kernels: the
+    # batched kernels (one launch per bucket) when the bucket passes
+    # solvers/batched.choose_batched_path, the solo kernels lane by lane
+    # or the torch-op cost otherwise.  f32 only: under use_f64 the fused
+    # request is ignored (the fullbatch precedent)
+    use_fused_predict: bool = False
+    # coherency-stack dtype on the fused paths ("f32" | "bf16")
+    coh_dtype: str = "f32"
+    verbose: bool = False
+    # per-tenant SLO specs (obs/slo.py): path to a slo.json; empty falls
+    # back to any "slos" key inside the request manifest
+    slo: str = ""
+    # cross-worker executable store (ROADMAP.md, A9: refused until then)
+    aot_store: str = ""
+    # cap on concurrently open TilePrefetcher streams (one per (tenant,
+    # dataset, tilesz, column)); 0 = unbounded.  Above the cap the least
+    # recently used stream is closed and reopened from its remaining
+    # tiles on next touch (serve_prefetch_evictions_total)
+    max_streams: int = 0
+    # shadow-solve auditing (obs/shadow.py): re-solve this fraction of
+    # requests on the reference path (torch-op cost, f32 coherencies,
+    # single lane) after each result manifest is written, appending a
+    # drift record to <out_dir>/drift.jsonl; sampling is a pure function
+    # of (shadow_seed, request_id); 0 builds no auditor at all
+    shadow_rate: float = 0.0
+    shadow_seed: int = 0
+    # per-process wall-clock budget for shadow re-solves; sampled
+    # requests past it are skipped and counted
+    shadow_budget_s: float = 120.0
+    # escalate a drift-tolerance breach (obs/shadow.DRIFT_TOLERANCES)
+    # from report-only to a run abort (exit 3) after the drain
+    abort_on_drift: bool = False

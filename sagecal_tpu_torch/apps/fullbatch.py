@@ -2,8 +2,10 @@
 ``sagecal_tpu/apps/fullbatch.py``).
 
 Per tile: load -> cluster coherencies -> SAGE solve -> solutions file ->
-residuals -> divergence guard, or with ``simulation_mode`` the model,
-added to or subtracted from the data.  The reference runs its host
+residuals (with ``per_channel``, ``-b``: each channel re-fit by a joint
+LBFGS from the averaged solution, then its residuals) -> divergence
+guard, or with ``simulation_mode`` the model, added to or subtracted
+from the data.  The reference runs its host
 stages under a CPU default device and ships each solve to the
 accelerator; here one device (:func:`run_fullbatch`'s ``device``) holds
 everything: coherencies of the averaged and the full-channel views, the
@@ -52,6 +54,7 @@ from sagecal_tpu_torch.ops.residual import (
     calculate_residuals, simulate_visibilities,
 )
 from sagecal_tpu_torch.solvers.batched import derive_lane_generators
+from sagecal_tpu_torch.solvers.batchmode import bfgsfit_minibatch
 from sagecal_tpu_torch.solvers.robust import whiten_uv_weights
 from sagecal_tpu_torch.solvers.sage import (
     SageConfig, build_cluster_data, solve_tile,
@@ -66,8 +69,6 @@ def _refuse(cfg: RunConfig) -> None:
     naming its ROADMAP.md item."""
     unported = (
         (cfg.beam_mode, "beam_mode (-B) needs ops/beam.py (ROADMAP.md, A6)"),
-        (cfg.per_channel, "per_channel (-b) needs solvers/batchmode.py "
-                          "(ROADMAP.md, A6)"),
         (cfg.influence, "influence (-i) needs ops/diagnostics.py "
                         "(ROADMAP.md, A6)"),
         (cfg.resume or cfg.checkpoint_every > 0,
@@ -114,6 +115,26 @@ def _params_of(jones_np, M: int, nchunk_max: int, N: int, cdtype, dev):
     """One solution interval (K, N, 2, 2) -> p (M, nchunk_max, 8N)."""
     j = torch.as_tensor(jones_np).to(cdtype).to(dev)
     return jones_to_params(j).reshape(M, nchunk_max, 8 * N)
+
+
+def _per_channel_residuals(cfg: RunConfig, full, cdata_full, p,
+                           ccid_index) -> np.ndarray:
+    """``-b``: each channel re-fit by a joint LBFGS from the averaged
+    solution ``p`` (``solvers/batchmode.py::bfgsfit_minibatch``), and its
+    residuals with its own solution; host (rows, F, 2, 2)."""
+    F = full.vis.shape[0]
+    res = np.empty((full.vis.shape[-1], F, 2, 2),
+                   np.complex128 if cfg.use_f64 else np.complex64)
+    for c in range(F):
+        dc = full.replace(vis=full.vis[c:c + 1], mask=full.mask[c:c + 1],
+                          freqs=full.freqs[c:c + 1])
+        cc = cdata_full.replace(coh=cdata_full.coh[:, c:c + 1])
+        p_c, _ = bfgsfit_minibatch(dc, cc, p, itmax=cfg.max_lbfgs,
+                                   lbfgs_m=cfg.lbfgs_m)
+        res[:, c] = _mat_of_flat(calculate_residuals(
+            dc, cc, p_c, ccid_index=ccid_index, rho=cfg.correction_rho,
+            phase_only=cfg.phase_only_correction))[:, 0]
+    return res
 
 
 def run_fullbatch(cfg: RunConfig, log=print, device=None,
@@ -285,11 +306,15 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
             jsol = params_to_jones(p).reshape(M * nchunk_max, N, 2, 2)
             solio.append_solutions(sol_fh, jsol.cpu().numpy())
 
-            with timer.phase("residual"):
-                res = _mat_of_flat(calculate_residuals(
-                    full, cdata_full, p, ccid_index=ccid_index,
-                    rho=cfg.correction_rho,
-                    phase_only=cfg.phase_only_correction))
+            if cfg.per_channel and meta.nchan > 1:
+                res = _per_channel_residuals(cfg, full, cdata_full, p,
+                                             ccid_index)
+            else:
+                with timer.phase("residual"):
+                    res = _mat_of_flat(calculate_residuals(
+                        full, cdata_full, p, ccid_index=ccid_index,
+                        rho=cfg.correction_rho,
+                        phase_only=cfg.phase_only_correction))
             with timer.phase("write"):
                 ds.write_tile(t0, res, column=cfg.out_column)
             # gains carry tile to tile, so iterations-to-converge per

@@ -6,14 +6,18 @@ The host feeds numbers it already holds (phase times, convergence
 records, quality gauges) into the process-wide registry after a solve
 returns.  With telemetry off (``SAGECAL_TELEMETRY`` unset or falsy)
 :func:`get_registry` hands out a shared :class:`NullRegistry` whose
-mutators do nothing, so call sites need no guards.  The snapshot merge
-and resume state of the reference (``export_state``/``restore_state``)
-serve the fleet and elastic apps and wait with them (ROADMAP.md, A9).
+mutators do nothing, so call sites need no guards.  ``export_state``
+gives the structured dump the serve path writes as a metrics snapshot
+at the end of a run (``obs/aggregate.py``), and a histogram's
+``quantile_bounds`` serve the drift report (``obs/drift.py``).  The
+reference's ``restore_state`` and histogram merge serve resume and the
+fleet view, and wait with them (ROADMAP.md, A9).
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import os
 import threading
 from typing import Dict, Optional, Tuple
@@ -90,6 +94,25 @@ class _Histogram:
             "max": self.vmax if self.count else None,
         }
 
+    def quantile_bounds(self, q: float) -> Optional[Tuple[float, float]]:
+        """Exact (lower, upper) bound on the q-quantile from the bucket
+        counts alone: the true quantile lies in the closed interval;
+        ``None`` when the histogram is empty."""
+        if self.count == 0:
+            return None
+        q = min(max(float(q), 0.0), 1.0)
+        rank = min(self.count, max(1, math.ceil(q * self.count - 1e-9)))
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += c
+            if cum >= rank:
+                lo = self.buckets[i - 1] if i > 0 else float("-inf")
+                hi = self.buckets[i] if i < len(self.buckets) else float("inf")
+                # observed extremes tighten open-ended edges
+                return (max(lo, self.vmin), min(hi, self.vmax))
+        return (self.vmin, self.vmax)
+
+
 class MetricsRegistry:
     """Threadsafe counter/gauge/histogram store with Prometheus text
     export (exposition format 0.0.4).  Metric names should be
@@ -156,6 +179,33 @@ class MetricsRegistry:
                 for key, h in series.items():
                     out["histograms"][name + _fmt_labels(key)] = h.snapshot()
             return out
+
+    def export_state(self) -> dict:
+        """Structured, JSON-able, label-preserving dump: labels kept as
+        ``[key, value]`` pairs, so another process can rebuild the exact
+        series (the metrics snapshot of ``obs/aggregate.py``)."""
+        with self._lock:
+            return {
+                "schema_version": 1,
+                "counters": [
+                    {"name": name, "labels": [list(kv) for kv in key],
+                     "value": v}
+                    for name, series in self._counters.items()
+                    for key, v in series.items()
+                ],
+                "gauges": [
+                    {"name": name, "labels": [list(kv) for kv in key],
+                     "value": v}
+                    for name, series in self._gauges.items()
+                    for key, v in series.items()
+                ],
+                "histograms": [
+                    {"name": name, "labels": [list(kv) for kv in key],
+                     **h.snapshot()}
+                    for name, series in self._histograms.items()
+                    for key, h in series.items()
+                ],
+            }
 
     def to_prometheus(self) -> str:
         """Prometheus text exposition (scrape a long run by dumping this

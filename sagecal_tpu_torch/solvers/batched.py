@@ -19,8 +19,11 @@ bucket's joint LBFGS in lock-step on the batched fused-objective kernels
 and ``"xla"`` solve lane by lane with the solo fused kernels or the
 torch-op joint cost (the reference's vmap of ``sagefit_packed``; the
 route names are the reference's, "xla" being the torch-op cost here).
-``lbfgs_minibatch_batch`` is not ported yet: it waits for
-``solvers/batchmode.py`` (ROADMAP.md Queue A).
+On the lane-by-lane routes each lane's quality (``collect_quality``) is
+stacked on the leading lane axis, as the reference's vmap returns it.
+:func:`lbfgs_minibatch_batch` runs B minibatch joint-LBFGS steps
+(``solvers/batchmode.py``) lane by lane, each lane with its own
+curvature memory.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.core.types import VisData
+from sagecal_tpu_torch.ops.quality import stack_quality
+from sagecal_tpu_torch.solvers.batchmode import bfgsfit_minibatch
+from sagecal_tpu_torch.solvers.lbfgs import LBFGSMemory, batched_memory
 from sagecal_tpu_torch.solvers.sage import (
     ClusterData, SageConfig, SageResult, lane_of, sagefit,
     sagefit_batched_fused,
@@ -110,12 +116,17 @@ def stack_lanes(lanes: Sequence[tuple]):
 
 
 def _stack_results(results) -> SageResult:
+    quality = None
+    if results[0].quality is not None:
+        quality = {k: stack_quality([r.quality[k] for r in results])
+                   for k in ("em", "final")}
     return SageResult(
         **{k: torch.stack([getattr(r, k) for r in results])
            for k in ("p", "res_0", "res_1", "mean_nu", "diverged")},
         phase_seconds={k: sum(r.phase_seconds[k] for r in results)
                        for k in ("em", "lbfgs")},
-        lbfgs_iterations=[r.lbfgs_iterations for r in results])
+        lbfgs_iterations=[r.lbfgs_iterations for r in results],
+        quality=quality)
 
 
 def sagefit_packed_batch(data: VisData, cdata: ClusterData, vis_re, vis_im,
@@ -151,3 +162,49 @@ def sagefit_packed_batch(data: VisData, cdata: ClusterData, vis_re, vis_im,
         sagefit(lane_of(data, b), lane_of(cdata, b), p0[b], config,
                 generators[b], device=device)
         for b in range(B)])
+
+
+def _lane_memory(mem: LBFGSMemory, b: int) -> LBFGSMemory:
+    return LBFGSMemory(s=mem.s[b], y=mem.y[b], rho=mem.rho[b],
+                       vacant=int(mem.vacant[b]), nfilled=int(mem.nfilled[b]),
+                       niter=int(mem.niter[b]),
+                       running_avg=mem.running_avg[b],
+                       running_avg_sq=mem.running_avg_sq[b])
+
+
+def _stack_memory(mems) -> LBFGSMemory:
+    dev = mems[0].s.device
+    ints = lambda k: torch.tensor([getattr(m, k) for m in mems],
+                                  dtype=torch.int64, device=dev)
+    stack = lambda k: torch.stack([getattr(m, k) for m in mems])
+    return LBFGSMemory(s=stack("s"), y=stack("y"), rho=stack("rho"),
+                       vacant=ints("vacant"), nfilled=ints("nfilled"),
+                       niter=ints("niter"), running_avg=stack("running_avg"),
+                       running_avg_sq=stack("running_avg_sq"))
+
+
+def lbfgs_minibatch_batch(data: VisData, cdata: ClusterData, p0,
+                          memory: Optional[LBFGSMemory] = None,
+                          itmax: int = 10, lbfgs_m: int = 7,
+                          robust_nu: Optional[float] = None):
+    """``B`` independent minibatch joint-LBFGS steps: lane ``b`` is
+    :func:`bfgsfit_minibatch` on lane ``b`` of ``data``/``cdata`` from
+    ``p0[b]`` (the reference vmaps the same function).
+
+    ``p0`` is (B, M, nchunk_max, 8N); ``memory`` (when resuming a stream)
+    is an :class:`LBFGSMemory` whose every field carries the lane axis,
+    the layout of :func:`sagecal_tpu_torch.solvers.lbfgs.batched_memory`
+    (``vacant``/``nfilled``/``niter`` as (B,) int64 tensors), so each
+    tenant's curvature pairs persist independently across its
+    minibatches.  Returns ``(p_new, memory)`` in the same layouts."""
+    p0 = torch.as_tensor(p0)
+    B = p0.shape[0]
+    if memory is None:
+        memory = batched_memory(B, p0[0].numel(), lbfgs_m, p0.dtype,
+                                p0.device)
+    outs = [bfgsfit_minibatch(lane_of(data, b), lane_of(cdata, b), p0[b],
+                              memory=_lane_memory(memory, b), itmax=itmax,
+                              lbfgs_m=lbfgs_m, robust_nu=robust_nu)
+            for b in range(B)]
+    return (torch.stack([p for p, _ in outs]),
+            _stack_memory([m for _, m in outs]))

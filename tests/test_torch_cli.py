@@ -5,7 +5,8 @@ package's ``RunConfig`` field by field for a spread of argv (the same
 flags and defaults); ``main(argv, device="cpu")`` runs a fullbatch and
 returns 0, or 3 when ``--abort-on-divergence`` stops a diverged run;
 every mode the port does not have yet exits 2 naming its ROADMAP.md
-item.
+item (``serve`` is dispatched; its unported options are, tests/
+test_torch_serve.py).
 """
 
 import dataclasses
@@ -114,7 +115,8 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve"], "A5"), (["fleet"], "A9"), (["load"], "A9"),
+    (["serve", "--requests", "r.json", "--resume"], "A9"),
+    (["fleet"], "A9"), (["load"], "A9"),
     (["stream"], "A9"), (["widefield"], "A8"), (["refine"], "A8"),
     (["spatial"], "A7"), (["convert", "a.ms", "b.h5"], "A10"),
     (["diag", "events"], "A11"),

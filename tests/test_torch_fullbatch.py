@@ -260,7 +260,6 @@ def _close_json(a, b):
 
 REFUSED = {
     "beam_mode": (dict(beam_mode=1), "A6"),
-    "per_channel": (dict(per_channel=True), "A6"),
     "influence": (dict(influence=True), "A6"),
     "resume": (dict(resume=True), "A9"),
     "checkpoint_every": (dict(checkpoint_every=1), "A9"),

@@ -39,6 +39,12 @@ MODULES = (
     "sagecal_tpu_torch.apps.fullbatch", "sagecal_tpu_torch.apps.cli",
     "sagecal_tpu_torch.tools.solve_outputs",
     "sagecal_tpu_torch.tools.telemetry_cost",
+    "sagecal_tpu_torch.serve.request", "sagecal_tpu_torch.serve.cache",
+    "sagecal_tpu_torch.serve.service", "sagecal_tpu_torch.serve.synthetic",
+    "sagecal_tpu_torch.apps.serve", "sagecal_tpu_torch.elastic",
+    "sagecal_tpu_torch.elastic.checkpoint", "sagecal_tpu_torch.obs.slo",
+    "sagecal_tpu_torch.obs.shadow", "sagecal_tpu_torch.obs.drift",
+    "sagecal_tpu_torch.obs.aggregate", "sagecal_tpu_torch.solvers.batchmode",
 )
 
 

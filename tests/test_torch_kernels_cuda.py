@@ -27,7 +27,10 @@ The LM assembly, the RTR gradient and Hessian-vector product, a whole
 default-mode solve and a mode-5 (robust RTR) solve must be bit-identical
 on repeat: they sum in a fixed order too.  The kbisect probes: max abs
 error <= 1e-5 of the plain output's max abs, bit-identical on repeat,
-exactly 0 where every station index is out of range.
+exactly 0 where every station index is out of range.  The calibration
+service at f32 ``--fused``: each route launches its kernels and none of
+the other's, a failing kernel fails the run (no fallback), and each
+dispatch's lanes are bit-identical to a direct batched solve.
 """
 
 import pytest
@@ -845,3 +848,135 @@ def test_fullbatch_on_the_card_matches_the_cpu_and_repeats(cuda, tmp_path):
     ga, wa = (read_solutions(str(tmp_path / n))[1] for n in ("x.sol", "y.sol"))
     assert ga.shape == (2, 2, 7, 2, 2) and np.abs(ga - wa).max() <= 5e-3
     assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()
+
+
+def _service_requests(tmp_path, device):
+    """The port's synthetic workload on an in-memory dataset (one tenant,
+    7 stations, 2 tiles of 2 timeslots) as tenant0's 4 requests, and
+    tenant1's 2 requests of the same tiles with cluster 1 at 2 hybrid
+    chunks: at batch 2, two "fused_batch" buckets and one "fused"."""
+    import json
+    import os
+
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.serve.request import load_requests
+    from sagecal_tpu_torch.serve.synthetic import make_synthetic_workload
+
+    work = str(tmp_path / "w")
+    manifest = make_synthetic_workload(work, 4, n_tenants=1,
+                                       shapes=((7, 4, 2),),
+                                       open_file=memh5.MemFile, device=device)
+    doc = json.load(open(manifest))
+    hybrid = os.path.join(work, "sky.txt.hybrid")
+    with open(hybrid, "w") as f:
+        f.write("1 2 P1\n2 1 P2\n")
+    doc["requests"] += [dict(doc["requests"][i], request_id=f"hyb{i}",
+                             tenant="tenant1", cluster_file=hybrid)
+                        for i in range(2)]
+    with open(manifest, "w") as f:
+        json.dump(doc, f)
+    return load_requests(manifest)
+
+
+def _serve_on(tmp_path, reqs, device, tag):
+    from sagecal_tpu_torch.apps.config import ServeConfig
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.serve.service import CalibrationService
+
+    cfg = ServeConfig(out_dir=str(tmp_path / tag), batch=2, use_f64=False,
+                      use_fused_predict=True)
+    svc = CalibrationService(cfg, log=lambda *a: None, device=device,
+                             open_file=memh5.MemFile)
+    return svc, svc.run(reqs)
+
+
+def _counts():
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    return [getattr(rk, f"fused_cost{k}_cuda").launches
+            for k in ("_fwd", "_bwd", "_batch_fwd", "_batch_bwd")]
+
+
+def _zero_counts():
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    for k in ("_fwd", "_bwd", "_batch_fwd", "_batch_bwd"):
+        getattr(rk, f"fused_cost{k}_cuda").launches = 0
+
+
+def test_service_routes_launch_their_kernels(cuda, tmp_path):
+    """The service at f32 --fused on the card: tenant0's buckets on
+    "fused_batch" launch #5/#6 and not #3/#4; tenant1's hybrid bucket on
+    "fused" launches #3/#4 and not #5/#6; every residual falls."""
+    reqs = _service_requests(tmp_path, cuda)
+    for tenant, route, on, off in (("tenant0", "fused_batch", (2, 3), (0, 1)),
+                                   ("tenant1", "fused", (0, 1), (2, 3))):
+        _zero_counts()
+        svc, summary = _serve_on(tmp_path, [r for r in reqs
+                                            if r.tenant == tenant],
+                                 cuda, tenant)
+        n = _counts()
+        assert all(n[i] > 0 for i in on) and all(n[i] == 0 for i in off), n
+        for r in summary["results"]:
+            assert r["kernel_path"] == route
+            assert r["verdict"] != "diverged" and r["res_1"] < r["res_0"]
+
+
+@pytest.mark.parametrize("kernel", ["fused_cost_batch_fwd", "fused_cost_fwd"])
+def test_service_raises_when_a_kernel_fails(cuda, tmp_path, monkeypatch,
+                                            kernel):
+    """A kernel that fails on the card fails the service: no fallback to
+    the plain version or the torch-op cost."""
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    reqs = _service_requests(tmp_path, cuda)
+    tenant = "tenant0" if "batch" in kernel else "tenant1"
+
+    def broken(*a, **k):
+        raise RuntimeError(f"{kernel} made to fail")
+
+    monkeypatch.setattr(rk, f"{kernel}_cuda", broken)
+    with pytest.raises(RuntimeError, match="made to fail"):
+        _serve_on(tmp_path, [r for r in reqs if r.tenant == tenant], cuda,
+                  "broken")
+
+
+def test_service_lanes_equal_a_direct_batch_solve(cuda, tmp_path,
+                                                  monkeypatch):
+    """Each dispatch's lanes are bit-identical to ``sagefit_packed_batch``
+    called directly on the same stacked inputs with lane generators
+    derived from the request ids."""
+    import zlib
+
+    import torch
+
+    from sagecal_tpu_torch.serve.cache import ExecutableCache
+    from sagecal_tpu_torch.solvers.batched import (
+        derive_lane_generators, sagefit_packed_batch,
+    )
+
+    calls = []
+    lookup = ExecutableCache.get_with_status
+
+    def recording(cache, bucket, fp, **kw):
+        fn, hit = lookup(cache, bucket, fp, **kw)
+
+        def run(*args, **k):
+            out = fn(*args, **k)
+            calls.append((args, kw["batched_fused"], out))
+            return out
+        return run, hit
+
+    monkeypatch.setattr(ExecutableCache, "get_with_status", recording)
+    reqs = _service_requests(tmp_path, cuda)
+    _, summary = _serve_on(tmp_path, reqs, cuda, "lanes")
+    assert sorted(fused for _, fused, _ in calls) == [False, True, True]
+    ids = [r["request_id"] for r in summary["results"]]
+    for args, fused, out in calls:
+        batch_ids, ids = ids[:2], ids[2:]
+        gens = derive_lane_generators(
+            0, [zlib.crc32(i.encode()) for i in batch_ids])
+        direct = sagefit_packed_batch(*args[:8], gens, args[9],
+                                      batched_fused=fused, device=cuda)
+        assert torch.equal(direct.p, out.p)
+        assert torch.equal(direct.res_1, out.res_1)
