@@ -72,7 +72,7 @@ each printing lines of its own; any failure exits non-zero:
             res_0.  Each solve's wall, EM and LBFGS seconds, the RTR/NSD
             host syncs per cluster solve and peak device memory;
 7. fullbatch the fullbatch app, through the CLI's parser and config
-            (``-j 3 -e 1 -g 6 -l 10 -t 60 --f32 --fused``) and
+            (``-j 3 -e 1 -g 3 -l 10 -t 60 --f32 --fused``) and
             ``run_fullbatch`` on an in-memory ``vis.h5``
             (``io/memh5.py::MemFile``; the card's machine has no h5py)
             made by the port's ``create_dataset``/``simulate_dataset``:
@@ -172,7 +172,31 @@ each printing lines of its own; any failure exits non-zero:
             its station plan, at the gains it returned and at those
             under a seeded kick, nu None and the lane's mean nu); then
             tenant A's first 8 requests served again by a new service:
-            solutions files and residuals bit-identical.
+            solutions files and residuals bit-identical;
+13. beam    beam-aware calibration (run between phases 7 and 8): an
+            in-memory ``vis.h5`` of one north-star tile with a LOFAR-HBA-
+            like ``/beam`` group (STAT_TILE: 16 dipoles a tile, then 48
+            tile centroids for the 38 remote stations and 24, masked to
+            64, for the 24 core ones), its visibilities phase 4's
+            100-cluster sky through that beam (-B 2, the HBA element
+            table at 150 MHz) under true gains, noise 1e-3.  Checks:
+            ``build_cluster_data_withbeam`` for -B 1, 2, 3 and 5
+            (wideband), each timed with its peak device memory, finite,
+            and -B 2's with off-diagonal (XY) power; #3/#4 against their
+            plain version on the -B 2 coherencies at identity and random
+            gains, Gaussian and robust, at phase 3's tolerances; the CLI
+            with ``-j 3 -e 1 -g 6 -l 10 -t 60 --f32 --fused -B 2
+            --element-coeffs hba``:
+            res_1 < res_0, #3/#4 launched in the solve and #1 once in
+            the residual step (counts set to 0 before the tile, read at
+            its closing log line); a second run with SAGECAL_TRACE=1 and
+            SAGECAL_FLIGHT=1 bit-identical (results, solutions file,
+            residual column), its span JSONL and ``trace.json`` loading
+            with the run, tile and phase spans, and the flight
+            recorder's closing heartbeat written; the same tile with
+            ``-i``: every influence value finite, the split of
+            ``influence_function``'s seconds (residual, Hessians with
+            the least squares, dR, host eigensolves) printed.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -227,11 +251,14 @@ EXT_BOUND = 1.5  # param_bound of the LBFGS-B solve (mode 3)
 # and one EM pass (cut depth; the width is the north-star tile's)
 EXT_BUCKET_MAX_EMITER, EXT_BUCKET_MAX_ITER = 1, SERVE_MAX_ITER
 # the fullbatch app: two tiles of the north-star geometry through the
-# CLI's flags; telemetry off/on in robust RTR (the mode with counted host
-# reads) on the warm phase's sky
+# CLI's flags (APP_FLAGS, with -g cut from 6 to 3 since the beam phase
+# joined, to keep the script near 400 s on an "NVIDIA H100 80GB HBM3,
+# 700.00 W"); telemetry off/on in robust RTR
+# (the mode with counted host reads) on the warm phase's sky
 FB_NTIME = 2 * TILESZ
-FB_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
-            "-t", str(TILESZ))
+APP_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
+             "-t", str(TILESZ))
+FB_FLAGS = APP_FLAGS[:6] + ("-g", "3") + APP_FLAGS[8:]
 FB_TEL_MODE = 5
 
 # the calibration service: the reference serve defaults (-j 3 -e 3 -g 2
@@ -1016,9 +1043,10 @@ class TileLog:
 
 
 def fullbatch_cli(path: str, sky: str, clus: str, sol: str, extra=(),
-                  log=None):
-    """The CLI's path: ``apps.cli``'s parser and config, then
-    ``run_fullbatch`` on the CUDA device over the in-memory file."""
+                  log=None, flags=FB_FLAGS):
+    """The CLI's path: ``apps.cli``'s parser and config over ``flags`` and
+    ``extra``, then ``run_fullbatch`` on the CUDA device over the
+    in-memory file."""
     from sagecal_tpu_torch.apps.cli import (
         _warn_dropped_fused, build_parser, config_from_args,
     )
@@ -1026,7 +1054,7 @@ def fullbatch_cli(path: str, sky: str, clus: str, sol: str, extra=(),
     from sagecal_tpu_torch.io.memh5 import MemFile
 
     args = build_parser().parse_args(["-d", path, "-s", sky, "-c", clus, "-p",
-                                      sol, *FB_FLAGS, *extra])
+                                      sol, *flags, *extra])
     _warn_dropped_fused(args, log or print)
     return run_fullbatch(config_from_args(args), log=log or print,
                          open_file=MemFile)
@@ -1248,6 +1276,310 @@ def fullbatch_telemetry(args, dirname: str):
         fail(f"fullbatch telemetry: manifest {manifest}")
     return {"solve": rec, "bitwise": same, "app_bitwise": app_same,
             "events": counts}
+
+
+# the beam phase: one north-star tile with a LOFAR-HBA-like /beam group
+# (STAT_TILE: 16 dipoles of a tile, then the tile centroids), the
+# reference -B codes timed, and the CLI with -B 2 and --element-coeffs
+BEAM_CODES = (1, 2, 3, 5)  # array, array x element, element, wideband full
+BEAM_CORE, BEAM_REMOTE_TILES, BEAM_CORE_TILES = 24, 48, 24
+BEAM_FLAGS = APP_FLAGS + ("-B", "2", "--element-coeffs", "hba")
+
+
+def hba_beam_group(seed: int = 11) -> dict:
+    """A LOFAR-HBA-like ``/beam`` group for NSTATIONS stations, STAT_TILE:
+    per station the 16 dipoles of a tile (a 4 x 4 grid at 1.25 m), then
+    its tile centroids, 48 for the NSTATIONS - BEAM_CORE remote stations
+    (a 41 m field) and 24 for the BEAM_CORE core stations (a 31 m field,
+    masked to 64 entries); core stations within ~2 km of the array
+    centre, remote ones within ~60 km."""
+    rng = np.random.default_rng(seed)
+    K = 16 + BEAM_REMOTE_TILES
+    g = np.arange(4) * 1.25 - 1.875
+    dx, dy = (a.reshape(-1) for a in np.meshgrid(g, g))
+    x, y = np.zeros((NSTATIONS, K)), np.zeros((NSTATIONS, K))
+    mask = np.zeros((NSTATIONS, K), bool)
+    x[:, :16], y[:, :16] = dx, dy
+    mask[:, :16] = True
+    lon0, lat0 = math.radians(6.869837), math.radians(52.915122)
+    lon, lat = np.empty(NSTATIONS), np.empty(NSTATIONS)
+    for s in range(NSTATIONS):
+        core = s < BEAM_CORE
+        ntile = BEAM_CORE_TILES if core else BEAM_REMOTE_TILES
+        radius = 15.5 if core else 20.5
+        r = radius * np.sqrt(rng.uniform(0.0, 1.0, ntile))
+        th = rng.uniform(0.0, 2 * np.pi, ntile)
+        x[s, 16:16 + ntile], y[s, 16:16 + ntile] = r * np.cos(th), r * np.sin(th)
+        mask[s, 16:16 + ntile] = True
+        spread = 2e3 if core else 6e4  # metres
+        lon[s] = lon0 + rng.uniform(-1, 1) * spread / 6.371e6 / math.cos(lat0)
+        lat[s] = lat0 + rng.uniform(-1, 1) * spread / 6.371e6
+    return dict(longitude=lon, latitude=lat, elem_x=x, elem_y=y,
+                elem_z=np.zeros((NSTATIONS, K)), elem_mask=mask,
+                b_ra0=RA0, b_dec0=DEC0, bf_type=2, beam_f0=150e6)
+
+
+def beam_dataset(dirname: str):
+    """An in-memory ``vis.h5`` of one north-star tile (TILESZ timeslots x
+    NCHAN channels) with ``hba_beam_group``'s ``/beam`` group, its phase
+    centre the sky's, and visibilities of write_sky's 100 point clusters
+    through the beam (-B 2, the HBA element table) under true gains,
+    noise 1e-3.  Returns (path, sky file, cluster file)."""
+    from sagecal_tpu_torch.apps.fullbatch import _REF_BEAM_MODES
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.dataset import (
+        VisDataset, simulate_dataset, write_beam_group,
+    )
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.ops.beam import ElementCoeffs
+    from sagecal_tpu_torch.solvers.sage import (
+        build_cluster_data_withbeam, predict_full_model,
+    )
+
+    sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name="beam")
+    path = os.path.join(dirname, "beam.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=TILESZ, nchan=NCHAN,
+                     seed=0, dec0=DEC0, open_file=MemFile)
+    with MemFile(path, "r+") as f:
+        f.attrs["ra0"] = RA0
+        write_beam_group(f, hba_beam_group())
+    with VisDataset(path, "r+", MemFile) as ds:
+        meta = ds.meta
+        geom, pointing = ds.load_beam()
+        full = ds.load_tile(0, TILESZ, average_channels=False)
+        clusters, cdefs, _ = load_sky(sky, clus, meta.ra0, meta.dec0,
+                                      dtype=torch.float64)
+        mode, wideband = _REF_BEAM_MODES[2]
+        cdata = build_cluster_data_withbeam(
+            full, clusters, [c.nchunk for c in cdefs], geom, pointing,
+            ElementCoeffs.from_table("hba", meta.freq0), mode,
+            ds.time_jd(0, TILESZ), meta.ra0, meta.dec0,
+            fdelta=meta.deltaf / NCHAN, wideband=wideband)
+        truth = jones_to_params(random_jones(NCLUSTERS, NSTATIONS, seed=3,
+                                             amp=0.2, dtype=np.complex128))
+        with torch.no_grad():
+            model = predict_full_model(truth[:, None, :], cdata, full)
+        rng = np.random.default_rng(5)
+        vis = model.permute(2, 0, 1).reshape(ROWS, NCHAN, 2, 2).cpu().numpy()
+        vis = vis + 1e-3 * (rng.standard_normal(vis.shape)
+                            + 1j * rng.standard_normal(vis.shape))
+        ds.write_tile(0, vis, column="vis")
+    return path, sky, clus
+
+
+def beam_coherencies(path: str, sky: str, clus: str):
+    """``build_cluster_data_withbeam`` at the north-star tile (the
+    solver's channel-averaged view, f32) for each of BEAM_CODES, each
+    timed with its peak device memory; returns (rows, the tile, the -B 2
+    ClusterData)."""
+    from sagecal_tpu_torch.apps.fullbatch import _REF_BEAM_MODES
+    from sagecal_tpu_torch.io.dataset import VisDataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.ops.beam import DOBEAM_ARRAY, ElementCoeffs
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data_withbeam
+
+    with VisDataset(path, "r", MemFile) as ds:
+        meta = ds.meta
+        geom, pointing = ds.load_beam()
+        data = ds.load_tile(0, TILESZ, dtype=np.float32)
+        jd = ds.time_jd(0, TILESZ)
+    clusters, cdefs, _ = load_sky(sky, clus, meta.ra0, meta.dec0)
+    coeff = ElementCoeffs.from_table("hba", meta.freq0)
+    rows, keep = [], None
+    for code in BEAM_CODES:
+        mode, wideband = _REF_BEAM_MODES[code]
+        torch.cuda.reset_peak_memory_stats()
+        t = sync_clock()
+        cd = build_cluster_data_withbeam(
+            data, clusters, [c.nchunk for c in cdefs], geom, pointing,
+            None if mode == DOBEAM_ARRAY else coeff, mode, jd, meta.ra0,
+            meta.dec0, wideband=wideband)
+        secs = sync_clock() - t
+        peak = torch.cuda.max_memory_allocated()
+        off = float(cd.coh[:, :, 1].abs().max() / cd.coh.abs().max())
+        finite = bool(torch.isfinite(cd.coh).all())
+        rows.append({"code": code, "seconds": secs, "peak_bytes": peak,
+                     "offdiag_rel": off, "finite": finite})
+        print(f"[beam] build_cluster_data_withbeam -B {code} (mode {mode}, "
+              f"wideband {wideband}): {secs:.3f} s, peak device memory "
+              f"{peak / 2**30:.3f} GiB, coherencies {tuple(cd.coh.shape)}, "
+              f"max |XY|/max |C| {off:.3e}", flush=True)
+        if not finite:
+            fail(f"beam coherencies -B {code} not finite")
+        if code == 2:
+            keep = cd
+        del cd
+    if not rows[1]["offdiag_rel"] > 1e-4:
+        fail("-B 2 coherencies have no off-diagonal (XY) power")
+    return rows, data, keep
+
+
+def beam_parity(data, cdata) -> dict:
+    """#3/#4 against their plain version on the -B 2 coherencies (complex
+    off-diagonal 2x2s, which an unpolarized unbeamed point sky never
+    has): the tile's packed inputs at identity gains (the solve's start)
+    and at seeded random gains, Gaussian and robust (nu 5), through the
+    station plan a solve builds, at phase 3's tolerances."""
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_with_plain, plan_of, tile_cost_problem,
+    )
+
+    worst = {"fused_cost_fwd": 0.0, "fused_cost_bwd": 0.0}
+    cases = []
+    for label, amp in (("identity gains", 0.0), ("random gains", 0.2)):
+        p = jones_to_params(random_jones(NCLUSTERS, NSTATIONS, seed=9,
+                                         amp=amp))[:, None, :]
+        prob = tile_cost_problem(data, cdata, p)
+        plan = plan_of(prob)
+        for nu in (None, 5.0):
+            o = compare_with_plain(prob, nu, plan)
+            ok = (o["cost_rel"] <= COST_TOL and o["grad_rel"] <= GRAD_TOL
+                  and o["bitwise_repeat"])
+            print(f"[beam] objective parity on -B 2 coherencies, {label}, "
+                  f"nu={nu}: cost_rel={o['cost_rel']:.3e} "
+                  f"grad_rel={o['grad_rel']:.3e} bitwise_repeat="
+                  f"{o['bitwise_repeat']} {'ok' if ok else 'FAILED'}",
+                  flush=True)
+            if not ok:
+                fail(f"objective kernel parity on beam coherencies, {label} "
+                     f"nu={nu}: {o}")
+            worst["fused_cost_fwd"] = max(worst["fused_cost_fwd"],
+                                          o["cost_abs_err"])
+            worst["fused_cost_bwd"] = max(worst["fused_cost_bwd"],
+                                          o["grad_max_abs_err"])
+            cases.append(dict(o, problem=label, nu=nu))
+    return {"worst": worst, "cases": cases}
+
+
+def beam_cli(path, sky, clus, sol, extra=(), env=None):
+    """One app run through the CLI with BEAM_FLAGS, its
+    kernel launches counted from 0 (``TileLog`` for a residual tile), the
+    environment ``env`` set around it; returns (results, TileLog, wall
+    seconds, launches of the whole run)."""
+    log = TileLog()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    try:
+        results = fullbatch_cli(path, sky, clus, sol, extra=extra, log=log,
+                                flags=BEAM_FLAGS)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = sync_clock() - t
+    launches = {k: c.launches for k, c in log.kernels.items()}
+    return results, log, wall, launches
+
+
+def phase_beam(dirname: str):
+    """Beam-aware calibration and influence diagnostics (module doc,
+    phase 13)."""
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.obs.trace import default_chrome_path, read_spans
+    from sagecal_tpu_torch.ops import diagnostics
+
+    t_start = sync_clock()
+    t = sync_clock()
+    path, sky, clus = beam_dataset(dirname)
+    out = {"dataset_s": sync_clock() - t}
+    print(f"[beam] one tile of {ROWS} rows x {NCHAN} channels, "
+          f"{NCLUSTERS} clusters, STAT_TILE geometry ({BEAM_CORE} core "
+          f"stations of {BEAM_CORE_TILES} tiles, {NSTATIONS - BEAM_CORE} "
+          f"remote of {BEAM_REMOTE_TILES}, 16 dipoles a tile), made through "
+          f"the beam in {out['dataset_s']:.1f} s; flags "
+          f"{' '.join(BEAM_FLAGS)}", flush=True)
+    out["coherencies"], data, cdata = beam_coherencies(path, sky, clus)
+    out["parity"] = beam_parity(data, cdata)
+    del data, cdata
+    torch.cuda.empty_cache()
+
+    # the CLI with -B 2, twice: the second with the span tracer and the
+    # flight recorder on, which must change no bit
+    sol = os.path.join(dirname, "beam.solutions")
+    trace_log = os.path.join(dirname, "beam.spans.jsonl")
+    hb = os.path.join(dirname, "beam.heartbeat")
+    runs = []
+    for k, env in enumerate((None, {
+            "SAGECAL_TRACE": "1", "SAGECAL_TRACE_LOG": trace_log,
+            "SAGECAL_FLIGHT": "1", "SAGECAL_HEARTBEAT_FILE": hb})):
+        results, log, wall, _ = beam_cli(path, sky, clus, sol, env=env)
+        runs.append({"results": results, "tiles": log.tiles, "wall_s": wall,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "solutions": open(sol).read(),
+                     "column": np.asarray(MemFile(path, "r")["corrected"])})
+        print(f"[beam] -B 2 run {k + 1}{' (traced)' if env else ''}: "
+              f"{wall:.1f} s, peak device memory "
+              f"{runs[-1]['peak_bytes'] / 2**30:.2f} GiB, per tile "
+              f"{log.tiles}", flush=True)
+        (r0, r1), = results
+        n = log.tiles[0]["launches"]
+        if not (np.isfinite(r1) and r1 < r0):
+            fail(f"beam -B 2: res_1 {r1} not below res_0 {r0}")
+        if n["fused_cost_fwd"] <= 0 or n["fused_cost_bwd"] <= 0:
+            fail(f"beam -B 2: objective kernels not launched: {n}")
+        if n["fused_predict_fwd"] != 1:
+            fail(f"beam -B 2: kernel #1 launched {n['fused_predict_fwd']} "
+                 f"times in the residual step")
+    a, b = runs
+    same = (a["results"] == b["results"] and a["solutions"] == b["solutions"]
+            and np.array_equal(a["column"], b["column"]))
+    print(f"[beam] -B 2 res_0 {a['results'][0][0]:.6e} res_1 "
+          f"{a['results'][0][1]:.6e}; second (traced) run bit-identical "
+          f"(res, solutions file, residual column): {same}", flush=True)
+    if not same:
+        fail("beam -B 2: a second run gave different bits")
+
+    spans = read_spans(trace_log)
+    with open(default_chrome_path(trace_log)) as f:
+        chrome = json.load(f)
+    with open(hb) as f:
+        beat = json.load(f)
+    names = sorted({s["name"] for s in spans})
+    xev = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+    print(f"[beam] trace: {len(spans)} spans {names}, trace.json "
+          f"{len(xev)} events; heartbeat {beat}", flush=True)
+    if (len(xev) != len(spans) or "fullbatch" not in names
+            or "tile" not in names or "solve" not in names):
+        fail(f"beam trace: spans {names}, {len(xev)} trace events")
+    if not beat.get("closed") or beat.get("pid") != os.getpid():
+        fail(f"beam trace: heartbeat {beat}")
+
+    # -i: the influence eigenvalues in place of the residuals
+    results, log, wall, launches = beam_cli(path, sky, clus, sol + ".i",
+                                            extra=("-i",))
+    infl = np.asarray(MemFile(path, "r")["influence"])
+    split = dict(diagnostics.last_seconds)
+    finite = bool(np.isfinite(infl).all())
+    (r0, r1), = results
+    print(f"[beam] -i: {wall:.1f} s, res_0 {r0:.6e} res_1 {r1:.6e}, "
+          f"influence column {infl.shape} finite {finite}, max |lambda| "
+          f"{np.abs(infl).max():.3e}; influence_function seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; launches {launches}", flush=True)
+    if not finite or not np.abs(infl).max() > 0:
+        fail("beam -i: influence column not finite or all zero")
+    if launches["fused_cost_fwd"] <= 0 or launches["fused_predict_fwd"] != 0:
+        fail(f"beam -i: launches {launches}")
+    remove(path)
+    out.update(runs=[{k: r[k] for k in ("results", "tiles", "wall_s",
+                                        "peak_bytes")} for r in runs],
+               bitwise=same, spans=len(spans), span_names=names,
+               heartbeat=beat,
+               influence={"wall_s": wall, "seconds": split,
+                          "results": results, "launches": launches,
+                          "max_abs": float(np.abs(infl).max())})
+    out["seconds"] = sync_clock() - t_start
+    print(f"[beam] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def phase_predict(data, cdata, p0, card: str):
@@ -2141,10 +2473,11 @@ def serve_times():
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--max-emiter", type=int, default=2)
-    # 4, not 6, since the fullbatch phase joined: the script stays near
-    # 330 s on the H100 (the main, warm, extended and telemetry solves
-    # run at this depth)
-    ap.add_argument("--max-iter", type=int, default=4)
+    # 3: cut from 6 to 4 when the fullbatch phase joined and to 3 when
+    # the beam phase did, to keep the script near 400 s on an "NVIDIA
+    # H100 80GB HBM3, 700.00 W" (the main, warm, extended and telemetry
+    # solves run at this depth)
+    ap.add_argument("--max-iter", type=int, default=3)
     ap.add_argument("--max-lbfgs", type=int, default=10)
     ap.add_argument("--json-out", default=None,
                     help="also write every number printed to this file")
@@ -2175,8 +2508,11 @@ def main():
         ext_out = phase_extended(args, d)
     with tempfile.TemporaryDirectory() as d:
         fb_out = phase_fullbatch(args, d)
-    for k, v in ext_out["parity"]["worst"].items():
-        worst[k] = max(worst[k], v)
+    with tempfile.TemporaryDirectory() as d:
+        beam_out = phase_beam(d)
+    for out in (ext_out, beam_out):
+        for k, v in out["parity"]["worst"].items():
+            worst[k] = max(worst[k], v)
     pred_out = phase_predict(data, cdata, p0, card)
     del data, cdata
     torch.cuda.empty_cache()
@@ -2192,6 +2528,16 @@ def main():
           f"(torch-op) {lb_u[0]:.3f} and {lb_u[1]:.3f} s", flush=True)
     print(f"[times] ({card}) peak device memory of the fused solve "
           f"{main_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[times] ({card}) beam: coherencies "
+          + ", ".join(f"-B {r['code']} {r['seconds']:.3f} s "
+                      f"({r['peak_bytes'] / 2**30:.3f} GiB)"
+                      for r in beam_out["coherencies"])
+          + "; -B 2 app runs " + ", ".join(f"{r['wall_s']:.1f}"
+                                           for r in beam_out["runs"])
+          + f" s; -i run {beam_out['influence']['wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      beam_out["influence"]["seconds"].items())
+          + f" s); the phase {beam_out['seconds']:.1f} s", flush=True)
     launches = dict(main_out["launches"])
     launches.update(pred_out["lbfgs_launches"])
     path = {k: f"the predict path's LBFGS ({pred_out['lbfgs_iterations']} "
@@ -2257,6 +2603,7 @@ def main():
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
                        "extended": ext_out, "fullbatch": fb_out,
+                       "beam": beam_out,
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "service": svc_out,

@@ -1,11 +1,14 @@
 """Fullbatch calibration driver: the ``sagecal`` main path (counterpart of
 ``sagecal_tpu/apps/fullbatch.py``).
 
-Per tile: load -> cluster coherencies -> SAGE solve -> solutions file ->
-residuals (with ``per_channel``, ``-b``: each channel re-fit by a joint
-LBFGS from the averaged solution, then its residuals) -> divergence
-guard, or with ``simulation_mode`` the model, added to or subtracted
-from the data.  The reference runs its host
+Per tile: load -> cluster coherencies (beam-aware with ``-B``:
+``solvers/sage.py::build_cluster_data_withbeam`` on the dataset's
+``/beam`` geometry) -> SAGE solve -> solutions file -> residuals (with
+``per_channel``, ``-b``: each channel re-fit by a joint LBFGS from the
+averaged solution, then its residuals; with ``influence``, ``-i``: the
+influence eigenvalues of ``ops/diagnostics.py`` in an ``influence``
+column instead) -> divergence guard, or with ``simulation_mode`` the
+model, added to or subtracted from the data.  The reference runs its host
 stages under a CPU default device and ships each solve to the
 accelerator; here one device (:func:`run_fullbatch`'s ``device``) holds
 everything: coherencies of the averaged and the full-channel views, the
@@ -23,10 +26,13 @@ OS-LM subsets come from a ``torch.Generator`` per tile derived from
 ``(0, tile_no)`` where the reference folds the tile number into a JAX
 key chain.
 
-Options that need a module the port does not have yet raise
-NotImplementedError naming their ROADMAP.md item (:func:`_refuse`).
-The reference's crash handlers, flight recorder and span tracer are not
-flag-driven; they wait for A11.
+As in the reference, a run installs the crash handlers
+(``obs/flight.py``: excepthook and SIGTERM flush the event log), starts
+the flight recorder when ``SAGECAL_FLIGHT=1`` and writes a ``fullbatch``
+run span with one ``tile`` span a tile when ``SAGECAL_TRACE=1``
+(``obs/trace.py``; the span JSONL and ``*.trace.json``).  Options that
+need a module the port does not have yet raise NotImplementedError
+naming their ROADMAP.md item (:func:`_refuse`).
 """
 
 from __future__ import annotations
@@ -47,9 +53,16 @@ from sagecal_tpu_torch.io import solutions as solio
 from sagecal_tpu_torch.io.dataset import TilePrefetcher, VisDataset
 from sagecal_tpu_torch.io.skymodel import load_sky
 from sagecal_tpu_torch.obs.events import RunManifest, default_event_log
+from sagecal_tpu_torch.obs.flight import (
+    close_flight_recorder, get_flight_recorder, install_crash_handlers,
+    note_activity, register_event_log, unregister_event_log,
+)
 from sagecal_tpu_torch.obs.quality import abort_if_diverged, check_and_emit
 from sagecal_tpu_torch.obs.records import sage_convergence_records
 from sagecal_tpu_torch.obs.registry import get_registry, telemetry_enabled
+from sagecal_tpu_torch.obs.trace import (
+    close_tracer, configure_tracer, get_tracer,
+)
 from sagecal_tpu_torch.ops.residual import (
     calculate_residuals, simulate_visibilities,
 )
@@ -57,7 +70,7 @@ from sagecal_tpu_torch.solvers.batched import derive_lane_generators
 from sagecal_tpu_torch.solvers.batchmode import bfgsfit_minibatch
 from sagecal_tpu_torch.solvers.robust import whiten_uv_weights
 from sagecal_tpu_torch.solvers.sage import (
-    SageConfig, build_cluster_data, solve_tile,
+    SageConfig, build_cluster_data, build_cluster_data_withbeam, solve_tile,
 )
 from sagecal_tpu_torch.utils.profiling import PhaseTimer
 
@@ -67,17 +80,10 @@ _FALSY = ("", "0", "false", "no", "off")
 def _refuse(cfg: RunConfig) -> None:
     """NotImplementedError for every option whose module is not ported,
     naming its ROADMAP.md item."""
-    unported = (
-        (cfg.beam_mode, "beam_mode (-B) needs ops/beam.py (ROADMAP.md, A6)"),
-        (cfg.influence, "influence (-i) needs ops/diagnostics.py "
-                        "(ROADMAP.md, A6)"),
-        (cfg.resume or cfg.checkpoint_every > 0,
-         "resume / checkpoint_every need elastic/checkpoint.py "
-         "(ROADMAP.md, A9)"),
-    )
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if cfg.resume or cfg.checkpoint_every > 0:
+        raise NotImplementedError(
+            "not ported yet: resume / checkpoint_every need "
+            "elastic/checkpoint.py (ROADMAP.md, A9)")
     for var in ("SAGECAL_PROFILE_DIR", "SAGECAL_TRANSFER_AUDIT",
                 "SAGECAL_CHECKIFY"):
         if os.environ.get(var, "").strip().lower() not in _FALSY:
@@ -103,6 +109,45 @@ def _resolve_ccid(ccid: Optional[int], cdefs) -> Optional[int]:
         if cd.cluster_id == ccid:
             return i
     return None
+
+
+# the reference's -B codes -> (ops/beam.py mode, wideband)
+_REF_BEAM_MODES = {
+    0: (0, False), 1: (1, False), 2: (3, False), 3: (2, False),
+    4: (1, True), 5: (3, True), 6: (2, True),
+}
+
+
+def _beam_setup(cfg: RunConfig, ds: VisDataset, dev):
+    """``-B``: (geometry, pointing, element coefficients, mode, wideband)
+    on ``dev``, or None with beams off.  ``--element-coeffs``: 'lba',
+    'hba', 'alo' or a table npz, interpolated to the observing
+    frequency, else a single-frequency npz (``ElementCoeffs.load``); no
+    table: the synthetic dipole."""
+    if not cfg.beam_mode:
+        return None
+    from sagecal_tpu_torch.ops.beam import (
+        DOBEAM_ARRAY, ElementCoeffs, synthetic_dipole_coeffs,
+    )
+
+    mode, wideband = _REF_BEAM_MODES[cfg.beam_mode]
+    bp = ds.load_beam(device=dev)
+    if bp is None:
+        raise ValueError(
+            f"beam mode {cfg.beam_mode} requested but dataset {cfg.dataset} "
+            f"has no /beam group (station geometry)")
+    geom, pointing = bp
+    coeff = None
+    if mode != DOBEAM_ARRAY:
+        if cfg.element_coeffs:
+            try:
+                coeff = ElementCoeffs.from_table(cfg.element_coeffs,
+                                                 ds.meta.freq0, device=dev)
+            except (KeyError, FileNotFoundError):
+                coeff = ElementCoeffs.load(cfg.element_coeffs, device=dev)
+        else:
+            coeff = synthetic_dipole_coeffs(device=dev)
+    return geom, pointing, coeff, mode, wideband
 
 
 def _mat_of_flat(x: torch.Tensor) -> np.ndarray:
@@ -159,6 +204,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
     N = meta.nstations
     ignore_idx = _load_ignore_list(cfg.ignore_clusters_file, cdefs)
     ccid_index = _resolve_ccid(cfg.ccid, cdefs)
+    beam = _beam_setup(cfg, ds, dev)
 
     # initial solutions: identity, or the warm start (-q); simulation
     # advances through the file's intervals tile by tile
@@ -190,6 +236,15 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
         n_stations=N, simulation_mode=cfg.simulation_mode,
         coh_dtype=scfg.coh_dtype)
     elog = default_event_log(manifest=manifest)
+    # crash forensics and tracing: the excepthook and SIGTERM flush the
+    # event log, the flight recorder heartbeats, spans join the event
+    # log on the manifest's run_id
+    install_crash_handlers()
+    if elog is not None:
+        register_event_log(elog)
+    get_flight_recorder(run_id=manifest.run_id)
+    configure_tracer(run_id=manifest.run_id)
+    tracer = get_tracer()
 
     results = []
     sol_fh = None
@@ -199,9 +254,17 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                            meta.deltat * cfg.tilesz / 60.0, N, M,
                            M * nchunk_max)
 
-    def _cdata(dat, fdelta=None):
-        return build_cluster_data(dat, clusters, nchunks, fdelta=fdelta,
-                                  shapelets=shapelets)
+    def _cdata(dat, t0, fdelta=None):
+        if beam is None:
+            return build_cluster_data(dat, clusters, nchunks, fdelta=fdelta,
+                                      shapelets=shapelets)
+        geom, pointing, coeff, mode, wideband = beam
+        # the lunar ALO element: no terrestrial J2000 precession
+        is_alo = (cfg.element_coeffs or "").lower() == "alo"
+        return build_cluster_data_withbeam(
+            dat, clusters, nchunks, geom, pointing, coeff, mode,
+            ds.time_jd(t0, dat.tilesz), meta.ra0, meta.dec0, fdelta=fdelta,
+            wideband=wideband, shapelets=shapelets, precess=not is_alo)
 
     timer = PhaseTimer()
     # -K/-T partial reruns, resolved up front so the prefetcher reads
@@ -218,6 +281,9 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
         specs.append(dict(average_channels=True, **load_kw))
     prefetch_cm = TilePrefetcher(cfg.dataset, [t0 for _, t0 in pairs], specs,
                                  cfg.tilesz, depth=1, open_file=open_file)
+    # the run's root span, entered by hand: the finally below exits it
+    run_span = tracer.span("fullbatch", kind="run", tiles=len(pairs))
+    run_span.__enter__()
     try:
         prefetch = iter(prefetch_cm.__enter__())
 
@@ -229,8 +295,8 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                                    f"{t0_chk}, expected {t0}")
             full_ = tiles[0].to(dev)
             data_ = None if cfg.simulation_mode else tiles[1].to(dev)
-            cdata_full_ = _cdata(full_, meta.deltaf / max(meta.nchan, 1))
-            cdata_ = None if cfg.simulation_mode else _cdata(data_)
+            cdata_full_ = _cdata(full_, t0, meta.deltaf / max(meta.nchan, 1))
+            cdata_ = None if cfg.simulation_mode else _cdata(data_, t0)
             return full_, data_, cdata_full_, cdata_
 
         prepared = None
@@ -239,6 +305,8 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 prepared = _prepare(pairs[0][1])
         for pi, (tile_no, t0) in enumerate(pairs):
             tic = time.time()
+            tile_span = tracer.span("tile", kind="tile", tile=t0)
+            tile_span.__enter__()
             full, data, cdata_full, cdata = prepared
 
             if cfg.simulation_mode:
@@ -262,6 +330,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                               seconds=time.time() - tic,
                               phase_seconds=timer.tile_timings())
                 log(f"tile {t0}: simulated ({time.time() - tic:.1f}s)")
+                tile_span.__exit__(None, None, None)
                 continue
 
             if cfg.whiten:
@@ -306,6 +375,21 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
             jsol = params_to_jones(p).reshape(M * nchunk_max, N, 2, 2)
             solio.append_solutions(sol_fh, jsol.cpu().numpy())
 
+            if cfg.influence:
+                # the influence eigenvalues replace the residuals
+                from sagecal_tpu_torch.ops.diagnostics import (
+                    influence_function,
+                )
+
+                infl = influence_function(full, cdata_full, p)  # host
+                ds.write_tile(t0, np.moveaxis(infl, -1, 0).reshape(
+                    infl.shape[-1], infl.shape[0], 2, 2), column="influence")
+                log(f"tile {t0}: influence diagnostics written "
+                    f"({time.time() - tic:.1f}s)")
+                results.append((res0, res1))
+                tile_span.__exit__(None, None, None)
+                continue
+
             if cfg.per_channel and meta.nchan > 1:
                 res = _per_channel_residuals(cfg, full, cdata_full, p,
                                              ccid_index)
@@ -342,15 +426,24 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 f"nu {mean_nu:.1f} ({time.time() - tic:.1f}s) "
                 f"[{timer.tile_summary()}]")
             results.append((res0, res1))
+            note_activity("tile", name=f"tile{t0}", seconds=time.time() - tic)
+            tile_span.__exit__(None, None, None)
     finally:
-        # reap the reader thread and its handle even when a tile raises
+        # reap the reader thread and its handle even when a tile raises;
+        # a crashed run still writes a loadable trace
         prefetch_cm.__exit__(None, None, None)
+        run_span.__exit__(None, None, None)
+        close_tracer()  # writes the Chrome trace beside the span JSONL
     log(timer.run_summary())
     if elog is not None:
         elog.emit("run_done", n_tiles=len(results),
                   phase_totals=dict(timer.totals))
         elog.close()
+        unregister_event_log(elog)
     if sol_fh:
         sol_fh.close()
     ds.close()
+    # the success path only: the final "closed" heartbeat; a crash keeps
+    # the recorder for the excepthook's dump
+    close_flight_recorder()
     return results

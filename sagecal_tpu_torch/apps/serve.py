@@ -126,6 +126,11 @@ def run_serve(cfg: ServeConfig, requests=None, log=print, device=None,
     the service summary dict."""
     from sagecal_tpu_torch.device import resolve_device
     from sagecal_tpu_torch.obs.events import RunManifest, default_event_log
+    from sagecal_tpu_torch.obs.flight import (
+        close_flight_recorder, get_flight_recorder, install_crash_handlers,
+        register_event_log, unregister_event_log,
+    )
+    from sagecal_tpu_torch.obs.trace import close_tracer, configure_tracer
     from sagecal_tpu_torch.serve.request import load_requests
     from sagecal_tpu_torch.serve.service import CalibrationService
 
@@ -141,18 +146,28 @@ def run_serve(cfg: ServeConfig, requests=None, log=print, device=None,
         tenants=len({r.tenant for r in requests}), batch=cfg.batch,
         out_dir=cfg.out_dir)
     elog = default_event_log(manifest=manifest)
+    install_crash_handlers()
+    if elog is not None:
+        register_event_log(elog)
+    get_flight_recorder(run_id=manifest.run_id)
+    # request-lifecycle tracing (SAGECAL_TRACE=1): run-level spans join
+    # the event log on run_id; each request writes its own trace
+    configure_tracer(run_id=manifest.run_id)
     service = CalibrationService(cfg, log=log, device=dev,
                                  open_file=open_file)
     try:
         summary = service.run(requests, elog=elog)
     finally:
+        close_tracer()
         if elog is not None:
             elog.close()
+            unregister_event_log(elog)
     log(f"served {summary['served']}/{summary['requests']} requests "
         f"in {summary['wall_s']:.1f}s — "
         f"{summary['solves_per_sec']:.2f} solves/s, "
         f"p50 latency {summary['p50_latency_s']:.1f}s, "
         f"buckets {summary['buckets']}")
+    close_flight_recorder()
     return summary
 
 

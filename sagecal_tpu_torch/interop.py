@@ -9,7 +9,9 @@ for a serve bucket (a list of tiles, or one dict of stacked arrays);
 batched, back into numpy.  :func:`sources_from_numpy` and
 :func:`shapelets_from_numpy` carry a sky (a ``SourceBatch`` and a
 ``ShapeletTable``) across, and :func:`sources_to_numpy` /
-:func:`shapelets_to_numpy` bring it back.  Numpy only in, numpy only
+:func:`shapelets_to_numpy` bring it back.  :func:`geometry_from_numpy`,
+:func:`pointing_from_numpy` and :func:`coeffs_from_numpy` carry a beam
+(``StationGeometry``, ``BeamPointing``, ``ElementCoeffs``).  Numpy only in, numpy only
 out: this module does not import ``sagecal_tpu``.
 """
 
@@ -22,6 +24,9 @@ import torch
 
 from sagecal_tpu_torch.core.types import VisData
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.ops.beam import (
+    BeamPointing, ElementCoeffs, StationGeometry,
+)
 from sagecal_tpu_torch.ops.rime import ShapeletTable, SourceBatch
 from sagecal_tpu_torch.solvers.sage import ClusterData, SageResult
 
@@ -116,3 +121,35 @@ def shapelets_to_numpy(tab: ShapeletTable) -> dict:
     out = {k: getattr(tab, k).detach().cpu().numpy() for k in TABLE_ARRAYS}
     out["n0max"] = tab.n0max
     return out
+
+
+GEOMETRY_ARRAYS = ("longitude", "latitude", "x", "y", "z", "elem_mask")
+
+
+def geometry_from_numpy(geom, device=None) -> StationGeometry:
+    """A station geometry (a dict of numpy arrays plus ``bf_type``, or an
+    object with those attributes, e.g. the JAX package's
+    ``StationGeometry``) -> the port's, float64, on ``device``."""
+    dev = resolve_device(device)
+    return StationGeometry(
+        **{k: torch.from_numpy(np.array(_field(geom, k), np.float64)).to(dev)
+           for k in GEOMETRY_ARRAYS},
+        bf_type=int(_field(geom, "bf_type")))
+
+
+def pointing_from_numpy(pointing) -> BeamPointing:
+    """A pointing (a 5-sequence or dict of ra0, dec0, b_ra0, b_dec0, f0)
+    -> the port's :class:`BeamPointing`."""
+    if isinstance(pointing, dict):
+        return BeamPointing(**{k: float(v) for k, v in pointing.items()})
+    return BeamPointing(*(float(v) for v in pointing))
+
+
+def coeffs_from_numpy(coeff, device=None) -> ElementCoeffs:
+    """Element coefficients (a dict or an object with pattern_theta,
+    pattern_phi, preamble, beta, M) -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return ElementCoeffs(
+        **{k: torch.from_numpy(np.array(_field(coeff, k))).to(dev)
+           for k in ("pattern_theta", "pattern_phi", "preamble")},
+        beta=float(_field(coeff, "beta")), M=int(_field(coeff, "M")))

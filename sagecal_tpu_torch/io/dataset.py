@@ -19,9 +19,12 @@ packages load the same numbers from one file.
 Layout: ``/u /v /w`` (ntime, nbase) float64 metres; ``/ant_p /ant_q``
 (nbase,) int32; ``/vis`` (ntime, nbase, nchan, 2, 2) complex; ``/flag``
 (ntime, nbase, nchan) bool; ``/freqs`` (nchan,) float64; attributes
-freq0, deltaf, deltat, ra0, dec0, nstations, time_jd0.  The ``/beam``
-group and ``load_beam`` wait for ``ops/beam.py`` (ROADMAP.md, A6); the
-MeasurementSet bridges ``ms_to_h5``/``h5_to_ms`` for A10.
+freq0, deltaf, deltat, ra0, dec0, nstations, time_jd0; an optional
+``/beam`` group (the station geometry of the beam-aware path:
+longitude, latitude (N,), elem_x, elem_y, elem_z, elem_mask (N, Kmax);
+attributes b_ra0, b_dec0, bf_type, beam_f0) read by
+:meth:`VisDataset.load_beam`.  The MeasurementSet bridges
+``ms_to_h5``/``h5_to_ms`` wait for A10.
 """
 
 from __future__ import annotations
@@ -160,8 +163,34 @@ class VisDataset:
             nbase=m.nbase, nstations=m.nstations,
         )
 
+    def load_beam(self, device=None):
+        """The ``/beam`` group as (``ops.beam.StationGeometry``,
+        ``ops.beam.BeamPointing``) with the geometry's float64 tensors on
+        ``device`` (CUDA unless ``device="cpu"``), or None when the
+        dataset has no such group."""
+        if "beam" not in self._f:
+            return None
+        from sagecal_tpu_torch.ops.beam import BeamPointing, StationGeometry
+
+        g = self._f["beam"]
+        m = self.meta
+        dev = resolve_device(device)
+        f64 = lambda name: torch.as_tensor(  # noqa: E731
+            np.asarray(g[name], np.float64)).to(dev)
+        geom = StationGeometry(
+            longitude=f64("longitude"), latitude=f64("latitude"),
+            x=f64("elem_x"), y=f64("elem_y"), z=f64("elem_z"),
+            elem_mask=f64("elem_mask"),
+            bf_type=int(g.attrs.get("bf_type", 1)))
+        pointing = BeamPointing(
+            ra0=m.ra0, dec0=m.dec0,
+            b_ra0=float(g.attrs.get("b_ra0", m.ra0)),
+            b_dec0=float(g.attrs.get("b_dec0", m.dec0)),
+            f0=float(g.attrs.get("beam_f0", m.freq0)))
+        return geom, pointing
+
     def time_jd(self, t0: int, nt: int) -> np.ndarray:
-        """Julian dates of timeslots [t0, t0 + nt)."""
+        """Julian dates of timeslots [t0, t0 + nt) (the beam's epochs)."""
         m = self.meta
         return m.time_jd0 + (t0 + np.arange(nt)) * m.deltat / 86400.0
 
@@ -328,10 +357,13 @@ class TilePrefetcher:
 def create_dataset(path: str, u, v, w, ant_p, ant_q, vis, flag, freqs,
                    nstations: int, deltaf: float, deltat: float = 1.0,
                    ra0: float = 0.0, dec0: float = 0.0, time_jd0: float = 0.0,
-                   open_file=None) -> None:
+                   beam=None, open_file=None) -> None:
     """Write a ``vis.h5`` container (module doc's layout): u, v, w
     (ntime, nbase) metres; ant_p, ant_q (nbase,); vis (ntime, nbase,
-    nchan, 2, 2); flag (ntime, nbase, nchan); freqs (nchan,)."""
+    nchan, 2, 2); flag (ntime, nbase, nchan); freqs (nchan,).  ``beam``:
+    a dict of longitude, latitude (N,), elem_x, elem_y, elem_z, elem_mask
+    (N, Kmax) and optionally b_ra0, b_dec0, bf_type, beam_f0, stored as
+    the ``/beam`` group."""
     with _opener(open_file)(path, "w") as f:
         for name, arr in (("u", u), ("v", v), ("w", w)):
             f.create_dataset(name, data=np.asarray(arr, np.float64),
@@ -351,19 +383,38 @@ def create_dataset(path: str, u, v, w, ant_p, ant_q, vis, flag, freqs,
         f.attrs["ra0"] = ra0
         f.attrs["dec0"] = dec0
         f.attrs["time_jd0"] = time_jd0
+        if beam is not None:
+            write_beam_group(f, beam)
+
+
+def write_beam_group(f, beam: dict) -> None:
+    """Store ``beam`` (longitude, latitude (N,), elem_x, elem_y, elem_z,
+    elem_mask (N, Kmax); optionally b_ra0, b_dec0, bf_type, beam_f0) as
+    the ``/beam`` group of the open file ``f``."""
+    g = f.create_group("beam")
+    for k in ("longitude", "latitude", "elem_x", "elem_y", "elem_z",
+              "elem_mask"):
+        g.create_dataset(k, data=np.asarray(beam[k]))
+    for k in ("b_ra0", "b_dec0", "bf_type", "beam_f0"):
+        if k in beam:
+            g.attrs[k] = beam[k]
 
 
 def simulate_dataset(path: str, nstations: int = 8, ntime: int = 8,
                      nchan: int = 4, freq0: float = 150e6,
                      chan_bw: float = 180e3, clusters=None, jones=None,
                      noise_sigma: float = 0.0, seed: int = 0,
-                     dec0: float = 0.9, open_file=None, device=None) -> None:
+                     dec0: float = 0.9, with_beam: bool = False,
+                     nelem: int = 24, open_file=None, device=None) -> None:
     """A synthetic ``vis.h5``: the reference's draws from numpy's
     ``default_rng(seed)`` in the reference's order (station layout, uvw
     track, noise), the sky model ``clusters`` (SourceBatch list, e.g.
     from ``io.skymodel.load_sky``) corrupted by ``jones`` (nclus, N, 2, 2)
     predicted on ``device`` (CUDA unless ``device="cpu"``) at float64
-    u, v, w and frequencies, as the reference predicts them."""
+    u, v, w and frequencies, as the reference predicts them.
+    ``with_beam``: a ``/beam`` group of ``nelem`` random dipoles a
+    station in a 30 m disk, from ``default_rng(seed + 1)`` as the
+    reference draws them (the model itself is unbeamed)."""
     from sagecal_tpu_torch.core.baselines import tile_baselines
     from sagecal_tpu_torch.io.simulate import station_layout, uvw_track
     from sagecal_tpu_torch.ops.rime import predict_model
@@ -393,6 +444,17 @@ def simulate_dataset(path: str, nstations: int = 8, ntime: int = 8,
         visr = visr + noise_sigma * (
             rng.standard_normal(visr.shape)
             + 1j * rng.standard_normal(visr.shape))
+    beam = None
+    if with_beam:
+        brng = np.random.default_rng(seed + 1)
+        r = 30.0 * np.sqrt(brng.uniform(0.2, 1.0, (nstations, nelem)))
+        th = brng.uniform(0, 2 * np.pi, (nstations, nelem))
+        beam = dict(longitude=np.full(nstations, 0.12),
+                    latitude=np.full(nstations, 0.92),
+                    elem_x=r * np.cos(th), elem_y=r * np.sin(th),
+                    elem_z=np.zeros((nstations, nelem)),
+                    elem_mask=np.ones((nstations, nelem), bool),
+                    b_ra0=0.0, b_dec0=dec0, bf_type=1, beam_f0=freq0)
     create_dataset(
         path, u=(us * C0).reshape(ntime, nbase),
         v=(vs * C0).reshape(ntime, nbase), w=(ws * C0).reshape(ntime, nbase),
@@ -400,4 +462,4 @@ def simulate_dataset(path: str, nstations: int = 8, ntime: int = 8,
         vis=visr.reshape(ntime, nbase, nchan, 2, 2),
         flag=np.zeros((ntime, nbase, nchan), bool), freqs=freqs,
         nstations=nstations, deltaf=chan_bw * nchan, dec0=dec0,
-        time_jd0=2460000.5, open_file=open_file)
+        time_jd0=2460000.5, beam=beam, open_file=open_file)

@@ -11,11 +11,15 @@ arrays.  The subset, with h5py's semantics:
 - ``MemFile(path, mode)``: ``"r"`` and ``"r+"`` need an existing file,
   ``"w"`` creates or truncates, ``"a"`` opens or creates; a context
   manager, ``close()``;
-- ``f[name]`` -> a :class:`MemDataset`; ``name in f``; ``f.keys()``;
-  ``f.attrs`` (a mapping shared by the file's handles; values stored as
-  numpy scalars, as h5py returns them);
+- ``f[name]`` -> a :class:`MemDataset` or a :class:`MemGroup`;
+  ``name in f``; ``f.keys()``; ``f.attrs`` (a mapping shared by the
+  file's handles; values stored as numpy scalars, as h5py returns
+  them);
 - ``f.create_dataset(name, data=...)`` or ``(name, shape=, dtype=)``
   (zero-filled), ``chunks=`` accepted and ignored;
+  ``f.create_group(name)``: a group has the file's item access,
+  ``create_dataset``, ``create_group`` and ``attrs`` (one level of names
+  each, no ``a/b`` paths);
 - a dataset has ``shape``, ``dtype``, numpy conversion, and
   slice reads (a copy) and writes (cast to its dtype).
 """
@@ -28,7 +32,8 @@ from collections.abc import MutableMapping
 
 import numpy as np
 
-_FILES: dict = {}  # absolute path -> {"data": {name: ndarray}, "attrs": {}}
+# absolute path -> a node {"data": {name: ndarray or node}, "attrs": {}}
+_FILES: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -85,7 +90,59 @@ class _Attrs(MutableMapping):
         return len(self._store)
 
 
-class MemFile:
+def _node() -> dict:
+    return {"data": {}, "attrs": {}}
+
+
+class _Group:
+    """Item access, creation and attributes of a file or group node."""
+
+    def _bind(self, store: dict, handle: "MemFile") -> None:
+        self._store = store
+        self._handle = handle
+        self.attrs = _Attrs(store["attrs"], handle)
+
+    def __getitem__(self, name: str):
+        item = self._store["data"][name]
+        if isinstance(item, dict):
+            return MemGroup(item, self._handle)
+        return MemDataset(item, self._handle._writable)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._store["data"]
+
+    def keys(self):
+        return self._store["data"].keys()
+
+    def _add(self, name: str, item):
+        if not self._handle._writable:
+            raise OSError("file opened read-only")
+        with _LOCK:
+            if name in self._store["data"]:
+                raise ValueError(f"{name!r} exists")
+            self._store["data"][name] = item
+        return item
+
+    def create_dataset(self, name: str, shape=None, dtype=None, data=None,
+                       chunks=None) -> MemDataset:
+        if data is not None:
+            arr = np.array(data, dtype=dtype)
+        else:
+            arr = np.zeros(shape, dtype=dtype)
+        return MemDataset(self._add(name, arr), True)
+
+    def create_group(self, name: str) -> "MemGroup":
+        return MemGroup(self._add(name, _node()), self._handle)
+
+
+class MemGroup(_Group):
+    """A group of a :class:`MemFile`."""
+
+    def __init__(self, store: dict, handle: "MemFile"):
+        self._bind(store, handle)
+
+
+class MemFile(_Group):
     """``h5py.File``-like handle on an in-memory file (module doc)."""
 
     def __init__(self, path: str, mode: str = "r"):
@@ -95,39 +152,16 @@ class MemFile:
                 if key not in _FILES:
                     raise FileNotFoundError(f"no in-memory file {path!r}")
             elif mode == "w":
-                _FILES[key] = {"data": {}, "attrs": {}}
+                _FILES[key] = _node()
             elif mode == "a":
-                _FILES.setdefault(key, {"data": {}, "attrs": {}})
+                _FILES.setdefault(key, _node())
             else:
                 raise ValueError(f"mode {mode!r} not in r, r+, w, a")
-            self._store = _FILES[key]
+            store = _FILES[key]
         self.filename = path
         self.mode = mode
         self._writable = mode != "r"
-        self.attrs = _Attrs(self._store["attrs"], self)
-
-    def __getitem__(self, name: str) -> MemDataset:
-        return MemDataset(self._store["data"][name], self._writable)
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._store["data"]
-
-    def keys(self):
-        return self._store["data"].keys()
-
-    def create_dataset(self, name: str, shape=None, dtype=None, data=None,
-                       chunks=None) -> MemDataset:
-        if not self._writable:
-            raise OSError("file opened read-only")
-        if data is not None:
-            arr = np.array(data, dtype=dtype)
-        else:
-            arr = np.zeros(shape, dtype=dtype)
-        with _LOCK:
-            if name in self._store["data"]:
-                raise ValueError(f"dataset {name!r} exists")
-            self._store["data"][name] = arr
-        return MemDataset(arr, True)
+        self._bind(store, self)
 
     def close(self) -> None:
         self._writable = False

@@ -177,6 +177,10 @@ class EventLog:
         if fd is not None:
             os.close(fd)
 
+    @property
+    def closed(self) -> bool:
+        return self._fd is None
+
     def __enter__(self) -> "EventLog":
         return self
 

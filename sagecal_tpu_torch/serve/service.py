@@ -36,10 +36,15 @@ dispatch (``derive_lane_generators``), replicated pad lanes included,
 and the shadow re-solve derives its own again, so the same request
 draws the same subsets wherever it runs.
 
+With ``SAGECAL_TRACE=1`` every request writes its own trace: a
+``serve.request`` root span from enqueue to its result manifest, with
+the phase chain (enqueue, schedule, pack, cache_hit or compile, execute,
+unpack, write_manifest) as children (``_emit_lifecycle``, the
+reference's); the root's id is in the result manifest.
+
 Not ported here, each refused by name (:func:`_refuse`): per-tenant
-checkpoints and ``--resume`` (``elastic/``, ROADMAP.md A9), the
-cross-worker executable store (A9) and the request lifecycle spans of
-``SAGECAL_TRACE`` (``obs/trace.py``, A11).
+checkpoints and ``--resume`` (``elastic/``, ROADMAP.md A9) and the
+cross-worker executable store (A9).
 """
 
 from __future__ import annotations
@@ -54,11 +59,10 @@ import numpy as np
 import torch
 
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.obs.trace import get_tracer
 from sagecal_tpu_torch.serve.bucket import BucketSpec, bucket_of, pad_indices
 from sagecal_tpu_torch.serve.cache import ExecutableCache
 from sagecal_tpu_torch.serve.request import SolveRequest, write_result_manifest
-
-_FALSY = ("", "0", "false", "no", "off")
 
 
 def _refuse(cfg) -> None:
@@ -72,10 +76,6 @@ def _refuse(cfg) -> None:
         raise NotImplementedError(
             "not ported yet: aot_store needs serve/aot_store.py, which "
             "comes with the fleet's workers (ROADMAP.md, A9)")
-    if os.environ.get("SAGECAL_TRACE", "").strip().lower() not in _FALSY:
-        raise NotImplementedError(
-            "not ported yet: SAGECAL_TRACE (the serve lifecycle spans, "
-            "obs/trace.py, ROADMAP.md, A11)")
 
 
 def _merge_sage_config(cfg, req: SolveRequest):
@@ -344,8 +344,8 @@ class CalibrationService:
             [out.res_0, out.res_1, out.diverged.to(out.res_0.dtype),
              out.mean_nu.to(out.res_0.dtype)], 1).tolist()
         solve_s = time.time() - tic
-        # the request lifecycle's marks (its spans wait for A11); no
-        # bucket compiles anything in the port
+        # the request lifecycle's marks (_emit_lifecycle); no bucket
+        # compiles anything in the port
         timing = {
             "t_pack": t_pack, "pack_s": pack_s, "t_exec": tic,
             "solve_s": solve_s, "cache_hit": cache_hit, "compile_s": 0.0,
@@ -396,6 +396,7 @@ class CalibrationService:
         from sagecal_tpu_torch.obs.registry import get_registry
 
         req, meta = entry.req, entry.meta
+        t_unpack = time.time()
         # divergence guard, same residual-ratio policy as fullbatch
         ratio_blown = (not np.isfinite(res1) or res1 == 0.0
                        or res1 > self.cfg.res_ratio * res0)
@@ -427,6 +428,7 @@ class CalibrationService:
             solio.append_solutions(fh, jsol)
         os.replace(tmp_path, out_path)
 
+        tracer = get_tracer()
         t_write = time.time()
         queue_wait = max(entry.started_at - entry.enqueued_at, 0.0)
         result = {
@@ -449,9 +451,16 @@ class CalibrationService:
             "latency_s": t_write - entry.enqueued_at,
             "trace_id": req.trace_id,
         }
+        if tracer.enabled:
+            result["span_id"] = tracer.allocate_span_id()
         write_result_manifest(self.cfg.out_dir, result)
+        write_s = time.time() - t_write
         latency = result["latency_s"]
         self._latencies.append(latency)
+        if tracer.enabled:
+            self._emit_lifecycle(tracer, entry, bucket, lane, batch,
+                                 verdict, timing, t_unpack, t_write,
+                                 write_s, result["span_id"])
         self._results.append(result)
         reg = get_registry()
         reg.counter_inc("serve_requests_total", tenant=req.tenant,
@@ -478,6 +487,46 @@ class CalibrationService:
                 and self._diverged_abort is None:
             # raised after the whole batch's manifests are on disk
             self._diverged_abort = (req.request_id, req.t0, reasons)
+
+    def _emit_lifecycle(self, tracer, entry: _Entry, bucket, lane, batch,
+                        verdict, timing, t_unpack, t_write, write_s,
+                        root_id) -> None:
+        """One trace per request: a ``serve.request`` root from enqueue to
+        the manifest write, the phase chain as its children.  Phases the
+        batch shares (pack, compile, execute) are billed to every lane,
+        marked ``shared`` with the batch width.  The root records under
+        ``root_id``, already written into the result manifest, which
+        joins manifest and trace."""
+        req = entry.req
+        tid = req.trace_id
+        base = dict(request_id=req.request_id, tenant=req.tenant,
+                    bucket=bucket.short(), lane=lane, batch=batch)
+        # parent_id "" (not None) puts the root above any open span
+        tracer.add_span(
+            "serve.request", t_write + write_s - entry.enqueued_at,
+            parent_id="", start_unix=entry.enqueued_at, trace_id=tid,
+            span_id=root_id, verdict=verdict, **base)
+
+        def child(name, start, dur, **attrs):
+            tracer.add_span(name, max(dur, 0.0), parent_id=root_id,
+                            start_unix=start, trace_id=tid,
+                            **dict(base, **attrs))
+
+        child("enqueue", entry.enqueued_at,
+              entry.started_at - entry.enqueued_at)
+        child("schedule", entry.started_at,
+              timing["t_pack"] - entry.started_at)
+        child("pack", timing["t_pack"], timing["pack_s"], shared=True)
+        exec_s = timing["solve_s"] - timing["compile_s"]
+        if timing["cache_hit"]:
+            child("cache_hit", timing["t_pack"] + timing["pack_s"], 0.0)
+        else:
+            child("compile", timing["t_exec"], timing["compile_s"],
+                  shared=True)
+        child("execute", timing["t_exec"] + timing["compile_s"], exec_s,
+              shared=True)
+        child("unpack", t_unpack, t_write - t_unpack)
+        child("write_manifest", t_write, write_s)
 
     def _build_slo_monitor(self):
         """SLO specs from ``cfg.slo`` (a slo.json) or, failing that, a

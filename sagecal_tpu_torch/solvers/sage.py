@@ -234,6 +234,58 @@ def _cluster_data(data: VisData, coh, nchunks) -> ClusterData:
     )
 
 
+def build_cluster_data_withbeam(data: VisData,
+                                clusters: Sequence[SourceBatch],
+                                nchunks: Sequence[int], geom, pointing,
+                                coeff, beam_mode: int, time_jd, ra0: float,
+                                dec0: float, fdelta: Optional[float] = None,
+                                wideband: bool = False, shapelets=None,
+                                precess: bool = True) -> ClusterData:
+    """Beam-aware coherencies: per cluster, the station beam toward each
+    source folded into its coherencies (``ops/beam.py``: ``beam_jones``
+    at float64, cast to the data's complex dtype, then
+    ``predict_coherencies_withbeam``).  The same :class:`ClusterData` as
+    :func:`build_cluster_data`, so the solvers and kernels take it as
+    they are.
+
+    ``geom``/``pointing``/``coeff``: ``StationGeometry`` (on the tile's
+    device), ``BeamPointing``, ``ElementCoeffs`` or None; ``time_jd``:
+    the tile's (tilesz,) Julian dates; each source's (ra, dec) comes from
+    its direction cosines about (ra0, dec0).  ``precess``: precess the
+    sources, the pointing and the tile beam centre from J2000 to the
+    tile's mid-time epoch before az/el (off for the lunar ALO element)."""
+    from sagecal_tpu_torch.ops.beam import (
+        beam_jones, predict_coherencies_withbeam,
+    )
+    from sagecal_tpu_torch.ops.transforms import (
+        get_precession_params, lmn_to_radec, precess_radec_equatorial,
+    )
+
+    if fdelta is None:
+        fdelta = data.deltaf
+    jd = np.asarray(time_jd)
+    Tr = None
+    if precess:
+        Tr = get_precession_params(float(jd[len(jd) // 2]))
+        pra, pdec = precess_radec_equatorial(pointing.ra0, pointing.dec0, Tr)
+        bra, bdec = precess_radec_equatorial(pointing.b_ra0, pointing.b_dec0,
+                                             Tr)
+        pointing = pointing._replace(ra0=float(pra), dec0=float(pdec),
+                                     b_ra0=float(bra), b_dec0=float(bdec))
+    cohs = []
+    for src in clusters:
+        ra, dec = lmn_to_radec(src.ll.cpu().numpy(), src.mm.cpu().numpy(),
+                               ra0, dec0)
+        if Tr is not None:
+            ra, dec = precess_radec_equatorial(ra, dec, Tr)
+        B = beam_jones(geom, pointing, coeff, ra, dec, jd, data.freqs,
+                       mode=beam_mode, wideband=wideband).to(data.vis.dtype)
+        cohs.append(predict_coherencies_withbeam(
+            data.u, data.v, data.w, data.freqs, src, B, data.time_idx,
+            data.ant_p, data.ant_q, fdelta, shapelets=shapelets))
+    return _cluster_data(data, torch.stack(cohs), nchunks)
+
+
 def cluster_model(p_k, coh_k, cmap_k, ant_p, ant_q):
     """One cluster's corrupted model J_p C J_q^H, flat (F, 4, rows).
     p_k (nchunk, 8N); coh_k (F, 4, rows); cmap_k (rows,)."""

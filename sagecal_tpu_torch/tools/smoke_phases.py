@@ -28,9 +28,10 @@ import time
 # skipped
 PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
           "phase_main", "phase_warm", "phase_extended", "phase_fullbatch",
-          "phase_predict",
+          "phase_beam", "phase_predict",
           "phase_bisect",
-          "phase_times", "serve_parity", "phase_serve", "serve_times")
+          "phase_times", "serve_parity", "phase_serve", "serve_times",
+          "phase_service")
 
 
 def timed(module, seconds: dict):

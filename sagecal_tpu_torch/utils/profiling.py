@@ -4,7 +4,10 @@
 :class:`PhaseTimer` sums the wall seconds of each named phase (load and
 coherencies, solve, residual, write, ...) per tile and per run; each
 phase is annotated with ``torch.profiler.record_function`` so a
-``torch.profiler`` trace attributes device work to it.  With telemetry
+``torch.profiler`` trace attributes device work to it, and with
+``SAGECAL_TRACE=1`` each phase is a span of kind ``phase``
+(``obs/trace.py``; its exit also feeds the flight recorder's stall
+clock).  With telemetry
 on, every phase's seconds are observed into the ``phase_seconds``
 histogram of the process-wide registry.  A phase's time is the host's:
 work the device has queued but not finished when the phase ends is
@@ -22,6 +25,7 @@ from typing import Dict, Iterator
 import torch
 
 from sagecal_tpu_torch.obs.registry import get_registry, telemetry_enabled
+from sagecal_tpu_torch.obs.trace import get_tracer
 
 
 class PhaseTimer:
@@ -35,8 +39,10 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
-            yield
+        # the disabled tracer hands back one shared no-op span
+        with get_tracer().span(name, kind="phase"):
+            with torch.profiler.record_function(name):
+                yield
         dt = time.perf_counter() - t0
         self.totals[name] += dt
         self.counts[name] += 1

@@ -123,7 +123,6 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
     (["-f", "band*.h5", "-s", "sky.txt"], "A7"),
     (["-d", "x.h5", "-s", "sky.txt", "-N", "2"], "A7"),
     (["-d", "x.h5", "-s", "sky.txt", "--device-profile", "prof"], "A11"),
-    (["-d", "x.h5", "-s", "sky.txt", "-B", "1"], "A6"),
     (["-d", "x.h5", "-s", "sky.txt", "--resume"], "A9"),
 ])
 def test_unported_modes_exit_nonzero_naming_their_item(argv, item, capsys):

@@ -259,8 +259,6 @@ def _close_json(a, b):
 
 
 REFUSED = {
-    "beam_mode": (dict(beam_mode=1), "A6"),
-    "influence": (dict(influence=True), "A6"),
     "resume": (dict(resume=True), "A9"),
     "checkpoint_every": (dict(checkpoint_every=1), "A9"),
 }

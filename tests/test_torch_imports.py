@@ -45,6 +45,9 @@ MODULES = (
     "sagecal_tpu_torch.elastic.checkpoint", "sagecal_tpu_torch.obs.slo",
     "sagecal_tpu_torch.obs.shadow", "sagecal_tpu_torch.obs.drift",
     "sagecal_tpu_torch.obs.aggregate", "sagecal_tpu_torch.solvers.batchmode",
+    "sagecal_tpu_torch.ops.transforms", "sagecal_tpu_torch.ops.beam",
+    "sagecal_tpu_torch.ops.diagnostics", "sagecal_tpu_torch.obs.trace",
+    "sagecal_tpu_torch.obs.flight", "sagecal_tpu_torch.parallel.consensus",
 )
 
 

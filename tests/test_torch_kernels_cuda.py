@@ -778,11 +778,12 @@ P2 0 2 0.0 50 30 0.0 1.0 0 0 0 0 0 0 0 0 0 0 150e6
 FB_CLUSTER = "1 1 P1\n2 1 P2\n"
 
 
-def _fullbatch(tmp_path, tag, device):
+def _fullbatch(tmp_path, tag, device, with_beam=False, **cfg_kw):
     """tests/test_torch_fullbatch.py's two-tile run (7 stations, 2
     channels, 4 timeslots, tilesz 2) at f32 --fused on an in-memory
-    dataset made on the CPU -> (results, solutions text, residual
-    column, per-kernel launches)."""
+    dataset made on the CPU (``with_beam``: with its synthetic ``/beam``
+    group; ``cfg_kw``: more RunConfig fields, e.g. ``beam_mode``) ->
+    (results, solutions text, residual column, per-kernel launches)."""
     import math
 
     import numpy as np
@@ -806,13 +807,15 @@ def _fullbatch(tmp_path, tag, device):
                      jones=random_jones(2, 7, seed=3, amp=0.15,
                                         dtype=np.complex128, device="cpu"),
                      noise_sigma=1e-4, seed=0, dec0=dec0,
-                     open_file=memh5.MemFile, device="cpu")
+                     with_beam=with_beam, open_file=memh5.MemFile,
+                     device="cpu")
     memh5.MemFile(path, "r+").attrs["dec0"] = dec0
     cfg = RunConfig(dataset=path, sky_model=str(sky),
                     cluster_file=str(sky) + ".cluster",
                     out_solutions=str(tmp_path / f"{tag}.sol"), tilesz=2,
                     max_emiter=2, max_iter=4, max_lbfgs=6, lbfgs_m=5,
-                    solver_mode=1, use_f64=False, use_fused_predict=True)
+                    solver_mode=1, use_f64=False, use_fused_predict=True,
+                    **cfg_kw)
     kernels = (rk.fused_cost_fwd_cuda, rk.fused_cost_bwd_cuda,
                rk.fused_predict_fwd_cuda)
     for k in kernels:
@@ -980,3 +983,129 @@ def test_service_lanes_equal_a_direct_batch_solve(cuda, tmp_path,
                                       batched_fused=fused, device=cuda)
         assert torch.equal(direct.p, out.p)
         assert torch.equal(direct.res_1, out.res_1)
+
+
+# --------------------------------------------- beams and diagnostics
+#
+# The beam-aware coherencies (``ops/beam.py``) feed #3/#4 and #1
+# unchanged; their 2x2s are complex and off-diagonal, which an
+# unpolarized unbeamed point sky never gives the kernels.
+
+
+def _beam_tile(device, dtype=torch.float32, nstations=12, tilesz=8,
+               nclusters=3):
+    """A seeded tile with STAT_TILE beam coherencies (-B 2: array factor
+    times the HBA element) on ``device``: 16 dipoles a tile, then 48 tile
+    centroids (24 on the last station)."""
+    import numpy as np
+
+    from sagecal_tpu_torch.io.simulate import make_visdata
+    from sagecal_tpu_torch.ops.beam import (
+        BeamPointing, ElementCoeffs, StationGeometry,
+    )
+    from sagecal_tpu_torch.ops.rime import point_source_batch
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data_withbeam
+
+    rng = np.random.default_rng(7)
+    N, K = nstations, 64
+    scale = np.where(np.arange(K) < 16, 2.5, 20.0)
+    mask = np.ones((N, K))
+    mask[-1, 40:] = 0.0
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64).to(device)  # noqa: E731
+    geom = StationGeometry(
+        longitude=f64(rng.uniform(0.11, 0.13, N)),
+        latitude=f64(rng.uniform(0.91, 0.93, N)),
+        x=f64(rng.uniform(-1, 1, (N, K)) * scale),
+        y=f64(rng.uniform(-1, 1, (N, K)) * scale), z=f64(np.zeros((N, K))),
+        elem_mask=f64(mask), bf_type=2)
+    data = make_visdata(nstations=N, tilesz=tilesz, nchan=2, dec0=0.9,
+                        dtype=np.float32 if dtype == torch.float32
+                        else np.float64, device=device)
+    clusters = [point_source_batch(rng.uniform(-0.05, 0.05, 2),
+                                   rng.uniform(-0.05, 0.05, 2),
+                                   rng.uniform(1.0, 5.0, 2), dtype=dtype,
+                                   device=device) for _ in range(nclusters)]
+    jd = 2460000.5 + np.arange(tilesz) * 10.0 / 86400.0
+    cdata = build_cluster_data_withbeam(
+        data, clusters, [1] * nclusters, geom,
+        BeamPointing(0.0, 0.9, 0.0, 0.9, 150e6),
+        ElementCoeffs.from_table("hba", 150e6, device=device), 3, jd, 0.0,
+        0.9)
+    return data, cdata
+
+
+def test_objective_kernels_match_plain_on_beam_coherencies(cuda):
+    """#3/#4 against their plain version on -B 2 coherencies, at identity
+    and random gains, Gaussian and robust."""
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.kernels.parity import (
+        compare_with_plain, tile_cost_problem,
+    )
+
+    data, cdata = _beam_tile(cuda)
+    xy = cdata.coh[:, :, 1]
+    assert float(xy.abs().max()) > 1e-3 * float(cdata.coh.abs().max())
+    for amp in (0.0, 0.2):
+        p = jones_to_params(random_jones(3, 12, seed=2, amp=amp,
+                                         device=cuda))[:, None, :]
+        prob = tile_cost_problem(data, cdata, p)
+        for nu in (None, 5.0):
+            out = compare_with_plain(prob, nu)
+            assert out["cost_rel"] <= 1e-5, out
+            assert out["grad_rel"] <= 1e-5, out
+            assert out["bitwise_repeat"], out
+
+
+def test_beam_coherencies_on_the_card_match_the_cpu(cuda):
+    """The beam and the beam-aware predict at float64 on the card: within
+    1e-10 of the CPU's largest magnitude (the same operations; the
+    device's sin/cos/exp round differently in the last bits)."""
+    cpu = _beam_tile("cpu", torch.float64)[1].coh
+    card = _beam_tile(cuda, torch.float64)[1].coh.cpu()
+    assert float((card - cpu).abs().max()) <= 1e-10 * float(cpu.abs().max())
+
+
+def test_influence_on_the_card_matches_the_cpu(cuda):
+    """``influence_function`` on the card (complex64, SVD least squares on
+    cuSOLVER) against the CPU's: per correlation the eigenvalues as
+    multisets within 1e-4 of the largest |lambda|."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.ops.diagnostics import influence_function
+
+    out = {}
+    for dev in ("cpu", cuda):
+        data, cdata = _beam_tile(dev)
+        p = jones_to_params(random_jones(3, 12, seed=4, amp=0.1,
+                                         device=dev))[:, None, :]
+        out[str(dev)] = influence_function(data, cdata, p)
+    got, want = out[str(cuda)], out["cpu"]
+    assert np.isfinite(got).all() and got.shape == want.shape
+    nbase = 12 * 11 // 2
+    for c in range(4):
+        g, w = got[0, c, :nbase], want[0, c, :nbase]
+        cost = np.abs(g[:, None] - w[None, :])
+        r, k = linear_sum_assignment(cost)
+        assert cost[r, k].max() <= 1e-4 * np.abs(w).max()
+
+
+def test_fullbatch_beam_on_the_card_matches_the_cpu_and_repeats(cuda,
+                                                               tmp_path):
+    """The small fullbatch run with -B 2 at f32 --fused on CUDA: within
+    the 5e-3 bar of the CPU run, bit-identical on repeat, #3/#4 launched
+    and #1 once per tile."""
+    import numpy as np
+
+    kw = dict(with_beam=True, beam_mode=2, element_coeffs="hba")
+    cpu = _fullbatch(tmp_path, "bcpu", "cpu", **kw)
+    a = _fullbatch(tmp_path, "ba", cuda, **kw)
+    b = _fullbatch(tmp_path, "bb", cuda, **kw)
+    assert a[0] == b[0] and a[1] == b[1] and np.array_equal(a[2], b[2])
+    assert a[3][0] > 0 and a[3][1] > 0 and a[3][2] == 2
+    for (g0, g1), (w0, w1) in zip(a[0], cpu[0]):
+        assert abs(g1 - w1) <= 5e-3 * w1 and g1 < g0
+    assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()

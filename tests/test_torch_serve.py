@@ -518,14 +518,11 @@ class TestServeCli:
 
     @pytest.mark.parametrize("argv,item", [
         (["--resume"], "A9"), (["--checkpoint-every", "1"], "A9"),
-        (["--checkpoint-dir", "ck"], "A9"), (["--aot-store", "store"], "A9"),
-        ([], "A11")])
+        (["--checkpoint-dir", "ck"], "A9"), (["--aot-store", "store"], "A9")])
     def test_unported_options_exit_2_naming_their_item(
             self, tmp_path, monkeypatch, capsys, argv, item):
         from sagecal_tpu_torch.apps.cli import main
 
-        if item == "A11":
-            monkeypatch.setenv("SAGECAL_TRACE", "1")
         rc = main(["serve", "--requests", str(tmp_path / "r.json"),
                    "--out-dir", str(tmp_path / "out"), *argv], device="cpu")
         assert rc == 2
