@@ -185,8 +185,8 @@ each printing lines of its own; any failure exits non-zero:
             and -B 2's with off-diagonal (XY) power; #3/#4 against their
             plain version on the -B 2 coherencies at identity and random
             gains, Gaussian and robust, at phase 3's tolerances; the CLI
-            with ``-j 3 -e 1 -g 6 -l 10 -t 60 --f32 --fused -B 2
-            --element-coeffs hba``:
+            with ``-j 3 -e 1 -g 3 -l 10 -t 60 --f32 --fused -B 2
+            --element-coeffs hba`` (``-g 6`` until phases 14-15):
             res_1 < res_0, #3/#4 launched in the solve and #1 once in
             the residual step (counts set to 0 before the tile, read at
             its closing log line); a second run with SAGECAL_TRACE=1 and
@@ -196,7 +196,33 @@ each printing lines of its own; any failure exits non-zero:
             recorder's closing heartbeat written; the same tile with
             ``-i``: every influence value finite, the split of
             ``influence_function``'s seconds (residual, Hessians with
-            the least squares, dR, host eigensolves) printed.
+            the least squares, dR, host eigensolves) printed;
+14. distributed  the multi-band consensus ADMM (graded config 4, cut to
+            4 sub-bands and -A 3) through the CLI (``-f 'band*.h5' -t 60
+            --f32 -j 1 -e 1 -g 2 -A 3 -P 2 -Q 2 -r 5 -C 1``, with
+            SAGECAL_TELEMETRY=1) and ``apps.distributed.run_distributed``
+            over four in-memory band datasets of the north-star geometry
+            at 130-170 MHz, phase 4's 100-cluster sky under true gains
+            linear in frequency, noise 1e-3.  Prints the seconds of each
+            band's x-step in each round (CUDA events, read after the
+            run: the clock adds no sync), the dual and primal traces, rho
+            before and after the BB step, the launches (counts set to 0
+            just before the run), the global-Z file's rows, each band's
+            res_0 -> res_1 over its x-steps and its residual column over
+            its data, peak memory.  Fails unless #1 launched exactly 4
+            times (once per band in the tile's residual step) and #3-#6
+            never, the Z file holds 2 x 8 x 62 rows, every band's res_1
+            is below its res_0, the final primal residual is below round
+            1's and every residual column below its data;
+15. minibatch  the minibatch bandpass app in consensus (graded config 2)
+            through the CLI (``-N 1 -M 2 -w 4 -A 2 -j 2 --f32 -t 60 -l
+            10``, SAGECAL_TELEMETRY=1) over one in-memory dataset of the
+            north-star geometry at 8 channels and 120 timeslots (two
+            minibatches of 113,460 rows), the 100-cluster sky.  Prints
+            the seconds per minibatch, the primal residual per band and
+            round, each band's res_0 -> res_1 and the launches; fails
+            unless #1 launched once per band per minibatch (8) and every
+            band's res_1 is below its res_0.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -273,6 +299,21 @@ SVC_FLAGS = ("--f32", "--fused", "--batch", str(SERVE_B), "-j", "3",
              "-l", str(SERVE_MAX_LBFGS), "--shadow-rate",
              str(SVC_SHADOW_RATE))
 SVC_TILES, SVC_A, SVC_B, SVC_HYBRID = 8, 16, 3, 2
+
+# the multi-band consensus ADMM (graded config 4: 32 sub-bands of the
+# north-star tile, sagecal-mpi -f -A 10 -P 2 -Q 2; cut to DIST_BANDS
+# bands and -A 3, the least depth at which -C 1's BB update fires), run
+# with SAGECAL_TELEMETRY=1 for the per-band residuals and rho trajectory
+DIST_BANDS = 4
+DIST_FREQS = (130e6, 170e6)
+DIST_FLAGS = ("-t", str(TILESZ), "--f32", "-j", "1", "-e", "1", "-g", "2",
+              "-A", "3", "-P", "2", "-Q", "2", "-r", "5", "-C", "1")
+# the minibatch bandpass app (graded config 2: -N 1, Student's-t, 100
+# clusters on one observation): 8 channels in 4 mini-bands in consensus,
+# two minibatches of TILESZ timeslots
+MB_NCHAN, MB_NTIME = 8, 2 * TILESZ
+MB_FLAGS = ("-N", "1", "-M", "2", "-w", "4", "-A", "2", "-j", "2", "--f32",
+            "-t", str(TILESZ), "-l", "10")
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -1283,7 +1324,9 @@ def fullbatch_telemetry(args, dirname: str):
 # reference -B codes timed, and the CLI with -B 2 and --element-coeffs
 BEAM_CODES = (1, 2, 3, 5)  # array, array x element, element, wideband full
 BEAM_CORE, BEAM_REMOTE_TILES, BEAM_CORE_TILES = 24, 48, 24
-BEAM_FLAGS = APP_FLAGS + ("-B", "2", "--element-coeffs", "hba")
+# at phase 7's depth (-g 3; -g 6 until the consensus phases joined, to
+# keep the script near 450 s on an "NVIDIA H100 80GB HBM3, 700.00 W")
+BEAM_FLAGS = FB_FLAGS + ("-B", "2", "--element-coeffs", "hba")
 
 
 def hba_beam_group(seed: int = 11) -> dict:
@@ -2470,9 +2513,267 @@ def serve_times():
     return out
 
 
+def dist_datasets(dirname: str):
+    """DIST_BANDS in-memory band datasets (``MemFile``) of the north-star
+    geometry (TILESZ timeslots x NCHAN channels), at frequencies spread
+    over DIST_FREQS, of ``write_sky``'s 100-cluster sky under true gains
+    linear in frequency (tests/test_distributed.py's construction), noise
+    1e-3.  Returns (glob, sky file, cluster file)."""
+    from sagecal_tpu_torch.device import resolve_device
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name="dist")
+    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
+    rng = np.random.default_rng(13)
+    shape = (NCLUSTERS, NSTATIONS, 2, 2)
+    c = lambda: rng.standard_normal(shape) + 1j * rng.standard_normal(shape)  # noqa: E731
+    Z0 = np.eye(2) + 0.2 * c()
+    Z1 = 0.1 * c()
+    freqs = np.linspace(*DIST_FREQS, DIST_BANDS)
+    for f, freq in enumerate(freqs):
+        path = os.path.join(dirname, f"band{f}.h5")
+        simulate_dataset(path, nstations=NSTATIONS, ntime=TILESZ,
+                         nchan=NCHAN, freq0=float(freq), clusters=clusters,
+                         jones=torch.as_tensor(Z0 + (freq - 150e6) / 150e6
+                                               * Z1).to(resolve_device()),
+                         noise_sigma=1e-3, seed=f, dec0=DEC0,
+                         open_file=MemFile)
+        MemFile(path, "r+").attrs["ra0"] = RA0
+    return os.path.join(dirname, "band*.h5"), sky, clus
+
+
+def device_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+class XstepClock:
+    """Wraps ``parallel/mesh.py``'s ``admm_sagefit``: each band x-step's
+    seconds on the device (a CUDA event recorded at both ends, no
+    synchronize) and its res_0/res_1 (kept on the device), read after
+    the run by ``calls()`` in call order (round 0: every band; then one
+    band a shard a round).  It adds no host read or sync to the run."""
+
+    def __init__(self):
+        import sagecal_tpu_torch.parallel.mesh as mesh
+
+        self.mesh, self.real, self.marks = mesh, mesh.admm_sagefit, []
+
+    def __enter__(self):
+        def timed(data, *a, **k):
+            start = device_event()
+            start.record()
+            out = self.real(data, *a, **k)
+            end = device_event()
+            end.record()
+            self.marks.append((start, end,
+                               torch.stack([out.res_0, out.res_1])))
+            return out
+
+        self.mesh.admm_sagefit = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh.admm_sagefit = self.real
+
+    def calls(self):
+        """[(seconds, res_0, res_1)] of every x-step, after the run."""
+        torch.cuda.synchronize()
+        return [(s.elapsed_time(e) / 1e3, *r.tolist())
+                for s, e, r in self.marks]
+
+
+def _events(path: str, kind: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return [r for r in recs if r.get("type") == kind]
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with the environment variables ``env`` set, restored
+    after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_distributed(dirname: str):
+    """The multi-band consensus ADMM through the CLI (module doc, phase
+    14)."""
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+
+    t_start = sync_clock()
+    pattern, sky, clus = dist_datasets(dirname)
+    make_s = sync_clock() - t_start
+    print(f"[distributed] {DIST_BANDS} bands of {ROWS} rows ({TILESZ} x "
+          f"{NCHAN} channels, {DIST_FREQS[0] / 1e6:.0f}-"
+          f"{DIST_FREQS[1] / 1e6:.0f} MHz), {NCLUSTERS} clusters, made in "
+          f"{make_s:.1f} s; flags {' '.join(DIST_FLAGS)}", flush=True)
+    sol = os.path.join(dirname, "dist.z")
+    elog = os.path.join(dirname, "dist_events.jsonl")
+    argv = ["-s", sky, "-c", clus, "-f", pattern, "-p", sol, *DIST_FLAGS]
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    with XstepClock() as clock:
+        rc = _with_env({"SAGECAL_TELEMETRY": "1", "SAGECAL_EVENT_LOG": elog},
+                       lambda: cli_main(argv, open_file=MemFile))
+    wall = sync_clock() - t
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"distributed: the CLI exited {rc}")
+    rounds = _events(elog, "admm_round")
+    if len(rounds) != 1:
+        fail(f"distributed: {len(rounds)} admm_round events, not 1")
+    ev = rounds[0]
+    dres, pres = ev["dual_res"], ev["primal_res"]
+    rho = np.asarray(ev["rho_trace"])
+    nadmm = len(pres)
+    # x-steps in call order: round 0 solves every band, then each
+    # round one band a shard (one shard a band here)
+    calls = clock.calls()
+    per_round = [calls[:DIST_BANDS]] + [
+        calls[DIST_BANDS * r:DIST_BANDS * (r + 1)] for r in range(1, nadmm)]
+    round_s = [sum(c[0] for c in rc_) for rc_ in per_round]
+    band_s = [[rc_[b][0] for rc_ in per_round] for b in range(DIST_BANDS)]
+    res = [(per_round[0][b][1], per_round[-1][b][2])
+           for b in range(DIST_BANDS)]
+    print(f"[distributed] run {wall:.1f} s (x-steps {sum(round_s):.1f} s), "
+          f"peak device memory {peak / 2**30:.2f} GiB; seconds per round "
+          f"{[round(x, 3) for x in round_s]}; per band and round "
+          f"{[[round(x, 3) for x in b] for b in band_s]}", flush=True)
+    print(f"[distributed] dual residual {dres}; primal residual {pres}",
+          flush=True)
+    print(f"[distributed] rho per band (mean over clusters) before the BB "
+          f"step {rho[0].mean(axis=1).tolist()}, after "
+          f"{rho[-1].mean(axis=1).tolist()}; clusters changed "
+          f"{int((rho[-1] != rho[0]).sum())} of {rho[0].size}", flush=True)
+    health = _events(elog, "consensus_health")
+    verdict = health[0]["verdict"] if health else None
+    zrows = sum(1 for line in open(sol)
+                if not line.startswith("#")) - 1  # the header's numbers
+    with_vis = []
+    for f in range(DIST_BANDS):
+        h = MemFile(os.path.join(dirname, f"band{f}.h5"), "r")
+        vis, col = np.asarray(h["vis"]), np.asarray(h["corrected"])
+        with_vis.append(float(np.linalg.norm(col) / np.linalg.norm(vis)))
+    print(f"[distributed] launches {launches}; global-Z file {zrows} rows "
+          f"({2 * 8 * NSTATIONS} expected); consensus watchdog {verdict}",
+          flush=True)
+    print(f"[distributed] per band res_0 -> res_1 (x-steps) "
+          f"{[(round(a, 6), round(b, 6)) for a, b in res]}; residual "
+          f"column over data {[round(x, 6) for x in with_vis]}", flush=True)
+    if launches["fused_predict_fwd"] != DIST_BANDS:
+        fail(f"distributed: kernel #1 launched "
+             f"{launches['fused_predict_fwd']} times, not {DIST_BANDS}")
+    if any(launches[k] for k in KERNELS[2:]):
+        fail(f"distributed: objective kernels launched: {launches}")
+    if zrows != 2 * 8 * NSTATIONS:
+        fail(f"distributed: the global-Z file holds {zrows} rows")
+    if not all(np.isfinite(r1) and r1 < r0 for r0, r1 in res):
+        fail(f"distributed: a band's res_1 is not below its res_0: {res}")
+    if not (np.all(np.isfinite(pres)) and pres[-1] < pres[1]):
+        fail(f"distributed: the final primal residual {pres[-1]} is not "
+             f"below round 1's {pres[1]}")
+    if not all(x < 1.0 for x in with_vis):
+        fail(f"distributed: a residual column is not below its data: "
+             f"{with_vis}")
+    for f in range(DIST_BANDS):
+        remove(os.path.join(dirname, f"band{f}.h5"))
+    out = {"dataset_s": make_s, "wall_s": wall, "round_s": round_s,
+           "band_round_s": band_s, "dual_res": dres, "primal_res": pres,
+           "rho_before": rho[0].tolist(), "rho_after": rho[-1].tolist(),
+           "launches": launches, "zrows": zrows, "res": res,
+           "residual_over_data": with_vis, "peak_bytes": peak,
+           "watchdog": verdict}
+    out["seconds"] = sync_clock() - t_start
+    print(f"[distributed] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_minibatch(dirname: str):
+    """The minibatch bandpass app in consensus through the CLI (module
+    doc, phase 15)."""
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    t_start = sync_clock()
+    sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name="mb")
+    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
+    path = os.path.join(dirname, "mb.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=MB_NTIME,
+                     nchan=MB_NCHAN, clusters=clusters,
+                     jones=random_jones(NCLUSTERS, NSTATIONS, seed=3, amp=0.2,
+                                        dtype=np.complex128),
+                     noise_sigma=1e-3, seed=0, dec0=DEC0, open_file=MemFile)
+    MemFile(path, "r+").attrs["ra0"] = RA0
+    make_s = sync_clock() - t_start
+    print(f"[minibatch] one dataset of {MB_NTIME} timeslots x {MB_NCHAN} "
+          f"channels ({ROWS} rows a minibatch), {NCLUSTERS} clusters, made "
+          f"in {make_s:.1f} s; flags {' '.join(MB_FLAGS)}", flush=True)
+    sol = os.path.join(dirname, "mb.sol")
+    elog = os.path.join(dirname, "mb_events.jsonl")
+    argv = ["-d", path, "-s", sky, "-c", clus, "-p", sol, *MB_FLAGS]
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    rc = _with_env({"SAGECAL_TELEMETRY": "1", "SAGECAL_EVENT_LOG": elog},
+                   lambda: cli_main(argv, open_file=MemFile))
+    wall = sync_clock() - t
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"minibatch: the CLI exited {rc}")
+    mb_s = [e["seconds"] for e in _events(elog, "minibatch_done")]
+    res = [(e["res0"], e["res1"]) for e in _events(elog, "band_residual")]
+    rounds = [e["primal_res"] for e in _events(elog, "admm_round")]
+    nbands = len(res)
+    print(f"[minibatch] run {wall:.1f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; seconds per minibatch "
+          f"{[round(x, 3) for x in mb_s]}", flush=True)
+    print(f"[minibatch] primal residual per band, per round "
+          f"{[[round(x, 6) for x in r] for r in rounds]}", flush=True)
+    print(f"[minibatch] per band res_0 -> res_1 "
+          f"{[(round(a, 4), round(b, 4)) for a, b in res]}; launches "
+          f"{launches}", flush=True)
+    nmb = len(mb_s)
+    if nbands != 4 or nmb != 2:
+        fail(f"minibatch: {nbands} bands and {nmb} minibatches")
+    if launches["fused_predict_fwd"] != nbands * nmb:
+        fail(f"minibatch: kernel #1 launched {launches['fused_predict_fwd']} "
+             f"times, not {nbands * nmb}")
+    if not all(np.isfinite(r1) and r1 < r0 for r0, r1 in res):
+        fail(f"minibatch: a band's res_1 is not below its res_0: {res}")
+    remove(path)
+    out = {"dataset_s": make_s, "wall_s": wall, "minibatch_s": mb_s,
+           "primal_res": rounds, "res": res, "launches": launches,
+           "peak_bytes": peak}
+    out["seconds"] = sync_clock() - t_start
+    print(f"[minibatch] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--max-emiter", type=int, default=2)
+    # 1: cut from 2 when the consensus phases (14, 15) joined, to keep
+    # the script near 450 s on an "NVIDIA H100 80GB HBM3, 700.00 W" (the
+    # main, warm, extended and telemetry solves run at this depth)
+    ap.add_argument("--max-emiter", type=int, default=1)
     # 3: cut from 6 to 4 when the fullbatch phase joined and to 3 when
     # the beam phase did, to keep the script near 400 s on an "NVIDIA
     # H100 80GB HBM3, 700.00 W" (the main, warm, extended and telemetry
@@ -2566,6 +2867,10 @@ def main():
     print_split(card, "fused_cost_batch_bwd", serve_t["fused_cost_batch_bwd"])
     with tempfile.TemporaryDirectory() as d:
         svc_out = phase_service(d)
+    with tempfile.TemporaryDirectory() as d:
+        dist_out = phase_distributed(d)
+    with tempfile.TemporaryDirectory() as d:
+        mb_out = phase_minibatch(d)
     for k, v in svc_out["parity"]["worst"].items():
         worst[k] = max(worst[k], v)
     print(f"[times] ({card}) service: run 1 {svc_out['wall_s'][0]:.1f} s "
@@ -2581,6 +2886,13 @@ def main():
           + f"; serve bucket ({SERVE_B} lanes, one plan) "
           + ", ".join(f"{v * 1e3:.3f}" for v in serve_plan_s) + " ms",
           flush=True)
+
+    print(f"[times] ({card}) distributed: run {dist_out['wall_s']:.1f} s, "
+          f"x-steps per round {[round(x, 2) for x in dist_out['round_s']]} "
+          f"s, peak {dist_out['peak_bytes'] / 2**30:.2f} GiB; minibatch: run "
+          f"{mb_out['wall_s']:.1f} s, per minibatch "
+          f"{[round(x, 2) for x in mb_out['minibatch_s']]} s, peak "
+          f"{mb_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -2599,6 +2911,14 @@ def main():
             "bound_by": times[k]["bound_by"],
             "library_ms": times[k].get("library_ms"), "parity": "pass",
         })
+    # #1's launches on each path that runs it (the line's count is the
+    # predict path's)
+    kernels[0]["paths"] = {
+        "predict path LBFGS": launches["fused_predict_fwd"],
+        "distributed (1 tile, 4 bands)":
+            dist_out["launches"]["fused_predict_fwd"],
+        "minibatch (4 bands x 2 minibatches)":
+            mb_out["launches"]["fused_predict_fwd"]}
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
@@ -2606,8 +2926,8 @@ def main():
                        "beam": beam_out,
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
-                       "service": svc_out,
-                       "times": times, "kernels": kernels,
+                       "service": svc_out, "distributed": dist_out,
+                       "minibatch": mb_out, "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)

@@ -3,8 +3,10 @@
 
 ``python -m sagecal_tpu_torch.apps.cli -d obs.h5 -s sky.txt -c
 sky.txt.cluster -t 60 ...`` calibrates a ``vis.h5`` tile by tile on the
-CUDA device (``apps/fullbatch.py``); ``... cli serve --requests r.json``
-runs the calibration service (``apps/serve.py``).  :func:`main` takes ``device`` for
+CUDA device (``apps/fullbatch.py``); ``-f 'band*.h5' ...`` runs the
+multi-band consensus ADMM (``apps/distributed.py``), ``-N 1 ...`` the
+minibatch app (``apps/minibatch.py``); ``... cli serve --requests
+r.json`` runs the calibration service (``apps/serve.py``).  :func:`main` takes ``device`` for
 Python callers (``device="cpu"`` in the tests); the command line always
 means the card.  Exit codes: 0 done, 3 when ``--abort-on-divergence``
 stopped a diverged run, 2 for a usage error or a mode the port does not
@@ -153,7 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "consensus-ADMM over the device mesh (ref sagecal-mpi "
                     "-f 'pattern')")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host meshes (not ported: ROADMAP.md, A7)")
+                    help="multi-host runs (not ported: ROADMAP.md, A7)")
     ap.add_argument("-U", "--global-residual", type=int, default=0,
                     help="if >0, compute final residuals from the GLOBAL "
                     "consensus solution B_f Z instead of the per-band "
@@ -293,9 +295,11 @@ def _not_ported(what: str, item: str) -> int:
     return 2
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, device=None, open_file=None) -> int:
     """Run the command line ``argv`` (default ``sys.argv[1:]``) on
-    ``device`` (None: the CUDA device).  Returns the exit code."""
+    ``device`` (None: the CUDA device), opening datasets with
+    ``open_file`` (None: ``h5py.File``; ``io.memh5.MemFile`` on a machine
+    without h5py).  Returns the exit code."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         from sagecal_tpu_torch.apps.serve import main as serve_main
@@ -307,20 +311,12 @@ def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     _warn_dropped_fused(args)
     cfg = config_from_args(args)
-    # the reference's mode dispatch: -f selects the distributed or
-    # federated driver, -N > 0 the minibatch driver, else fullbatch
-    if args.band_pattern:
-        return _not_ported("-f (distributed and federated calibration)",
-                           "A7")
-    if cfg.epochs > 0:
-        return _not_ported("-N (minibatch and consensus calibration)", "A7")
     if args.device_profile:
         return _not_ported("--device-profile", "A11")
-    from sagecal_tpu_torch.apps.fullbatch import run_fullbatch
     from sagecal_tpu_torch.obs.quality import DivergenceAbort
 
     try:
-        run_fullbatch(cfg, device=device)
+        return _dispatch(args, cfg, device, open_file)
     except DivergenceAbort as e:
         # the run already emitted its run_aborted event
         print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
@@ -328,6 +324,41 @@ def main(argv=None, device=None) -> int:
     except NotImplementedError as e:
         print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
         return 2
+    return 0
+
+
+def _dispatch(args, cfg, device, open_file=None) -> int:
+    """The reference's mode dispatch (main.cpp:295-307; -f is the
+    sagecal-mpi mode, MPI/main.cpp:336): -f to the distributed app,
+    -N > 0 to the minibatch app, else fullbatch.  Spatial
+    regularization, multi-host and federated runs are refused naming
+    ROADMAP.md's A7, whatever the mode."""
+    if args.spatialreg or args.spatial_n0 > 0:
+        return _not_ported("-X / --spatial-n0 (spatial regularization)",
+                           "A7")
+    if args.spatial_diffuse_id is not None:
+        return _not_ported("--spatial-diffuse-id (the diffuse constraint)",
+                           "A7")
+    if args.multihost:
+        return _not_ported("--multihost (multi-host runs)", "A7")
+    if args.band_pattern and cfg.epochs > 0:
+        return _not_ported("-f with -N (federated calibration)", "A7")
+    if args.band_pattern:
+        from sagecal_tpu_torch.apps.distributed import run_distributed
+
+        cfg.dataset = args.band_pattern
+        run_distributed(cfg, nadmm=max(cfg.admm_iters, 2), mdl=args.mdl,
+                        global_residual=bool(args.global_residual),
+                        adaptive_rho=args.adaptive_rho > 0, device=device,
+                        open_file=open_file)
+    elif cfg.epochs > 0:
+        from sagecal_tpu_torch.apps.minibatch import run_minibatch
+
+        run_minibatch(cfg, device=device, open_file=open_file)
+    else:
+        from sagecal_tpu_torch.apps.fullbatch import run_fullbatch
+
+        run_fullbatch(cfg, device=device, open_file=open_file)
     return 0
 
 

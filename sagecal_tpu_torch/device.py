@@ -24,3 +24,10 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): the apps'
+    wall clocks end here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -11,8 +11,14 @@ batched, back into numpy.  :func:`sources_from_numpy` and
 ``ShapeletTable``) across, and :func:`sources_to_numpy` /
 :func:`shapelets_to_numpy` bring it back.  :func:`geometry_from_numpy`,
 :func:`pointing_from_numpy` and :func:`coeffs_from_numpy` carry a beam
-(``StationGeometry``, ``BeamPointing``, ``ElementCoeffs``).  Numpy only in, numpy only
-out: this module does not import ``sagecal_tpu``.
+(``StationGeometry``, ``BeamPointing``, ``ElementCoeffs``).  The
+consensus ADMM's state crosses with :func:`admm_result_to_numpy` (every
+``AdmmResult`` field), :func:`admm_state_from_numpy` (``p_bands``, Y, Z,
+rho and the like as tensors), :func:`consensus_config_to_numpy` /
+:func:`consensus_config_from_numpy` (a ``ConsensusConfig``) and
+:func:`ledger_to_numpy` / :func:`ledger_from_numpy` (a
+``StalenessLedger``).  Numpy only in, numpy only out: this module does
+not import ``sagecal_tpu``.
 """
 
 from __future__ import annotations
@@ -153,3 +159,74 @@ def coeffs_from_numpy(coeff, device=None) -> ElementCoeffs:
         **{k: torch.from_numpy(np.array(_field(coeff, k))).to(dev)
            for k in ("pattern_theta", "pattern_phi", "preamble")},
         beta=float(_field(coeff, "beta")), M=int(_field(coeff, "M")))
+
+
+ADMM_RESULT_FIELDS = ("p", "Y", "Z", "rho", "dual_res", "primal_res",
+                      "Zspat", "spat_res", "Zspat_diff", "primal_res_band",
+                      "dual_res_band", "rho_trace")
+
+
+def admm_result_to_numpy(res) -> dict:
+    """An ``AdmmResult`` of either package (tensors or arrays) -> numpy
+    arrays by field name; absent (None) fields are left out."""
+    out = {}
+    for k in ADMM_RESULT_FIELDS:
+        v = getattr(res, k, None)
+        if v is None:
+            continue
+        out[k] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v))
+    return out
+
+
+def admm_state_from_numpy(arrays: dict, device=None) -> dict:
+    """ADMM state arrays (``p_bands``, ``Y``, ``Z``, ``rho``, ``B``, ...;
+    any dict of numpy arrays) -> tensors on ``device``, dtypes kept."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+CONSENSUS_FIELDS = ("zstep", "cluster_groups", "staleness",
+                    "staleness_discount", "slot_schedule", "group_schedule")
+
+
+def consensus_config_to_numpy(ccfg) -> dict:
+    """A ``ConsensusConfig`` of either package, or a dict of its fields
+    -> a dict (schedules as int32 arrays, None kept)."""
+    out = {k: _field(ccfg, k) for k in CONSENSUS_FIELDS}
+    for k in ("slot_schedule", "group_schedule"):
+        if out[k] is not None:
+            out[k] = np.asarray(out[k], np.int32)
+    return out
+
+
+def consensus_config_from_numpy(obj):
+    """A dict of :data:`CONSENSUS_FIELDS` (or an object with them, e.g.
+    the JAX package's ``ConsensusConfig``) -> the port's
+    ``ConsensusConfig``."""
+    from sagecal_tpu_torch.parallel.consensus import ConsensusConfig
+
+    return ConsensusConfig(**consensus_config_to_numpy(obj))
+
+
+def ledger_to_numpy(ledger) -> dict:
+    """A ``StalenessLedger`` of either package -> ``{"ages", "zterms",
+    "round_index"}``."""
+    return {"ages": np.asarray(ledger.ages, np.int64).copy(),
+            "zterms": np.array(ledger.zterms),
+            "round_index": int(ledger.round_index)}
+
+
+def ledger_from_numpy(obj):
+    """:func:`ledger_to_numpy`'s dict (or a ledger of either package) ->
+    the port's ``StalenessLedger``."""
+    from sagecal_tpu_torch.parallel.async_consensus import StalenessLedger
+
+    d = obj if isinstance(obj, dict) else ledger_to_numpy(obj)
+    z = np.array(d["zterms"])
+    led = StalenessLedger(z.shape[0], z.shape[1:], z.dtype,
+                          round_index=int(d["round_index"]))
+    led.zterms = z
+    led.ages = np.asarray(d["ages"], np.int64).copy()
+    return led

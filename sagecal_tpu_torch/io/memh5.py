@@ -8,6 +8,7 @@ Files live in a process-wide registry keyed by absolute path, so a
 second handle on the same path (the prefetcher's reader) sees the same
 arrays.  The subset, with h5py's semantics:
 
+- ``MemFile.glob(pattern)``: the registry's paths matching a glob;
 - ``MemFile(path, mode)``: ``"r"`` and ``"r+"`` need an existing file,
   ``"w"`` creates or truncates, ``"a"`` opens or creates; a context
   manager, ``close()``;
@@ -26,6 +27,7 @@ arrays.  The subset, with h5py's semantics:
 
 from __future__ import annotations
 
+import fnmatch
 import os
 import threading
 from collections.abc import MutableMapping
@@ -171,6 +173,14 @@ class MemFile(_Group):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    @staticmethod
+    def glob(pattern: str) -> list:
+        """Sorted absolute paths of the in-memory files matching
+        ``pattern`` (``glob.glob``'s role for apps given a band glob)."""
+        pat = os.path.abspath(pattern)
+        with _LOCK:
+            return sorted(k for k in _FILES if fnmatch.fnmatchcase(k, pat))
 
 
 def remove(path: str) -> None:

@@ -12,11 +12,13 @@ of tensors from inside the solves.  Here, after the solve returns:
   weights flattening most of the data);
 - :func:`check_and_emit`: the app hook (``solve_quality`` event,
   registry gauges, escalation events);
+- :func:`assess_consensus`: the ADMM watchdog's verdict on per-band
+  residual trajectories;
 - :func:`abort_if_diverged`: the ``abort_on_divergence`` exit;
 - the PPM heatmap writers.
 
-The ADMM, hierarchical-predict and ``diag quality`` parts of the
-reference belong to later slices (ROADMAP.md, A7, A8 and A11).
+The hierarchical-predict and ``diag quality`` parts of the reference
+belong to later slices (ROADMAP.md, A8 and A11).
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ CHI2_OUTLIER_RATIO = 25.0
 # the robust weights have flattened more than this share of the
 # unflagged data, the Gaussian interpretation of chi^2 is gone.
 DOWNWEIGHT_WARN_FRAC = 0.5
+# A band whose final primal residual exceeds this multiple of its own
+# trajectory minimum has moved away from consensus (ADMM watchdog).
+CONSENSUS_TREND_THRESH = 2.0
 
 
 class DivergenceAbort(RuntimeError):
@@ -201,6 +206,31 @@ def check_and_emit(
     if log is not None and verdict != "ok":
         log(f"quality watchdog: {verdict} ({', '.join(reasons)})")
     return verdict, reasons
+
+
+def assess_consensus(primal_res_band, dual_res_band,
+                     trend_thresh: float = CONSENSUS_TREND_THRESH, ages=None,
+                     staleness: Optional[int] = None,
+                     ) -> Tuple[str, List[str], dict]:
+    """ADMM watchdog: per-band health from (nadmm, Nf) residual
+    trajectories.  Returns ``(verdict, reasons, health)``, ``health``
+    holding the per-band ``ratio`` / ``trend`` / ``diverged`` arrays of
+    ``parallel/consensus.py::consensus_health``.  ``ages`` /
+    ``staleness``: a bounded-staleness run's final ages and bound (the
+    trend threshold relaxes by ``1 + age``; a band beyond the bound is
+    starved, so diverged)."""
+    from sagecal_tpu_torch.parallel.consensus import consensus_health
+
+    pr = np.atleast_2d(np.asarray(_np(primal_res_band), float))
+    du = np.atleast_2d(np.asarray(_np(dual_res_band), float))
+    ratio, trend, diverged = consensus_health(
+        pr, du, trend_thresh, ages=ages, staleness=staleness)
+    health = {"ratio": ratio, "trend": trend, "diverged": diverged}
+    bad = np.nonzero(diverged)[0]
+    if bad.size:
+        return "diverged", ["consensus_diverged_bands:" + ",".join(
+            str(int(b)) for b in bad)], health
+    return "ok", [], health
 
 
 def abort_if_diverged(elog, verdict: str, reasons: Sequence[str],

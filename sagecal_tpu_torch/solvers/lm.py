@@ -207,6 +207,7 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
              config: LMConfig = LMConfig(), sqrt_weights=None,
              itmax_dynamic: Optional[int] = None,
              plan: Optional[NormalEqPlan] = None,
+             admm_y=None, admm_bz=None, admm_rho=None,
              collect_trace: bool = False,
              collect_quality: bool = False) -> LMResult:
     """Solve min_p sum_rows ||vis - J_p C J_q^H||^2 per hybrid chunk.
@@ -218,11 +219,37 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     indices (built here when None).  ``collect_trace`` /
     ``collect_quality``: the per-iteration trace (cost, gradient
     inf-norm, ||dp||, one evaluation per live chunk) and the final
-    residual's quality (module doc)."""
+    residual's quality (module doc).
+
+    ADMM augmentation (``admm_y``/``admm_bz`` (nchunk, 8N), scalar
+    ``admm_rho``): adds ``y^T (p - bz) + rho/2 ||p - bz||^2`` to each
+    chunk's cost, the consensus-constrained local solve of
+    ``sagefit_visibilities_admm`` (admm_solve.c:221).  The term is
+    exactly quadratic, so it enters the normal equations; JTe carries
+    half the gradient of the data cost, so the term enters at half
+    strength too: ``JTe -= (y + rho (p - bz)) / 2`` and the damping is
+    ``mu + rho / 2`` (rtr_solve_robust_admm.c:680-689,941-942).  The
+    quality attributes the data term only."""
     nchunk = p0.shape[0]
     plan = _plan_for(plan, ant_p, ant_q, chunk_map, p0)
     args = (coh, vis, mask, ant_p, ant_q, chunk_map, plan, sqrt_weights)
+    with_admm = admm_y is not None
+    if with_admm:
+        rho = torch.as_tensor(admm_rho, dtype=p0.dtype, device=p0.device)
+
+        def aug_cost(p, c):
+            d = p - admm_bz
+            return c + (admm_y * d).sum(dim=-1) + 0.5 * rho * (d * d).sum(
+                dim=-1)
+
+        def aug_grad(p):
+            return 0.5 * (admm_y + rho * (p - admm_bz))
+    else:
+        def aug_cost(p, c):
+            return c
+
     JTJ, JTe, cost0 = _assemble_normal_eq(p0, *args)
+    cost0 = aug_cost(p0, cost0)
     mu = config.tau * torch.diagonal(JTJ, dim1=-2, dim2=-1).amax(dim=-1)
     it_bound = config.itmax if itmax_dynamic is None else min(
         config.itmax, int(itmax_dynamic))
@@ -236,10 +263,15 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     it = 0
     while it < it_bound and not bool(done.all()):
         JTJ, JTe, _ = _assemble_normal_eq(p, *args)
-        dp = _solve_spd(JTJ + mu[:, None, None] * eye, JTe)
+        damp = mu
+        if with_admm:
+            JTe = JTe - aug_grad(p)
+            damp = mu + 0.5 * rho
+        dp = _solve_spd(JTJ + damp[:, None, None] * eye, JTe)
         pnew = p + dp
-        cost_new = _cost_only(pnew, *args)
-        denom = (dp * (mu[:, None] * dp + JTe)).sum(dim=-1)
+        cost_new = aug_cost(pnew, _cost_only(pnew, *args))
+        # the predicted decrease uses the damping the step was solved with
+        denom = (dp * (damp[:, None] * dp + JTe)).sum(dim=-1)
         gain = (cost - cost_new) / torch.where(
             denom == 0.0, torch.full_like(denom, 1e-30), denom)
         accept = (gain > 0.0) & torch.isfinite(cost_new) & ~done

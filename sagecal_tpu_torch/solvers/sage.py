@@ -324,16 +324,24 @@ def predict_full_model(p_all, cdata: ClusterData, data: VisData):
 
 
 def em_residual_scan(data: VisData, cdata: ClusterData, p_all, extras,
-                     solve_one):
+                     solve_one, cluster_slice=None):
     """One SAGE expectation pass: clusters in order, the residual carried
     (add back this cluster's model, solve, subtract the new model).
 
     ``solve_one(xeff, coh_k, cmap_k, p_k, extras_k) -> (p_new_k, aux_k)``;
     ``extras``: per-cluster list (or None).  Returns (p_new (M, ...),
-    [aux_k])."""
+    [aux_k]).
+
+    ``cluster_slice``: optional ``(start, count)``: only the ``count``
+    clusters from ``start`` are solved (``aux`` has theirs), the rest
+    held fixed but subtracted from the residual throughout, as the
+    initial residual subtracts the full model: the fine-grained
+    consensus factor node of ``parallel/mesh.py``."""
     xres = data.vis - predict_full_model(p_all, cdata, data)
-    p_new, aux = [], []
-    for k in range(cdata.coh.shape[0]):
+    start, count = ((0, cdata.coh.shape[0]) if cluster_slice is None
+                    else (int(cluster_slice[0]), int(cluster_slice[1])))
+    p_new, aux = list(p_all[:start]), []
+    for k in range(start, start + count):
         coh_k, cmap_k, p_k = cdata.coh[k], cdata.chunk_map[k], p_all[k]
         xeff = xres + cluster_model(p_k, coh_k, cmap_k, data.ant_p, data.ant_q)
         pk_new, aux_k = solve_one(xeff, coh_k, cmap_k, p_k,
@@ -342,6 +350,7 @@ def em_residual_scan(data: VisData, cdata: ClusterData, p_all, extras,
                                     data.ant_q)
         p_new.append(pk_new)
         aux.append(aux_k)
+    p_new.extend(p_all[start + count:])
     return torch.stack(p_new), aux
 
 

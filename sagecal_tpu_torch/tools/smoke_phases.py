@@ -31,7 +31,7 @@ PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
           "phase_beam", "phase_predict",
           "phase_bisect",
           "phase_times", "serve_parity", "phase_serve", "serve_times",
-          "phase_service")
+          "phase_service", "phase_distributed", "phase_minibatch")
 
 
 def timed(module, seconds: dict):

@@ -5,8 +5,9 @@ package's ``RunConfig`` field by field for a spread of argv (the same
 flags and defaults); ``main(argv, device="cpu")`` runs a fullbatch and
 returns 0, or 3 when ``--abort-on-divergence`` stops a diverged run;
 every mode the port does not have yet exits 2 naming its ROADMAP.md
-item (``serve`` is dispatched; its unported options are, tests/
-test_torch_serve.py).
+item (``serve``, ``-f`` and ``-N`` are dispatched; their unported options
+are refused too: tests/test_torch_serve.py, and the ``-f``/``-N`` cases
+here).
 """
 
 import dataclasses
@@ -120,8 +121,15 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
     (["stream"], "A9"), (["widefield"], "A8"), (["refine"], "A8"),
     (["spatial"], "A7"), (["convert", "a.ms", "b.h5"], "A10"),
     (["diag", "events"], "A11"),
-    (["-f", "band*.h5", "-s", "sky.txt"], "A7"),
-    (["-d", "x.h5", "-s", "sky.txt", "-N", "2"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "-N", "2"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "-X", "1e-3,1e-4,2,20,2"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "--spatial-n0", "2"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "--spatial-diffuse-id", "3"],
+     "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "--multihost"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "--resume"], "A9"),
+    (["-d", "x.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every", "1"],
+     "A9"),
     (["-d", "x.h5", "-s", "sky.txt", "--device-profile", "prof"], "A11"),
     (["-d", "x.h5", "-s", "sky.txt", "--resume"], "A9"),
 ])

@@ -48,6 +48,10 @@ MODULES = (
     "sagecal_tpu_torch.ops.transforms", "sagecal_tpu_torch.ops.beam",
     "sagecal_tpu_torch.ops.diagnostics", "sagecal_tpu_torch.obs.trace",
     "sagecal_tpu_torch.obs.flight", "sagecal_tpu_torch.parallel.consensus",
+    "sagecal_tpu_torch.parallel.admm", "sagecal_tpu_torch.parallel.mesh",
+    "sagecal_tpu_torch.parallel.spatial",
+    "sagecal_tpu_torch.parallel.async_consensus",
+    "sagecal_tpu_torch.apps.distributed", "sagecal_tpu_torch.apps.minibatch",
 )
 
 

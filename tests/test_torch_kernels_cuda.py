@@ -30,7 +30,14 @@ error <= 1e-5 of the plain output's max abs, bit-identical on repeat,
 exactly 0 where every station index is out of range.  The calibration
 service at f32 ``--fused``: each route launches its kernels and none of
 the other's, a failing kernel fails the run (no fallback), and each
-dispatch's lanes are bit-identical to a direct batched solve.
+dispatch's lanes are bit-identical to a direct batched solve.  The
+consensus ADMM over bands on the card within 1e-8 relative of the CPU
+at f64 on every ConsensusConfig route and in robust RTR-ADMM (mode 5,
+before its trust region reaches the rounding floor), bit-identical on
+repeat; the ``-f`` and ``-N`` apps at f32 launch #1 once per band per
+tile (or minibatch),
+repeat bit-identically, stay within 5e-3 of the CPU, and fail when #1
+fails.
 """
 
 import pytest
@@ -1108,4 +1115,246 @@ def test_fullbatch_beam_on_the_card_matches_the_cpu_and_repeats(cuda,
     assert a[3][0] > 0 and a[3][1] > 0 and a[3][2] == 2
     for (g0, g1), (w0, w1) in zip(a[0], cpu[0]):
         assert abs(g1 - w1) <= 5e-3 * w1 and g1 < g0
+    assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()
+
+
+# ------------------------------- consensus ADMM and the multi-band apps
+
+
+def _mesh_problem(Nf, near=False, seed=11):
+    """tests/test_torch_mesh.py's bands made by the port on the CPU (8
+    stations, 2 point-source clusters, tilesz 2, gains linear in
+    frequency over 120-180 MHz, f64): the stacked (data, cdata, p0, rho,
+    B).  ``near``: p0 within 0.02 of the true gains (the regime where
+    the robust RTR x-step is well conditioned), else the identity."""
+    import numpy as np
+
+    from sagecal_tpu_torch.core.types import identity_jones, jones_to_params
+    from sagecal_tpu_torch.io.simulate import corrupt_and_observe, make_visdata
+    from sagecal_tpu_torch.ops.rime import point_source_batch
+    from sagecal_tpu_torch.parallel.consensus import setup_polynomials
+    from sagecal_tpu_torch.parallel.mesh import stack_for_mesh
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    M, N = 2, 8
+    freqs = np.linspace(120e6, 180e6, Nf)
+    rng = np.random.default_rng(seed)
+    c = lambda s: rng.standard_normal(s) + 1j * rng.standard_normal(s)  # noqa: E731
+    Z0 = np.eye(2)[None, None] + 0.25 * c((M, N, 2, 2))
+    Z1 = 0.15 * c((M, N, 2, 2))
+    datas, cdatas, p0s = [], [], []
+    for f in range(Nf):
+        J = torch.as_tensor(Z0 + (freqs[f] - 150e6) / 150e6 * Z1)
+        d = make_visdata(nstations=N, tilesz=2, nchan=1, freq0=150e6, seed=f,
+                         dtype=np.float64, device="cpu")
+        cl = [point_source_batch([0.0], [0.0], [2.0], dtype=torch.float64,
+                                 device="cpu"),
+              point_source_batch([0.02], [-0.01], [1.0], dtype=torch.float64,
+                                 device="cpu")]
+        d = corrupt_and_observe(d, cl, jones=J, noise_sigma=1e-4, seed=f)
+        d = d.replace(freqs=torch.tensor([freqs[f]], dtype=torch.float64))
+        datas.append(d)
+        cdatas.append(build_cluster_data(d, cl, [1, 1]))
+        p = (jones_to_params(J) if near else jones_to_params(
+            identity_jones(N, torch.complex128, device="cpu")).expand(M, -1))
+        if near:
+            p = p + 0.02 * torch.from_numpy(rng.standard_normal(p.shape))
+        p0s.append(p[:, None, :].clone())
+    rho = torch.tensor([[20.0, 12.0]], dtype=torch.float64).repeat(Nf, 1)
+    return (stack_for_mesh(datas), stack_for_mesh(cdatas), torch.stack(p0s),
+            rho, setup_polynomials(freqs, 150e6, 2, 0))
+
+
+MESH_ROUTES = {
+    "8on8_bb": (8, 8, {}, dict(bb_rho=True, collect_trace=True)),
+    "16on8": (16, 8, {}, dict(collect_trace=True)),
+    "reduced_scatter": (8, 8, dict(zstep="reduced"), {}),
+    "reduced_gather_bb": (8, 8, dict(zstep="reduced"),
+                          dict(bb_rho=True, collect_trace=True)),
+    "groups2_bb": (8, 4, dict(cluster_groups=2),
+                   dict(bb_rho=True, collect_trace=True)),
+    "groups2_reduced": (8, 4, dict(cluster_groups=2, zstep="reduced"), {}),
+    "stale1_disc05": (16, 8, dict(staleness=1, staleness_discount=0.5),
+                      dict(collect_trace=True)),
+    "mode5_robust_rtr": (4, 4, {}, dict(solver_mode=5, bb_rho=True,
+                                        collect_trace=True, itmax=-5)),
+    "mode5_robust_rtr_1round": (4, 4, {}, dict(solver_mode=5, nadmm=1,
+                                               collect_trace=True,
+                                               itmax=-4)),
+}
+
+
+@pytest.mark.parametrize("route", list(MESH_ROUTES))
+def test_admm_mesh_on_the_card_matches_the_cpu(cuda, route):
+    """Every ConsensusConfig route on the card within 1e-8 relative of
+    the CPU at f64: the virtual shards add in a fixed order on either
+    device.  Robust RTR-ADMM (mode 5) runs at itmax -5 (five rounds of
+    5 trust-region steps a cluster solve) and -4 (one round of 1
+    steepest-descent and 6 trust-region steps), before its trust region
+    reaches the rounding floor: there the CPU's own p moves by ~1e-13
+    when the data move by 1e-13 (tests/rtr_admm_sensitivity.py)."""
+    from sagecal_tpu_torch.interop import admm_result_to_numpy
+    from sagecal_tpu_torch.parallel.consensus import ConsensusConfig
+    from sagecal_tpu_torch.parallel.mesh import make_admm_mesh_fn
+    from sagecal_tpu_torch.solvers.lm import LMConfig
+
+    import numpy as np
+
+    Nf, nsh, ccfg, kw = MESH_ROUTES[route]
+    kw = {"nadmm": 5, "itmax": 4, **kw}
+    itmax = kw.pop("itmax")
+    args = _mesh_problem(Nf, near="mode5" in route)
+    runs = [admm_result_to_numpy(make_admm_mesh_fn(
+        nsh, max_emiter=1, plain_emiter=1,
+        lm_config=LMConfig(itmax=itmax),
+        consensus_cfg=ConsensusConfig(**ccfg), device=dev, **kw)(*args))
+        for dev in ("cpu", cuda, cuda)]
+    cpu, gpu, again = runs
+    assert set(cpu) == set(gpu)
+    assert all(np.array_equal(gpu[k], again[k]) for k in gpu)
+    for k, want in cpu.items():
+        scale = max(float(np.abs(want).max()), 1e-300)
+        assert float(np.abs(gpu[k] - want).max()) <= 1e-8 * scale, k
+    assert np.isfinite(cpu["p"]).all()
+
+
+def _band_files(tmp_path, Nf, ntime=2, nchan=1, tag="b"):
+    """Nf in-memory band datasets (7 stations, the two-cluster sky, gains
+    linear in frequency over 130-170 MHz; tests/test_distributed.py's
+    bands made by the port on the CPU) -> (glob, sky path)."""
+    import math
+
+    import numpy as np
+
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    sky = tmp_path / "t.sky.txt"
+    sky.write_text(FB_SKY)
+    (tmp_path / "t.sky.txt.cluster").write_text(FB_CLUSTER)
+    dec0 = math.radians(51.0)
+    clusters, _, _ = load_sky(str(sky), str(sky) + ".cluster", 0.0, dec0,
+                              dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(5)
+    c = lambda s: rng.standard_normal(s) + 1j * rng.standard_normal(s)  # noqa: E731
+    Z0 = np.eye(2)[None, None] + 0.2 * c((2, 7, 2, 2))
+    Z1 = 0.1 * c((2, 7, 2, 2))
+    freqs = np.linspace(130e6, 170e6, Nf)
+    for f in range(Nf):
+        path = str(tmp_path / f"{tag}{f}.h5")
+        simulate_dataset(path, nstations=7, ntime=ntime, nchan=nchan,
+                         freq0=freqs[f], clusters=clusters,
+                         jones=torch.as_tensor(Z0 + (freqs[f] - 150e6)
+                                               / 150e6 * Z1),
+                         noise_sigma=1e-4, seed=5 + f, dec0=dec0,
+                         open_file=memh5.MemFile, device="cpu")
+        h = memh5.MemFile(path, "r+")
+        h.attrs["ra0"] = 0.0
+        h.attrs["dec0"] = dec0
+    return str(tmp_path / f"{tag}*.h5"), sky
+
+
+def _distributed(tmp_path, device, tag, Nf=4):
+    """4 bands, 2 tiles, f32, on ``device`` -> (traces, Z file text, band
+    solution texts, residual columns, #1 launches)."""
+    import numpy as np
+
+    from sagecal_tpu_torch.apps.config import RunConfig
+    from sagecal_tpu_torch.apps.distributed import run_distributed
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    pattern, sky = _band_files(tmp_path, Nf, ntime=4, tag=tag)
+    sol = str(tmp_path / f"{tag}.z")
+    cfg = RunConfig(dataset=pattern, sky_model=str(sky),
+                    cluster_file=str(sky) + ".cluster", out_solutions=sol,
+                    tilesz=2, max_emiter=1, max_iter=4, npoly=2,
+                    admm_iters=3, admm_rho=10.0, solver_mode=1,
+                    use_f64=False)
+    rk.fused_predict_fwd_cuda.launches = 0
+    traces = run_distributed(cfg, log=lambda *a: None, device=device,
+                             open_file=memh5.MemFile)
+    launches = rk.fused_predict_fwd_cuda.launches
+    paths = memh5.MemFile.glob(pattern)
+    cols = [np.asarray(memh5.MemFile(p, "r")["corrected"]) for p in paths]
+    for p in paths:
+        memh5.remove(p)
+    texts = [open(sol).read()] + [open(f"{sol}.band{i}").read()
+                                  for i in range(Nf)]
+    return traces, texts, cols, launches
+
+
+def test_distributed_on_the_card_launches_1_per_band_and_repeats(cuda,
+                                                                 tmp_path):
+    """The -f app at f32 on the card: kernel #1 once per band per tile
+    (the residual step), a repeat bit-identical, within the 5e-3 bar of
+    the CPU run."""
+    import numpy as np
+
+    cpu = _distributed(tmp_path, "cpu", "c")
+    a = _distributed(tmp_path, cuda, "a")
+    b = _distributed(tmp_path, cuda, "b")
+    assert a[3] == 4 * 2 and cpu[3] == 0
+    assert a[1] == b[1]
+    assert all(np.array_equal(x, y) for x, y in zip(a[2], b[2]))
+    for (ad, ap), (bd, bp) in zip(a[0], b[0]):
+        assert np.array_equal(ad, bd) and np.array_equal(ap, bp)
+    for g, w in zip(a[2], cpu[2]):
+        assert np.abs(g - w).max() <= 5e-3 * np.abs(w).max()
+
+
+def test_distributed_fails_when_kernel_1_fails(cuda, tmp_path, monkeypatch):
+    """No fallback: a failing #1 fails the run."""
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    def broken(*a, **k):
+        raise RuntimeError("fused_predict_fwd made to fail")
+
+    monkeypatch.setattr(rk, "fused_predict_fwd_cuda", broken)
+    with pytest.raises(RuntimeError, match="made to fail"):
+        _distributed(tmp_path, cuda, "x")
+
+
+def _minibatch(tmp_path, device, tag):
+    """-N 1 -M 2 -w 4 -A 2 at f32 on a 4-channel in-memory dataset ->
+    (results, solutions text, residual column, #1 launches)."""
+    import numpy as np
+
+    from sagecal_tpu_torch.apps.config import RunConfig
+    from sagecal_tpu_torch.apps.minibatch import run_minibatch
+    from sagecal_tpu_torch.io import memh5
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+
+    pattern, sky = _band_files(tmp_path, 1, ntime=4, nchan=4, tag=tag)
+    path = memh5.MemFile.glob(pattern)[0]
+    cfg = RunConfig(dataset=path, sky_model=str(sky),
+                    cluster_file=str(sky) + ".cluster",
+                    out_solutions=str(tmp_path / f"{tag}.sol"), epochs=1,
+                    minibatches=2, bands=4, admm_iters=2, npoly=2,
+                    poly_type=0, admm_rho=2.0, max_lbfgs=6, lbfgs_m=5,
+                    solver_mode=2, use_f64=False)
+    rk.fused_predict_fwd_cuda.launches = 0
+    res = run_minibatch(cfg, log=lambda *a: None, device=device,
+                        open_file=memh5.MemFile)
+    launches = rk.fused_predict_fwd_cuda.launches
+    col = np.asarray(memh5.MemFile(path, "r")["corrected"])
+    memh5.remove(path)
+    return res, (tmp_path / f"{tag}.sol").read_text(), col, launches
+
+
+def test_minibatch_on_the_card_launches_1_per_band_and_repeats(cuda,
+                                                               tmp_path):
+    """The -N app in consensus at f32 on the card: #1 once per band per
+    minibatch, a repeat bit-identical, every band's residual below its
+    data, within the 5e-3 bar of the CPU run."""
+    import numpy as np
+
+    cpu = _minibatch(tmp_path, "cpu", "c")
+    a = _minibatch(tmp_path, cuda, "a")
+    b = _minibatch(tmp_path, cuda, "b")
+    assert a[3] == 4 * 2 and cpu[3] == 0
+    assert a[0] == b[0] and a[1] == b[1] and np.array_equal(a[2], b[2])
+    for (g0, g1), (w0, w1) in zip(a[0], cpu[0]):
+        assert g1 < g0 and abs(g1 - w1) <= 5e-3 * w1
     assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()

@@ -6,6 +6,7 @@ package's tile is flattened to a dict of numpy arrays and handed to
 """
 
 import numpy as np
+import pytest
 import torch
 
 VIS_FIELDS = ("u", "v", "w", "ant_p", "ant_q", "vis", "mask", "freqs",
@@ -47,3 +48,14 @@ def norm_rel(a, b) -> float:
     """||a - b|| / ||b|| over whole arrays."""
     a, b = to_np(a).astype(np.float64), to_np(b).astype(np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(autouse=True)
+def free_jax_programs():
+    """Drop the JAX programs a test compiled when it ends (autouse in the
+    modules that import it): each JAX app run compiles its own, and an
+    xdist worker would otherwise keep every one it ever ran."""
+    yield
+    import jax
+
+    jax.clear_caches()
