@@ -72,7 +72,7 @@ each printing lines of its own; any failure exits non-zero:
             res_0.  Each solve's wall, EM and LBFGS seconds, the RTR/NSD
             host syncs per cluster solve and peak device memory;
 7. fullbatch the fullbatch app, through the CLI's parser and config
-            (``-j 3 -e 1 -g 3 -l 10 -t 60 --f32 --fused``) and
+            (``-j 3 -e 1 -g 2 -l 10 -t 60 --f32 --fused``) and
             ``run_fullbatch`` on an in-memory ``vis.h5``
             (``io/memh5.py::MemFile``; the card's machine has no h5py)
             made by the port's ``create_dataset``/``simulate_dataset``:
@@ -185,8 +185,9 @@ each printing lines of its own; any failure exits non-zero:
             and -B 2's with off-diagonal (XY) power; #3/#4 against their
             plain version on the -B 2 coherencies at identity and random
             gains, Gaussian and robust, at phase 3's tolerances; the CLI
-            with ``-j 3 -e 1 -g 3 -l 10 -t 60 --f32 --fused -B 2
-            --element-coeffs hba`` (``-g 6`` until phases 14-15):
+            with ``-j 3 -e 1 -g 2 -l 10 -t 60 --f32 --fused -B 2
+            --element-coeffs hba`` (``-g 6`` until phases 14-15, 3
+            until phases 16-17):
             res_1 < res_0, #3/#4 launched in the solve and #1 once in
             the residual step (counts set to 0 before the tile, read at
             its closing log line); a second run with SAGECAL_TRACE=1 and
@@ -222,7 +223,46 @@ each printing lines of its own; any failure exits non-zero:
             the seconds per minibatch, the primal residual per band and
             round, each band's res_0 -> res_1 and the launches; fails
             unless #1 launched once per band per minibatch (8) and every
-            band's res_1 is below its res_0.
+            band's res_1 is below its res_0;
+16. spatial  the consensus ADMM with spatial regularization and the
+            diffuse-sky constraint (graded config 5's mode, cut to 4
+            sub-bands) through the CLI: phase 14's flags plus ``-X
+            1e-3,1e-4,3,20,2 --spatial-diffuse-id 100 -G rho`` over four
+            in-memory bands of two north-star tiles each, phase 14's sky
+            plus an all-shapelet cluster (a smooth n0 = 6 blob; the data
+            hold the point clusters only) and a -G file of nonzero
+            alphas, SAGECAL_TELEMETRY=1.  FISTA runs at round 2 of each
+            tile (cadence 2, -A 3); tile 2's diffuse coherencies are
+            predicted again from tile 1's diffuse model.  Prints each
+            x-step's, each FISTA refit's and each re-predict's device
+            seconds (CUDA events read after the run), spat_res, peak
+            memory.  Fails unless the run exits 0, #1 launched exactly 8
+            times (4 bands x 2 tiles) and #2-#6 never, spat_res is
+            finite, every tile-2 diffuse prediction differs from the
+            sky-only one, #1 on tile 2's re-predicted coherencies (band
+            0, its solutions) matches its plain version within 1e-5 and
+            repeats bit-identically, every band's res_1 is below its
+            res_0 in both tiles, the Z file holds 2 x 2 x 8 x 62 rows and
+            ``<solutions>.spatial.ppm`` is a P6 image of 8 x 8 panels of
+            64 pixels;
+17. federated  federated calibration (``-f`` with ``-N``) through the
+            CLI (``-N 1 -M 2 -A 2 -u 5 --f32 -l 10 -t 120 -P 2 -Q 2 -r
+            5``, SAGECAL_TELEMETRY=1) over phase 16's bands as one tile
+            of 120 timeslots (two minibatches of 113,460 rows), phase
+            14's sky.  Prints the seconds per round (the fed.round
+            windows), per minibatch round and per average (CUDA events).
+            Fails unless the run exits 0, none of #1-#10 launched, each
+            round has a ``fed_round`` event with a finite dual residual,
+            no band reset, each band's data cost on minibatch 0 fell
+            below its cost at the identity, and each band's solution
+            file holds one interval of 100 x 62 gains;
+then    the ``spatial`` app through the CLI (``spatial -f ... -t 60 -e
+            1 -g 2 -l 10 --f32``, SAGECAL_TELEMETRY=1) over phase 16's
+            bands and phase 14's sky (the app, as the JAX package's,
+            predicts point and extended sources, not shapelets): tile 0
+            of each band, ``<out>.json`` and ``<out>.npz`` written,
+            k_aic and k_mdl within 1..2, FISTA's fit_rel finite; the
+            seconds of each band's solve and of FISTA printed.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -277,14 +317,15 @@ EXT_BOUND = 1.5  # param_bound of the LBFGS-B solve (mode 3)
 # and one EM pass (cut depth; the width is the north-star tile's)
 EXT_BUCKET_MAX_EMITER, EXT_BUCKET_MAX_ITER = 1, SERVE_MAX_ITER
 # the fullbatch app: two tiles of the north-star geometry through the
-# CLI's flags (APP_FLAGS, with -g cut from 6 to 3 since the beam phase
-# joined, to keep the script near 400 s on an "NVIDIA H100 80GB HBM3,
-# 700.00 W"); telemetry off/on in robust RTR
+# CLI's flags (APP_FLAGS, with -g cut from 6 to 3 when the beam phase
+# joined and to 2 when the spatial and federated phases did, to keep the
+# script near 540 s on an "NVIDIA H100 80GB HBM3, 700.00 W"); telemetry
+# off/on in robust RTR
 # (the mode with counted host reads) on the warm phase's sky
 FB_NTIME = 2 * TILESZ
 APP_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
              "-t", str(TILESZ))
-FB_FLAGS = APP_FLAGS[:6] + ("-g", "3") + APP_FLAGS[8:]
+FB_FLAGS = APP_FLAGS[:6] + ("-g", "2") + APP_FLAGS[8:]
 FB_TEL_MODE = 5
 
 # the calibration service: the reference serve defaults (-j 3 -e 3 -g 2
@@ -314,6 +355,21 @@ DIST_FLAGS = ("-t", str(TILESZ), "--f32", "-j", "1", "-e", "1", "-g", "2",
 MB_NCHAN, MB_NTIME = 8, 2 * TILESZ
 MB_FLAGS = ("-N", "1", "-M", "2", "-w", "4", "-A", "2", "-j", "2", "--f32",
             "-t", str(TILESZ), "-l", "10")
+
+# the spatial regularization (graded config 5's mode, cut to DIST_BANDS
+# bands): phase 14's sky plus an all-shapelet cluster (a smooth blob of
+# SPAT_N0 orders and scale SPAT_BETA) with the id SPAT_DIFFUSE_ID, two
+# tiles a band; -X lam,mu,n0,fista_maxiter,cadence with the cadence 2 at
+# -A 3 (one FISTA refit a tile, at round 2)
+SPAT_N0, SPAT_BETA, SPAT_DIFFUSE_ID = 6, 2e-3, NCLUSTERS
+SPAT_NTIME = 2 * TILESZ
+SPAT_FLAGS = DIST_FLAGS + ("-X", "1e-3,1e-4,3,20,2", "--spatial-diffuse-id",
+                           str(SPAT_DIFFUSE_ID))
+# federated calibration (-f with -N) over those bands as one tile of two
+# minibatches of TILESZ timeslots, and the spatial app over them
+FED_FLAGS = ("-N", "1", "-M", "2", "-A", "2", "-u", "5", "--f32", "-l", "10",
+             "-t", str(SPAT_NTIME), "-P", "2", "-Q", "2", "-r", "5")
+SPAPP_FLAGS = ("-t", str(TILESZ), "-e", "1", "-g", "2", "-l", "10", "--f32")
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -1324,8 +1380,9 @@ def fullbatch_telemetry(args, dirname: str):
 # reference -B codes timed, and the CLI with -B 2 and --element-coeffs
 BEAM_CODES = (1, 2, 3, 5)  # array, array x element, element, wideband full
 BEAM_CORE, BEAM_REMOTE_TILES, BEAM_CORE_TILES = 24, 48, 24
-# at phase 7's depth (-g 3; -g 6 until the consensus phases joined, to
-# keep the script near 450 s on an "NVIDIA H100 80GB HBM3, 700.00 W")
+# at phase 7's depth (-g 2; -g 6 until the consensus phases joined, 3
+# until the spatial ones did, to keep the script near 540 s on an
+# "NVIDIA H100 80GB HBM3, 700.00 W")
 BEAM_FLAGS = FB_FLAGS + ("-B", "2", "--element-coeffs", "hba")
 
 
@@ -2513,9 +2570,9 @@ def serve_times():
     return out
 
 
-def dist_datasets(dirname: str):
+def dist_datasets(dirname: str, ntime: int = TILESZ, name: str = "dist"):
     """DIST_BANDS in-memory band datasets (``MemFile``) of the north-star
-    geometry (TILESZ timeslots x NCHAN channels), at frequencies spread
+    geometry (``ntime`` timeslots x NCHAN channels), at frequencies spread
     over DIST_FREQS, of ``write_sky``'s 100-cluster sky under true gains
     linear in frequency (tests/test_distributed.py's construction), noise
     1e-3.  Returns (glob, sky file, cluster file)."""
@@ -2524,7 +2581,7 @@ def dist_datasets(dirname: str):
     from sagecal_tpu_torch.io.memh5 import MemFile
     from sagecal_tpu_torch.io.skymodel import load_sky
 
-    sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name="dist")
+    sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name=name)
     clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
     rng = np.random.default_rng(13)
     shape = (NCLUSTERS, NSTATIONS, 2, 2)
@@ -2534,7 +2591,7 @@ def dist_datasets(dirname: str):
     freqs = np.linspace(*DIST_FREQS, DIST_BANDS)
     for f, freq in enumerate(freqs):
         path = os.path.join(dirname, f"band{f}.h5")
-        simulate_dataset(path, nstations=NSTATIONS, ntime=TILESZ,
+        simulate_dataset(path, nstations=NSTATIONS, ntime=ntime,
                          nchan=NCHAN, freq0=float(freq), clusters=clusters,
                          jones=torch.as_tensor(Z0 + (freq - 150e6) / 150e6
                                                * Z1).to(resolve_device()),
@@ -2768,17 +2825,380 @@ def phase_minibatch(dirname: str):
     return out
 
 
+def _launchers() -> dict:
+    """Every kernel's launcher (#1-#6 and the probes #7-#10), by name."""
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+    from sagecal_tpu_torch.tools import kbisect as kb
+
+    out = {k: getattr(rk, k + "_cuda") for k in KERNELS}
+    out.update({k: getattr(kb, f"probe_{p}_cuda") for k, p in PROBES.items()})
+    return out
+
+
+class EventClock:
+    """Wraps ``module.name`` for a ``with`` block: each call's device
+    seconds from CUDA events recorded at both ends (no synchronize), and
+    ``keep(args, out)``'s value, read after the run by ``calls()``."""
+
+    def __init__(self, module, name: str, keep=None):
+        self.module, self.name = module, name
+        self.real, self.keep, self.marks = getattr(module, name), keep, []
+
+    def __enter__(self):
+        def timed(*a, **k):
+            start = device_event()
+            start.record()
+            out = self.real(*a, **k)
+            end = device_event()
+            end.record()
+            self.marks.append((start, end, self.keep and self.keep(a, out)))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def calls(self):
+        """[(seconds, kept)] of every call, after the run."""
+        torch.cuda.synchronize()
+        return [(s.elapsed_time(e) / 1e3, kept) for s, e, kept in self.marks]
+
+
+def spatial_sky(dirname: str, sky: str, clus: str):
+    """Phase 14's sky and cluster files plus the all-shapelet diffuse
+    cluster SPAT_DIFFUSE_ID (one source near the phase centre, a smooth
+    blob: a dominant zeroth mode over SPAT_N0 x SPAT_N0), its
+    ``.fits.modes`` file, and a -G file of rho 5 and nonzero alphas.
+    Returns (sky, cluster file, -G file)."""
+    rng = np.random.default_rng(17)
+    out = os.path.join(dirname, "spat.txt")
+    with open(sky) as f:
+        text = f.read()
+    hrs, deg = math.degrees(RA0) / 15.0, math.degrees(DEC0) + 0.3
+    h, rem = int(hrs), (hrs - int(hrs)) * 60.0
+    d, drem = int(deg), (deg - int(deg)) * 60.0
+    with open(out, "w") as f:
+        f.write(text + f"SDIF {h} {int(rem)} {(rem - int(rem)) * 60.0:.6f} "
+                f"{d} {int(drem)} {(drem - int(drem)) * 60.0:.6f} 5.0 0 0 "
+                f"0 0 0 1 1 0 150e6\n")
+    with open(clus) as f:
+        ctext = f.read()
+    with open(out + ".cluster", "w") as f:
+        f.write(ctext + f"{SPAT_DIFFUSE_ID} 1 SDIF\n")
+    modes = 0.05 * rng.standard_normal(SPAT_N0 * SPAT_N0)
+    modes[0] = 1.0
+    with open(os.path.join(dirname, "SDIF.fits.modes"), "w") as f:
+        f.write(f"# ra dec\n0 0 0 51 0 0\n{SPAT_N0} {SPAT_BETA}\n")
+        f.writelines(f"{i} {m:.8f}\n" for i, m in enumerate(modes))
+    rho = os.path.join(dirname, "spat.rho")
+    with open(rho, "w") as f:
+        f.writelines(f"{k} 1 5.0 {2.0 + 0.02 * k:.3f}\n"
+                     for k in range(NCLUSTERS + 1))
+    return out, out + ".cluster", rho
+
+
+def phase_spatial(dirname: str):
+    """Spatial regularization with the diffuse constraint through the CLI
+    (module doc, phase 16).  Returns the phase's numbers and the band
+    datasets with their point sky (glob, sky, cluster file) for phase 17
+    and the spatial app."""
+    import sagecal_tpu_torch.apps.distributed as dist
+    import sagecal_tpu_torch.parallel.mesh as mesh
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.kernels.parity import compare_predict_on_tile
+
+    t_start = sync_clock()
+    pattern, sky, clus = dist_datasets(dirname, SPAT_NTIME, "spatsky")
+    ssky, sclus, rho = spatial_sky(dirname, sky, clus)
+    make_s = sync_clock() - t_start
+    print(f"[spatial] {DIST_BANDS} bands of {SPAT_NTIME // TILESZ} tiles of "
+          f"{ROWS} rows, {NCLUSTERS} point clusters and a shapelet cluster "
+          f"(n0 {SPAT_N0}), made in {make_s:.1f} s; flags "
+          f"{' '.join(SPAT_FLAGS)} -G", flush=True)
+    sol = os.path.join(dirname, "spat.z")
+    elog = os.path.join(dirname, "spat_events.jsonl")
+    argv = ["-s", ssky, "-c", sclus, "-f", pattern, "-p", sol, "-G", rho,
+            *SPAT_FLAGS]
+    # the tile-2 residual step's inputs of band 0; each ADMM window's
+    # spat_res; each re-predict's largest change of the diffuse cluster
+    seen, sres = [], []
+    real_res, real_fn = dist.calculate_residuals, dist.make_admm_mesh_fn
+
+    def res_spy(data, cdata, p, **kw):
+        seen.append((data, cdata, p) if len(seen) == DIST_BANDS else None)
+        return real_res(data, cdata, p, **kw)
+
+    def fn_spy(*a, **k):
+        fn = real_fn(*a, **k)
+
+        def run(*args):
+            out = fn(*args)
+            sres.append(out.spat_res)
+            return out
+        return run
+
+    def change(a, out):
+        cid = a[2]
+        return ((out.coh[cid] - a[1].coh[cid]).abs().max()
+                / a[1].coh[cid].abs().max())
+
+    for k in KERNELS + tuple(PROBES):
+        _launchers()[k].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dist.calculate_residuals, dist.make_admm_mesh_fn = res_spy, fn_spy
+    t = sync_clock()
+    try:
+        with XstepClock() as xclock, \
+                EventClock(mesh, "update_spatialreg_fista") as fclock, \
+                EventClock(dist, "recalculate_diffuse_coherencies",
+                           change) as rclock:
+            rc = _with_env({"SAGECAL_TELEMETRY": "1",
+                            "SAGECAL_EVENT_LOG": elog},
+                           lambda: cli_main(argv, open_file=MemFile))
+    finally:
+        dist.calculate_residuals, dist.make_admm_mesh_fn = real_res, real_fn
+    wall = sync_clock() - t
+    launches = {k: c.launches for k, c in _launchers().items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"spatial: the CLI exited {rc}")
+    xcalls, fcalls = xclock.calls(), fclock.calls()
+    rcalls = [(sec, float(c)) for sec, c in rclock.calls()]
+    ntile = SPAT_NTIME // TILESZ
+    per_tile = len(xcalls) // ntile
+    res = [[(xcalls[t * per_tile + b][1], xcalls[(t + 1) * per_tile
+                                                 - DIST_BANDS + b][2])
+            for b in range(DIST_BANDS)] for t in range(ntile)]
+    spat_res = [x.cpu().tolist() for x in sres]
+    # #1 on tile 2's re-predicted coherencies (band 0's residual step)
+    data, cdata, p = seen[DIST_BANDS]
+    par = compare_predict_on_tile(data, cdata, p)
+    del seen
+    zrows = sum(1 for line in open(sol) if not line.startswith("#")) - 1
+    with open(sol + ".spatial.ppm", "rb") as f:
+        ppm = f.read()
+    # a near-square grid of 64-pixel panels, one a station
+    grid = math.ceil(math.sqrt(NSTATIONS))
+    side = max(grid, -(-NSTATIONS // grid)) * 64
+    head = f"P6\n{side} {side} 255\n".encode()
+    print(f"[spatial] run {wall:.1f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; x-step seconds per tile "
+          f"{[round(sum(c[0] for c in xcalls[t * per_tile:(t + 1) * per_tile]), 2) for t in range(ntile)]}; "
+          f"FISTA refits {[round(c[0], 4) for c in fcalls]} s; re-predicts "
+          f"{[round(c[0], 4) for c in rcalls]} s (diffuse cluster changed "
+          f"by {[round(c[1], 4) for c in rcalls]} of the sky-only "
+          f"prediction's max)", flush=True)
+    print(f"[spatial] spat_res per tile {spat_res}; launches {launches}; "
+          f"global-Z file {zrows} rows; plot {len(ppm)} bytes", flush=True)
+    print(f"[spatial] per tile, band res_0 -> res_1 "
+          f"{[[(round(a, 6), round(b, 6)) for a, b in r] for r in res]}; "
+          f"#1 on the re-predicted tile: model_rel {par['model_rel']:.3e}, "
+          f"max abs error {par['model_max_abs_err']:.3e}, bitwise repeat "
+          f"{par['bitwise_repeat']}", flush=True)
+    if launches["fused_predict_fwd"] != DIST_BANDS * ntile:
+        fail(f"spatial: kernel #1 launched {launches['fused_predict_fwd']} "
+             f"times, not {DIST_BANDS * ntile}")
+    if any(launches[k] for k in KERNELS[1:] + tuple(PROBES)):
+        fail(f"spatial: other kernels launched: {launches}")
+    if len(spat_res) != ntile or not np.all(np.isfinite(spat_res)):
+        fail(f"spatial: spat_res {spat_res}")
+    if len(fcalls) != ntile or len(rcalls) != DIST_BANDS:
+        fail(f"spatial: {len(fcalls)} FISTA refits and {len(rcalls)} "
+             f"re-predicts, not {ntile} and {DIST_BANDS}")
+    if not all(c[1] > 0.0 for c in rcalls):
+        fail("spatial: a re-predict left the diffuse cluster unchanged")
+    if not (par["model_rel"] <= MODEL_TOL and par["bitwise_repeat"]):
+        fail(f"spatial: #1 on the re-predicted coherencies: {par}")
+    if not all(np.isfinite(b) and b < a for r in res for a, b in r):
+        fail(f"spatial: a band's res_1 is not below its res_0: {res}")
+    if zrows != ntile * 2 * 8 * NSTATIONS:
+        fail(f"spatial: the global-Z file holds {zrows} rows")
+    if not (ppm.startswith(head) and len(ppm) == len(head) + side * side * 3):
+        fail(f"spatial: the plot is {len(ppm)} bytes, header {ppm[:16]!r}")
+    out = {"dataset_s": make_s, "wall_s": wall, "peak_bytes": peak,
+           "xstep_s": [c[0] for c in xcalls],
+           "fista_s": [c[0] for c in fcalls],
+           "repredict_s": [c[0] for c in rcalls],
+           "repredict_change": [c[1] for c in rcalls], "spat_res": spat_res,
+           "launches": launches, "res": res, "zrows": zrows,
+           "parity": par}
+    out["seconds"] = sync_clock() - t_start
+    print(f"[spatial] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out, (pattern, sky, clus)
+
+
+def phase_federated(dirname: str, pattern: str, sky: str, clus: str):
+    """Federated calibration through the CLI (module doc, phase 17)."""
+    import sagecal_tpu_torch.apps.federated as fed
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io import solutions as solio
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.solvers.batchmode import _data_cost
+
+    t_start = sync_clock()
+    print(f"[federated] {DIST_BANDS} bands of one {SPAT_NTIME}-timeslot "
+          f"tile, {NCLUSTERS} clusters; flags {' '.join(FED_FLAGS)}",
+          flush=True)
+    sol = os.path.join(dirname, "fed.sol")
+    elog = os.path.join(dirname, "fed_events.jsonl")
+    argv = ["-s", sky, "-c", clus, "-f", pattern, "-p", sol, *FED_FLAGS]
+    # each minibatch round's (data, cdata, input state, costs) and each
+    # average, timed on the device
+    real_step, real_avg = fed.make_federated_minibatch_fn, fed.make_fed_avg_fn
+    step_clock, avg_clock = [], []
+
+    def clocked(make, marks, keep):
+        def build(*a, **k):
+            fn = make(*a, **k)
+
+            def run(*args):
+                start = device_event()
+                start.record()
+                out = fn(*args)
+                end = device_event()
+                end.record()
+                marks.append((start, end, keep(args, out)))
+                return out
+            return run
+        return build
+
+    step_keep = lambda a, out: (a[0], a[1], out[2])  # noqa: E731
+    for k in KERNELS + tuple(PROBES):
+        _launchers()[k].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fed.make_federated_minibatch_fn = clocked(real_step, step_clock,
+                                              step_keep)
+    fed.make_fed_avg_fn = clocked(real_avg, avg_clock, lambda a, out: None)
+    t = sync_clock()
+    try:
+        rc = _with_env({"SAGECAL_TELEMETRY": "1", "SAGECAL_EVENT_LOG": elog},
+                       lambda: cli_main(argv, open_file=MemFile))
+    finally:
+        fed.make_federated_minibatch_fn = real_step
+        fed.make_fed_avg_fn = real_avg
+    wall = sync_clock() - t
+    launches = {k: c.launches for k, c in _launchers().items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"federated: the CLI exited {rc}")
+    torch.cuda.synchronize()
+    step_s = [s.elapsed_time(e) / 1e3 for s, e, _ in step_clock]
+    avg_s = [s.elapsed_time(e) / 1e3 for s, e, _ in avg_clock]
+    rounds = _events(elog, "fed_round")
+    resets = _events(elog, "band_reset")
+    round_s = [sum(step_s[r * 2:(r + 1) * 2]) + avg_s[r]
+               for r in range(len(avg_s))]
+    # each band's data cost on minibatch 0: at the identity, and after
+    # its last round
+    dst, cst, _ = step_clock[0][2]
+    last = step_clock[-2][2][2].tolist()  # the last round's minibatch 0
+    from sagecal_tpu_torch.core.types import identity_jones, jones_to_params
+    from sagecal_tpu_torch.solvers.sage import lane_of
+
+    from sagecal_tpu_torch.utils.precision import full_f32
+
+    eye = jones_to_params(identity_jones(NSTATIONS, torch.complex64))
+    p_id = eye.expand(NCLUSTERS, 1, 8 * NSTATIONS).reshape(-1)
+    with torch.no_grad(), full_f32():
+        first = [float(_data_cost(p_id, lane_of(dst, b), lane_of(cst, b),
+                                  (NCLUSTERS, 1, 8 * NSTATIONS), None))
+                 for b in range(DIST_BANDS)]
+    del step_clock
+    shapes = []
+    for b in range(DIST_BANDS):
+        _, jsol = solio.read_solutions(f"{sol}.band{b}")
+        shapes.append(tuple(jsol.shape))
+    dres = [r["dual_res"] for r in rounds]
+    print(f"[federated] run {wall:.1f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; seconds per round "
+          f"{[round(x, 3) for x in round_s]}, per minibatch round "
+          f"{[round(x, 3) for x in step_s]}, per average "
+          f"{[round(x, 4) for x in avg_s]}", flush=True)
+    print(f"[federated] dual residual per round {dres}; resets "
+          f"{len(resets)}; data cost on minibatch 0 at the identity -> "
+          f"last round {[(round(a, 3), round(b, 3)) for a, b in zip(first, last)]}; "
+          f"launches {launches}; solution files {shapes}", flush=True)
+    if any(launches.values()):
+        fail(f"federated: kernels launched: {launches}")
+    if len(rounds) != 2 or not all(d is not None and np.isfinite(d)
+                                   for d in dres):
+        fail(f"federated: fed_round events {rounds}")
+    if resets:
+        fail(f"federated: bands reset: {resets}")
+    if not all(np.isfinite(b) and b < a for a, b in zip(first, last)):
+        fail(f"federated: a band's data cost did not fall: {first} {last}")
+    if shapes != [(1, NCLUSTERS, NSTATIONS, 2, 2)] * DIST_BANDS:
+        fail(f"federated: solution files {shapes}")
+    out = {"wall_s": wall, "peak_bytes": peak, "round_s": round_s,
+           "minibatch_s": step_s, "avg_s": avg_s, "dual_res": dres,
+           "cost_identity": first, "cost_last": last, "launches": launches}
+    out["seconds"] = sync_clock() - t_start
+    print(f"[federated] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_spatial_app(dirname: str, pattern: str, sky: str, clus: str):
+    """The ``spatial`` app through the CLI (module doc, after phase 17)."""
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    t_start = sync_clock()
+    prefix = os.path.join(dirname, "spapp")
+    elog = os.path.join(dirname, "spapp_events.jsonl")
+    argv = ["spatial", "-f", pattern, "-s", sky, "-c", clus, "-o", prefix,
+            *SPAPP_FLAGS]
+    for k in KERNELS + tuple(PROBES):
+        _launchers()[k].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    rc = _with_env({"SAGECAL_TELEMETRY": "1", "SAGECAL_EVENT_LOG": elog},
+                   lambda: cli_main(argv, open_file=MemFile))
+    wall = sync_clock() - t
+    launches = {k: c.launches for k, c in _launchers().items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"spatial app: the CLI exited {rc}")
+    band_s = [e["seconds"] for e in _events(elog, "band_solved")]
+    fista = _events(elog, "spatial_fista")
+    summary = json.load(open(prefix + ".json"))
+    npz = np.load(prefix + ".npz")
+    print(f"[spatial app] run {wall:.1f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; seconds per band solve "
+          f"{[round(x, 2) for x in band_s]}, FISTA "
+          f"{fista[0]['seconds'] if fista else None} s; k_aic "
+          f"{summary['k_aic']} k_mdl {summary['k_mdl']}, fit_rel "
+          f"{summary['fista_fit_rel']:.4e}, nnz {summary['fista_nnz']}; "
+          f"npz {sorted(npz.files)}; launches {launches}", flush=True)
+    if not (1 <= summary["k_aic"] <= 2 and 1 <= summary["k_mdl"] <= 2):
+        fail(f"spatial app: orders {summary['k_aic']} {summary['k_mdl']}")
+    if not np.isfinite(summary["fista_fit_rel"]):
+        fail(f"spatial app: fit_rel {summary['fista_fit_rel']}")
+    if len(band_s) != DIST_BANDS or set(npz.files) != {
+            "J", "Z", "Zs", "Z_spatial", "aic", "mdl", "freqs"}:
+        fail(f"spatial app: {len(band_s)} band solves, npz {npz.files}")
+    out = {"wall_s": wall, "peak_bytes": peak, "band_s": band_s,
+           "fista_s": fista[0]["seconds"] if fista else None,
+           "summary": summary, "launches": launches}
+    out["seconds"] = sync_clock() - t_start
+    print(f"[spatial app] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 1: cut from 2 when the consensus phases (14, 15) joined, to keep
     # the script near 450 s on an "NVIDIA H100 80GB HBM3, 700.00 W" (the
     # main, warm, extended and telemetry solves run at this depth)
     ap.add_argument("--max-emiter", type=int, default=1)
-    # 3: cut from 6 to 4 when the fullbatch phase joined and to 3 when
-    # the beam phase did, to keep the script near 400 s on an "NVIDIA
-    # H100 80GB HBM3, 700.00 W" (the main, warm, extended and telemetry
-    # solves run at this depth)
-    ap.add_argument("--max-iter", type=int, default=3)
+    # 2: cut from 6 to 4 when the fullbatch phase joined, to 3 when the
+    # beam phase did and to 2 when the spatial and federated phases did,
+    # to keep the script near 540 s on an "NVIDIA H100 80GB HBM3, 700.00
+    # W" (the main, warm, extended and telemetry solves run at this
+    # depth)
+    ap.add_argument("--max-iter", type=int, default=2)
     ap.add_argument("--max-lbfgs", type=int, default=10)
     ap.add_argument("--json-out", default=None,
                     help="also write every number printed to this file")
@@ -2871,6 +3291,16 @@ def main():
         dist_out = phase_distributed(d)
     with tempfile.TemporaryDirectory() as d:
         mb_out = phase_minibatch(d)
+    with tempfile.TemporaryDirectory() as d:
+        from sagecal_tpu_torch.io.memh5 import remove
+
+        spat_out, (pattern, psky, pclus) = phase_spatial(d)
+        fed_out = phase_federated(d, pattern, psky, pclus)
+        spapp_out = phase_spatial_app(d, pattern, psky, pclus)
+        for f in range(DIST_BANDS):
+            remove(os.path.join(d, f"band{f}.h5"))
+    worst["fused_predict_fwd"] = max(worst["fused_predict_fwd"],
+                                     spat_out["parity"]["model_max_abs_err"])
     for k, v in svc_out["parity"]["worst"].items():
         worst[k] = max(worst[k], v)
     print(f"[times] ({card}) service: run 1 {svc_out['wall_s'][0]:.1f} s "
@@ -2893,6 +3323,18 @@ def main():
           f"{mb_out['wall_s']:.1f} s, per minibatch "
           f"{[round(x, 2) for x in mb_out['minibatch_s']]} s, peak "
           f"{mb_out['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[times] ({card}) spatial: run {spat_out['wall_s']:.1f} s, FISTA "
+          f"{[round(x, 4) for x in spat_out['fista_s']]} s, re-predicts "
+          f"{[round(x, 4) for x in spat_out['repredict_s']]} s, peak "
+          f"{spat_out['peak_bytes'] / 2**30:.2f} GiB; federated: run "
+          f"{fed_out['wall_s']:.1f} s, per round "
+          f"{[round(x, 2) for x in fed_out['round_s']]} s, per minibatch "
+          f"round {[round(x, 2) for x in fed_out['minibatch_s']]} s, per "
+          f"average {[round(x, 4) for x in fed_out['avg_s']]} s, peak "
+          f"{fed_out['peak_bytes'] / 2**30:.2f} GiB; spatial app: run "
+          f"{spapp_out['wall_s']:.1f} s, per band "
+          f"{[round(x, 2) for x in spapp_out['band_s']]} s, FISTA "
+          f"{spapp_out['fista_s']} s", flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -2918,7 +3360,9 @@ def main():
         "distributed (1 tile, 4 bands)":
             dist_out["launches"]["fused_predict_fwd"],
         "minibatch (4 bands x 2 minibatches)":
-            mb_out["launches"]["fused_predict_fwd"]}
+            mb_out["launches"]["fused_predict_fwd"],
+        "spatial (2 tiles, 4 bands)":
+            spat_out["launches"]["fused_predict_fwd"]}
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
@@ -2927,7 +3371,9 @@ def main():
                        "predict": pred_out,
                        "bisect": bisect_out, "serve": serve_out,
                        "service": svc_out, "distributed": dist_out,
-                       "minibatch": mb_out, "times": times, "kernels": kernels,
+                       "minibatch": mb_out, "spatial": spat_out,
+                       "federated": fed_out, "spatial_app": spapp_out,
+                       "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,
                        "seconds": time.perf_counter() - t_start}, fh, indent=1)

@@ -4,8 +4,9 @@ as the reference, ``use_f64=True`` and ``use_fused_predict=False``
 included.  Field names follow the reference's single-letter flags (see
 ``cli.py``).  Fields whose feature the port has not reached yet are
 kept, and ``apps/fullbatch.py`` refuses them by name.  :class:`ServeConfig`
-is the reference's too, for ``apps/serve.py``; the other config
-dataclasses of that module belong to the apps of ROADMAP.md's A7 and A9.
+is the reference's too, for ``apps/serve.py``, and :class:`SpatialConfig`
+for ``apps/spatial.py``; the other config dataclasses of that module
+belong to the apps of ROADMAP.md's A8 and A9.
 """
 
 from __future__ import annotations
@@ -110,6 +111,46 @@ class RunConfig:
     # precision
     use_f64: bool = True
     verbose: bool = False  # -V
+
+
+@dataclasses.dataclass
+class SpatialConfig:
+    """The ``spatial`` app: per-band calibration solves -> consensus
+    polynomial -> FISTA elastic-net fit of Z onto the spatial basis
+    (``parallel/spatial.py``) and the AIC/MDL consensus-order scan."""
+
+    band_pattern: str = ""  # glob of per-band vis.h5; empty = synthetic
+    sky_model: str = ""
+    cluster_file: str = ""
+    out_prefix: str = "spatial-out"  # <prefix>.json / .npz
+    tilesz: int = 2
+    # per-band solver (RunConfig semantics)
+    max_emiter: int = 3
+    max_iter: int = 2
+    max_lbfgs: int = 10
+    lbfgs_m: int = 7
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS
+    # consensus + spatial
+    admm_rho: float = 5.0
+    npoly: int = 2
+    poly_type: int = 2
+    spatial_n0: int = 2
+    spatial_beta: float = 0.0  # <=0: master's auto scale
+    spatial_basis: str = "shapelet"
+    spatial_mu: float = 1e-3
+    fista_maxiter: int = 60
+    mdl_kmax: int = 0  # 0: max(npoly, 2)
+    # synthetic mode: make_multiband_skies bands
+    synthetic: int = 0  # >0: number of synthetic bands
+    nstations: int = 7
+    noise_sigma: float = 0.0
+    seed: int = 5
+    # elastic (checkpoint after each solved band; ROADMAP.md, A9)
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    use_f64: bool = True
+    verbose: bool = False
 
 
 @dataclasses.dataclass

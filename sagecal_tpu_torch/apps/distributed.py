@@ -23,13 +23,26 @@ With ``-U`` (``global_residual``) the residual uses the consensus
 solution B_f Z instead of the band's own.  ``mdl`` logs the AIC/MDL
 scan of the consensus order each tile (``parallel/spatial.py``).
 
+``spatial_n0 > 0`` (the command line's ``-X``) regularizes the consensus
+spatially inside the ADMM (``parallel/mesh.py::SpatialConfig``): a
+shapelet or spherical-harmonic basis over the flux-weighted cluster
+centroids (each hybrid chunk an effective cluster), each cluster's alpha
+from the ``-G`` file's fourth column (``admm_rho`` where it is 0).  With
+``spatial_diffuse_id`` the diffuse constraint runs too
+(``find_initial_spatial``, sagecal_master.cpp:649-926), and from the
+second tile on that cluster's coherencies are predicted again from the
+previous tile's diffuse model (``parallel/spatial.py::bz_spatial`` per
+band, ``ops/diffuse.py``; slave:670-698), between tiles as in the JAX
+package.  The last tile's spatial model is plotted to
+``<solutions>.spatial.ppm`` (shapelet basis only).
+
 A run emits the ``admm_round`` (with per-band residuals and the rho
 trajectory under ``SAGECAL_TELEMETRY=1``) and ``consensus_health``
 events, runs the consensus watchdog (``--abort-on-divergence``), writes
 a ``distributed`` run span, ``tile`` spans and the synthetic per-band
 and per-round spans of the ADMM window, and keeps the flight recorder,
 as the fullbatch app does.  ``resume`` / ``checkpoint_every`` need
-ROADMAP.md's A9; spatial regularization and multi-host runs its A7.
+ROADMAP.md's A9; multi-host runs its A7c.
 """
 
 from __future__ import annotations
@@ -45,7 +58,7 @@ import torch
 from sagecal_tpu_torch.apps.config import RunConfig
 from sagecal_tpu_torch.apps.fullbatch import _mat_of_flat, _refuse
 from sagecal_tpu_torch.core.types import (
-    identity_jones, jones_to_params, params_to_jones,
+    complex_dtype_of, identity_jones, jones_to_params, params_to_jones,
 )
 from sagecal_tpu_torch.device import resolve_device, synchronize
 from sagecal_tpu_torch.io import solutions as solio
@@ -61,12 +74,19 @@ from sagecal_tpu_torch.obs.trace import (
     band_attribution, close_tracer, configure_tracer, get_tracer,
     straggler_stats,
 )
+from sagecal_tpu_torch.ops.diffuse import recalculate_diffuse_coherencies
 from sagecal_tpu_torch.ops.residual import calculate_residuals
 from sagecal_tpu_torch.parallel import consensus
 from sagecal_tpu_torch.parallel.admm import (
     factor_schedule, round_work_weights,
 )
-from sagecal_tpu_torch.parallel.mesh import make_admm_mesh_fn, stack_for_mesh
+from sagecal_tpu_torch.parallel.mesh import (
+    SpatialConfig, make_admm_mesh_fn, stack_for_mesh,
+)
+from sagecal_tpu_torch.parallel.spatial import (
+    basis_blocks, bz_spatial, cluster_centroids, find_initial_spatial,
+    phikk_matrix, spatial_basis_modes,
+)
 from sagecal_tpu_torch.solvers.lm import LMConfig
 from sagecal_tpu_torch.solvers.sage import build_cluster_data
 from sagecal_tpu_torch.utils.profiling import PhaseTimer
@@ -165,8 +185,31 @@ def _emit_admm_attribution(tracer, elog, log, t0, admm_seconds,
     return band_secs, stats
 
 
+@dataclasses.dataclass(frozen=True)
+class SpatialOptions:
+    """The spatial options of :func:`run_distributed` (module doc)."""
+
+    n0: int = 0
+    beta: float = 0.01
+    mu: float = 1e-3
+    alpha: float = 0.0
+    cadence: int = 2
+    basis: str = "shapelet"
+    diffuse_id: Optional[int] = None
+    gamma: float = 0.0
+    lam: float = 0.0
+    fista_maxiter: int = 30
+
+
 def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
-                    log=print, nadmm: Optional[int] = None, mdl: bool = False,
+                    log=print, nadmm: Optional[int] = None,
+                    spatial_n0: int = 0, spatial_beta: float = 0.01,
+                    spatial_mu: float = 1e-3, spatial_alpha: float = 0.0,
+                    spatial_cadence: int = 2,
+                    spatial_basis: str = "shapelet",
+                    spatial_diffuse_id: Optional[int] = None,
+                    spatial_gamma: float = 0.0, spatial_lam: float = 0.0,
+                    spatial_fista_maxiter: int = 30, mdl: bool = False,
                     global_residual: bool = False, adaptive_rho: bool = True,
                     nshards: Optional[int] = None, device=None,
                     open_file=None):
@@ -174,8 +217,13 @@ def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
     ``device="cpu"``).  ``datasets``: the band files, or None to expand
     ``cfg.dataset`` as a glob (the reference's ``-f 'pattern'``; over
     ``open_file``'s registry when it has a ``glob``, as ``MemFile``
-    does).  ``nshards``: the virtual shards (module doc).  Returns the
-    per-tile (dual_res, primal_res) traces."""
+    does).  ``nshards``: the virtual shards (module doc).  The
+    ``spatial_*`` options are the JAX package's: ``spatial_n0 > 0``
+    switches the spatial regularization on, ``spatial_beta <= 0`` takes
+    the master's auto scale, ``spatial_diffuse_id`` names the
+    all-shapelet diffuse cluster and ``spatial_gamma``/``spatial_lam``
+    are its (sp_gamma, sh_lambda).  Returns the per-tile (dual_res,
+    primal_res) traces."""
     _refuse(cfg)
     dev = resolve_device(device)
     if datasets is None:
@@ -190,9 +238,13 @@ def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
     try:
         for p in datasets:
             handles.append(VisDataset(p, "r+", open_file))
+        sp = SpatialOptions(
+            spatial_n0, spatial_beta, spatial_mu, spatial_alpha,
+            spatial_cadence, spatial_basis, spatial_diffuse_id,
+            spatial_gamma, spatial_lam, spatial_fista_maxiter)
         return _run(cfg, list(datasets), handles, open_files, log, nadmm,
                     mdl, global_residual, adaptive_rho, nshards, dev,
-                    open_file)
+                    open_file, sp)
     finally:
         for fh in open_files + handles:
             try:
@@ -201,8 +253,44 @@ def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
                 pass
 
 
+def _spatial_config(sp: SpatialOptions, clusters, cdefs, nchunk_max, alpha_m,
+                    B, N, cfg, rdt, dev, log):
+    """The mesh's ``SpatialConfig`` (the master's basis setup,
+    sagecal_master.cpp:293-423, 649-660), the diffuse cluster's index
+    (None without one) and the basis scale its re-predict uses."""
+    lle, mme = cluster_centroids(clusters, nchunk_max)
+    modes, beta_used = spatial_basis_modes(
+        lle, mme, sp.n0, None if sp.beta <= 0 else sp.beta, sp.basis)
+    diffuse_beta = beta_used if beta_used > 0 else sp.beta
+    log(f"spatial basis {sp.basis} n0={sp.n0} beta={beta_used:.4g}")
+    cdt = complex_dtype_of(rdt)
+    Phi = basis_blocks(modes, cdt, dev)
+    Z_diff0, diffuse_idx = None, None
+    if sp.diffuse_id is not None:
+        if sp.basis != "shapelet":
+            raise ValueError(
+                "the diffuse constraint re-predicts coherencies through "
+                "shapelet products (diffuse_predict.c); use "
+                "--spatial-basis shapelet with --spatial-diffuse-id")
+        ids = [cd.cluster_id for cd in cdefs]
+        if sp.diffuse_id not in ids:
+            raise ValueError(f"diffuse cluster id {sp.diffuse_id} not in "
+                             f"cluster file (ids {ids})")
+        diffuse_idx = ids.index(sp.diffuse_id)
+        Z_diff0 = torch.from_numpy(find_initial_spatial(B, modes, N)).to(
+            dev, cdt)
+    spatial = SpatialConfig(
+        Phi=Phi, Phikk=phikk_matrix(Phi, lam=1e-6),
+        alpha=torch.as_tensor(np.where(alpha_m > 0, alpha_m, cfg.admm_rho),
+                              dtype=rdt).to(dev),
+        mu=sp.mu, cadence=sp.cadence, fista_maxiter=sp.fista_maxiter,
+        Z_diff0=Z_diff0, gamma=sp.gamma, lam_diff=sp.lam)
+    return spatial, diffuse_idx, diffuse_beta
+
+
 def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
-         global_residual, adaptive_rho, nshards, dev, open_file):
+         global_residual, adaptive_rho, nshards, dev, open_file,
+         sp: SpatialOptions):
     rdt = torch.float64 if cfg.use_f64 else torch.float32
     cdtype = torch.complex128 if cfg.use_f64 else torch.complex64
     metas = [h.meta for h in handles]
@@ -219,10 +307,13 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     nchunks = [cd.nchunk for cd in cdefs]
     nchunk_max = max(nchunks)
     n8 = 8 * N
+    # per-cluster rho and spatial alpha from the -G file when given
     if cfg.rho_file:
-        rho_m, _ = read_cluster_rho(cfg.rho_file, cdefs, spatialreg=True)
+        rho_m, alpha_m = read_cluster_rho(cfg.rho_file, cdefs,
+                                          spatialreg=True)
     else:
         rho_m = np.full((M,), cfg.admm_rho)
+        alpha_m = np.full((M,), sp.alpha)
 
     # pad the band count to a multiple of the shards with zero-weight
     # bands
@@ -236,6 +327,11 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     if Nf_pad != Nf:
         B = np.concatenate([B, np.tile(B[-1:], (Nf_pad - Nf, 1))], axis=0)
     B_dev = torch.as_tensor(B, dtype=rdt).to(dev)
+    spatial = diffuse_idx = diffuse_beta = None
+    if sp.n0 > 0:
+        spatial, diffuse_idx, diffuse_beta = _spatial_config(
+            sp, clusters, cdefs, nchunk_max, alpha_m, B[:Nf], N, cfg, rdt,
+            dev, log)
 
     # per-band trajectories feed the consensus watchdog too, so an
     # abort-enabled run collects them with telemetry off
@@ -258,8 +354,8 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             ndev, nadmm=nadmm, max_emiter=cfg.max_emiter,
             plain_emiter=max(cfg.max_emiter, 2),
             lm_config=LMConfig(itmax=cfg.max_iter), bb_rho=adaptive_rho,
-            solver_mode=cfg.solver_mode, collect_trace=collect,
-            consensus_cfg=ccfg, device=dev)
+            solver_mode=cfg.solver_mode, spatial=spatial,
+            collect_trace=collect, consensus_cfg=ccfg, device=dev)
 
     # fine-grained rounds rebalance their slot schedule on the first
     # tile's unflagged fractions: the function is built there
@@ -314,9 +410,11 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     timer = PhaseTimer()
     pf_iters = []
 
-    def prepare_tile(t0):
-        """Every band's tile on the device with its coherencies, and the
-        unflagged fractions as device scalars (read once a tile)."""
+    def prepare_tile(t0, zdiff):
+        """Every band's tile on the device with its coherencies (the
+        diffuse cluster's predicted again from ``zdiff``, the previous
+        tile's diffuse model, when there is one), and the unflagged
+        fractions as device scalars (read once a tile)."""
         datas, cdatas, fratios = [], [], []
         # clamp to the common timeslot range: equal rows in every band
         eff_tilesz = min(cfg.tilesz, ntime - t0)
@@ -333,8 +431,14 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             # keeps its own channel ``freqs``
             d = d.replace(freq0=freq0, deltaf=meta0.deltaf)
             datas.append(d)
-            cdatas.append(build_cluster_data(d, clusters, nchunks,
-                                             shapelets=shapelets))
+            cdata_b = build_cluster_data(d, clusters, nchunks,
+                                         shapelets=shapelets)
+            if diffuse_idx is not None and zdiff is not None:
+                cdata_b = recalculate_diffuse_coherencies(
+                    d, cdata_b, diffuse_idx, clusters[diffuse_idx],
+                    shapelets, bz_spatial(zdiff, B_dev[bi], N), sp.n0,
+                    diffuse_beta)
+            cdatas.append(cdata_b)
             fratios.append(d.mask.mean())
         for _ in range(Nf_pad - Nf):  # band 0 with mask 0
             datas.append(datas[0].replace(
@@ -351,7 +455,7 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
         prepared = None
         if pairs:
             with timer.phase("prepare"):
-                prepared = prepare_tile(pairs[0][1])
+                prepared = prepare_tile(pairs[0][1], None)
         for pi, (tile_no, t0) in enumerate(pairs):
             tic = time.time()
             tile_span = tracer.span("tile", kind="tile", tile=t0)
@@ -375,7 +479,9 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             p_bands = out.p  # the next tile's warm start
             if pi + 1 < len(pairs):
                 with timer.phase("prepare"):
-                    prepared = prepare_tile(pairs[pi + 1][1])
+                    prepared = prepare_tile(
+                        pairs[pi + 1][1],
+                        out.Zspat_diff if diffuse_idx is not None else None)
             band_secs, straggler = _emit_admm_attribution(
                 tracer, elog, log, t0, admm_seconds, admm_start_unix,
                 fratios, Nf, nadmm, Nf_pad // ndev,
@@ -461,6 +567,15 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
                       phase_totals=dict(timer.totals))
             elog.close()
             unregister_event_log(elog)
+        if sp.n0 > 0 and sp.basis == "shapelet" and pairs:
+            # the master's spatial-model plot (sagecal_master.cpp:1198)
+            # of the last tile's model
+            from sagecal_tpu_torch.utils.ppm import plot_spatial_model
+
+            ppm_path = f"{cfg.out_solutions}.spatial.ppm"
+            plot_spatial_model(out.Zspat, cfg.npoly, N, sp.n0,
+                               beta=diffuse_beta or sp.beta, path=ppm_path)
+            log(f"spatial model plot -> {ppm_path}")
     finally:
         # reap every band's reader thread even when a tile raises
         for pf in prefetchers:

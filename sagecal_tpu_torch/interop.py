@@ -17,8 +17,14 @@ consensus ADMM's state crosses with :func:`admm_result_to_numpy` (every
 rho and the like as tensors), :func:`consensus_config_to_numpy` /
 :func:`consensus_config_from_numpy` (a ``ConsensusConfig``) and
 :func:`ledger_to_numpy` / :func:`ledger_from_numpy` (a
-``StalenessLedger``).  Numpy only in, numpy only out: this module does
-not import ``sagecal_tpu``.
+``StalenessLedger``); the spatial fields of an ``AdmmResult`` (``Zspat``,
+``spat_res``, ``Zspat_diff``) come with the rest.  The mesh's spatial
+coupling crosses with :func:`spatial_config_to_numpy` /
+:func:`spatial_config_from_numpy` (a ``SpatialConfig``), and the
+federated mode's carried state with :func:`federated_state_to_numpy` /
+:func:`federated_state_from_numpy` (a ``FederatedState``, its LBFGS
+memory stacked band-major as the JAX package keeps it).  Numpy only in,
+numpy only out: this module does not import ``sagecal_tpu``.
 """
 
 from __future__ import annotations
@@ -230,3 +236,83 @@ def ledger_from_numpy(obj):
     led.zterms = z
     led.ages = np.asarray(d["ages"], np.int64).copy()
     return led
+
+
+SPATIAL_FIELDS = ("Phi", "Phikk", "alpha", "mu", "cadence", "fista_maxiter",
+                  "Z_diff0", "gamma", "lam_diff")
+
+
+def spatial_config_to_numpy(spat) -> dict:
+    """A mesh ``SpatialConfig`` of either package -> a dict (arrays as
+    numpy, scalars as Python numbers, an absent ``Z_diff0`` as None)."""
+    out = {}
+    for k in SPATIAL_FIELDS:
+        v = _field(spat, k)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        elif k in ("Phi", "Phikk", "alpha", "Z_diff0") and v is not None:
+            v = np.array(v)
+        out[k] = v
+    return out
+
+
+def spatial_config_from_numpy(obj, device=None):
+    """:func:`spatial_config_to_numpy`'s dict (or a ``SpatialConfig`` of
+    either package) -> the port's ``SpatialConfig`` on ``device``, dtypes
+    kept."""
+    from sagecal_tpu_torch.parallel.mesh import SpatialConfig
+
+    d = spatial_config_to_numpy(obj)
+    dev = resolve_device(device)
+    arr = lambda v: None if v is None else torch.from_numpy(  # noqa: E731
+        np.array(v)).to(dev)
+    return SpatialConfig(
+        Phi=arr(d["Phi"]), Phikk=arr(d["Phikk"]), alpha=arr(d["alpha"]),
+        mu=float(d["mu"]), cadence=int(d["cadence"]),
+        fista_maxiter=int(d["fista_maxiter"]), Z_diff0=arr(d["Z_diff0"]),
+        gamma=float(d["gamma"]), lam_diff=float(d["lam_diff"]))
+
+
+FED_STATE_FIELDS = ("p", "Y", "Z", "Zbar", "X")
+LBFGS_MEMORY_FIELDS = ("s", "y", "rho", "vacant", "nfilled", "niter",
+                       "running_avg", "running_avg_sq")
+
+
+def federated_state_to_numpy(state) -> dict:
+    """A ``FederatedState`` of either package -> numpy arrays: p, Y, Z,
+    Zbar, X and ``mem.<field>`` with a leading band axis (the port's
+    per-band memories stacked)."""
+    np_of = lambda v: (v.detach().cpu().numpy()  # noqa: E731
+                       if isinstance(v, torch.Tensor) else np.array(v))
+    out = {k: np_of(getattr(state, k)) for k in FED_STATE_FIELDS}
+    mem = state.mem
+    for k in LBFGS_MEMORY_FIELDS:
+        if isinstance(mem, (list, tuple)):
+            out[f"mem.{k}"] = np.stack([np.asarray(np_of(getattr(m, k)))
+                                        for m in mem])
+        else:
+            out[f"mem.{k}"] = np_of(getattr(mem, k))
+    for k in ("vacant", "nfilled", "niter"):
+        out[f"mem.{k}"] = out[f"mem.{k}"].astype(np.int64)
+    return out
+
+
+def federated_state_from_numpy(obj, device=None):
+    """:func:`federated_state_to_numpy`'s dict (or a ``FederatedState`` of
+    either package) -> the port's ``FederatedState`` on ``device``, one
+    ``LBFGSMemory`` a band."""
+    from sagecal_tpu_torch.parallel.federated import FederatedState
+    from sagecal_tpu_torch.solvers.lbfgs import LBFGSMemory
+
+    d = obj if isinstance(obj, dict) else federated_state_to_numpy(obj)
+    dev = resolve_device(device)
+    t = lambda v: torch.from_numpy(np.array(v)).to(dev)  # noqa: E731
+    mem = []
+    for b in range(d["p"].shape[0]):
+        kw = {k: t(d[f"mem.{k}"][b]) for k in ("s", "y", "rho",
+                                               "running_avg",
+                                               "running_avg_sq")}
+        kw.update({k: int(d[f"mem.{k}"][b])
+                   for k in ("vacant", "nfilled", "niter")})
+        mem.append(LBFGSMemory(**kw))
+    return FederatedState(mem=mem, **{k: t(d[k]) for k in FED_STATE_FIELDS})

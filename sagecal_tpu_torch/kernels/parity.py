@@ -31,7 +31,8 @@ from sagecal_tpu_torch.ops.rime_kernel import (
     fused_cost_batch_bwd_cuda,
     fused_cost_bwd_cuda, fused_cost_packed, fused_cost_packed_batch,
     fused_cost_packed_batch_plain, fused_cost_packed_hybrid,
-    fused_cost_packed_plain, fused_predict_bwd_cuda, fused_predict_packed,
+    fused_cost_packed_plain, fused_predict_bwd_cuda, fused_predict_fwd_cuda,
+    fused_predict_packed,
     fused_predict_packed_hybrid, fused_predict_packed_plain, pack_gain_tables,
     pack_predict_inputs,
 )
@@ -280,6 +281,25 @@ def compare_predict_with_plain(prob: CostProblem, seed: int = 0,
                                and torch.equal(r1[1], r2[1])),
         "sky_error_raised": sky_gradient_raises(prob, g),
     }
+
+
+def compare_predict_on_tile(data, cdata, p) -> dict:
+    """Kernel #1 vs the plain predict on the packed inputs that the
+    residual step of a float32 tile with solutions ``p`` gives it
+    (``ops/residual.py::packed_predict_inputs``): {"model_rel" (max abs
+    error over the model's max abs), "model_max_abs_err",
+    "bitwise_repeat"}.  Its two launches add to #1's count: read the
+    path's count before calling it."""
+    from sagecal_tpu_torch.ops.residual import packed_predict_inputs
+
+    tre, tim, coh_ri, antp, antq, cmap, nc = packed_predict_inputs(
+        p, cdata, data)
+    k1 = fused_predict_fwd_cuda(tre, tim, coh_ri, antp, antq, cmap, nc)
+    k2 = fused_predict_fwd_cuda(tre, tim, coh_ri, antp, antq, cmap, nc)
+    pl = fused_predict_packed_plain(tre, tim, coh_ri, antp, antq, cmap, nc)
+    err = float((k1.double() - pl.double()).abs().max())
+    return {"model_rel": err / float(pl.abs().max()),
+            "model_max_abs_err": err, "bitwise_repeat": torch.equal(k1, k2)}
 
 
 def fused_predict_work(prob: CostProblem) -> dict:

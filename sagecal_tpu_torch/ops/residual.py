@@ -71,15 +71,12 @@ def apply_correction(vis, pinv, ant_p, ant_q, chunk_map):
     return corrupt_flat_2sided(pinv, pinv, vis, ant_p, ant_q, chunk_map)
 
 
-def _full_model(p, cdata: ClusterData, data: VisData) -> torch.Tensor:
-    """sum_k J_k C_k J_k^H over all clusters, flat (F, 4, rows): the
-    fused predict for float32 data, ``predict_full_model`` for float64
-    (module doc).  ``p``: (M, nchunk, 8N)."""
-    if data.vis.real.dtype != torch.float32:
-        return predict_full_model(p, cdata, data)
+def packed_predict_inputs(p, cdata: ClusterData, data: VisData):
+    """The fused predict's packed inputs for the solutions ``p`` (M,
+    nchunk, 8N) on this float32 tile: (tab_re, tab_im, coh_ri, ant_p,
+    ant_q, cmap, nc), cmap None when nc is 1."""
     from sagecal_tpu_torch.ops.rime_kernel import (
-        fused_predict_packed, fused_predict_packed_hybrid, pack_gain_tables,
-        pack_predict_inputs,
+        pack_gain_tables, pack_predict_inputs,
     )
 
     M, nchunk = cdata.coh.shape[0], p.shape[1]
@@ -87,12 +84,26 @@ def _full_model(p, cdata: ClusterData, data: VisData) -> torch.Tensor:
         data.vis, data.mask, cdata.coh, data.ant_p, data.ant_q,
         cdata.chunk_map if nchunk > 1 else None)
     jones = params_to_jones(p.float())  # (M, nchunk, N, 2, 2)
+    tre, tim = pack_gain_tables(jones if nchunk > 1 else jones[:, 0], M)
+    return tre, tim, coh_ri, antp, antq, cmap, nchunk
+
+
+def _full_model(p, cdata: ClusterData, data: VisData) -> torch.Tensor:
+    """sum_k J_k C_k J_k^H over all clusters, flat (F, 4, rows): the
+    fused predict for float32 data, ``predict_full_model`` for float64
+    (module doc).  ``p``: (M, nchunk, 8N)."""
+    if data.vis.real.dtype != torch.float32:
+        return predict_full_model(p, cdata, data)
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        fused_predict_packed, fused_predict_packed_hybrid,
+    )
+
+    tre, tim, coh_ri, antp, antq, cmap, nchunk = packed_predict_inputs(
+        p, cdata, data)
     if nchunk > 1:
-        tre, tim = pack_gain_tables(jones, M)
         m = fused_predict_packed_hybrid(tre, tim, coh_ri, antp, antq, cmap,
                                         nchunk)
     else:
-        tre, tim = pack_gain_tables(jones[:, 0], M)
         m = fused_predict_packed(tre, tim, coh_ri, antp, antq)
     return torch.complex(m[:, :4], m[:, 4:])
 

@@ -39,8 +39,15 @@ the solution axis, an incremental Gram delta per round, and the active
 target gathered back from the slices; its "gather" form when the full Z
 is needed every round, as with ``collect_trace``), fine-grained cluster
 groups, static slot and group schedules, in-mesh staleness weights and
-the BB rho cadence.  The spatial regularization of the loop (``spatial=``)
-belongs to ROADMAP.md's A7 and raises NotImplementedError.
+the BB rho cadence.  ``spatial=`` (:class:`SpatialConfig`) couples the
+consensus to a smooth spatial model across directions, as the master
+does (sagecal_master.cpp:855-930): the z-step gains ``alpha Zbar - X``
+and ``+ alpha I`` in its inverse, and every ``cadence`` rounds FISTA
+re-fits the spatial model, Zbar <- Zs Phi and X steps by alpha (Z -
+Zbar); with ``Z_diff0`` the diffuse-sky constraint's Zdiff and Psi step
+with it.  That state is the master's, computed once a round (the mesh
+replicates it on every device); with it a reduced z-step runs in its
+gather form, since the refit needs the full Z.
 """
 
 from __future__ import annotations
@@ -51,11 +58,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sagecal_tpu_torch.core.types import jones_to_params, params_to_jones
+from sagecal_tpu_torch.core.types import (
+    complex_dtype_of, jones_to_params, params_to_jones,
+)
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.parallel import consensus
 from sagecal_tpu_torch.parallel.admm import admm_sagefit, factor_schedule
 from sagecal_tpu_torch.parallel.manifold import manifold_average
+from sagecal_tpu_torch.parallel.spatial import (
+    spatial_model_apply, update_spatialreg_fista,
+)
 from sagecal_tpu_torch.solvers.lm import LMConfig
 from sagecal_tpu_torch.solvers.sage import SM_LM_LBFGS, lane_of
 from sagecal_tpu_torch.utils.precision import full_f32
@@ -68,13 +80,42 @@ class AdmmResult(NamedTuple):
     rho: torch.Tensor  # (Nf, M) final penalties
     dual_res: torch.Tensor  # (nadmm,) dual residual trace
     primal_res: torch.Tensor  # (nadmm,) mean primal residual ||J - BZ||
-    Zspat: Optional[torch.Tensor] = None  # spatial model (A7: placeholder)
-    spat_res: Optional[torch.Tensor] = None  # (nadmm,) zeros
-    Zspat_diff: Optional[torch.Tensor] = None  # diffuse model (A7)
+    Zspat: Optional[torch.Tensor] = None  # (2*Npoly*N, 2G) spatial model
+    spat_res: Optional[torch.Tensor] = None  # (nadmm,) ||Z - Zbar|| trace
+    Zspat_diff: Optional[torch.Tensor] = None  # (D, 2G) diffuse model
     # collect_trace only:
     primal_res_band: Optional[torch.Tensor] = None  # (nadmm, Nf) ||J-BZ||
     dual_res_band: Optional[torch.Tensor] = None  # (nadmm, Nf) rho||B dZ||
     rho_trace: Optional[torch.Tensor] = None  # (nadmm, Nf, M)
+
+
+class SpatialConfig(NamedTuple):
+    """Spatial regularization of the consensus (the master's
+    Zbar/Zspat/X machinery, sagecal_master.cpp:887-930).
+
+    Phi: (Meff, 2G, 2) per-effective-cluster basis blocks
+      (``parallel/spatial.py::build_spatial_basis``); Phikk: (2G, 2G) =
+      sum_k Phi_k Phi_k^H + lambda I; alpha: (M,) per-cluster coupling
+      (the -G file's alpha column); mu: the L1 strength; cadence: refit
+      every this many rounds; fista_maxiter: FISTA steps a refit.
+
+    The diffuse-sky constraint (sagecal_master.cpp:908-926, fista.c:131):
+    with ``Z_diff0`` (``find_initial_spatial``'s model) FISTA carries
+    Psi^H (Zs - Zdiff) + gamma/2 ||Zs - Zdiff||^2, and each refit steps
+      Zdiff <- (Zdiff0 + 0.5 Psi + 0.5 gamma Zs) / (1 + 0.5 gamma + lam_diff)
+      Psi   <- Psi + gamma (Zs - Zdiff);
+    the final Zdiff (``AdmmResult.Zspat_diff``) re-predicts the diffuse
+    cluster (``ops/diffuse.py``)."""
+
+    Phi: torch.Tensor
+    Phikk: torch.Tensor
+    alpha: torch.Tensor
+    mu: float = 1e-3
+    cadence: int = 2
+    fista_maxiter: int = 30
+    Z_diff0: Optional[torch.Tensor] = None
+    gamma: float = 0.0
+    lam_diff: float = 0.0
 
 
 def _flat(x):
@@ -83,6 +124,24 @@ def _flat(x):
 
 def _unflat(x, nchunk, n8):
     return x.reshape(x.shape[:-1] + (nchunk, n8))
+
+
+def _zbar_blocks_of_z(Z, M, Npoly, nchunk, n8):
+    """Real Z (M, Npoly, nchunk*n8) -> complex spatial blocks (M*nchunk,
+    2*N*Npoly, 2), the master's Z -> Zbar reshape
+    (sagecal_master.cpp:889-906); hybrid chunks are effective clusters
+    of their own, as in the reference."""
+    N = n8 // 8
+    J = params_to_jones(Z.reshape(M, Npoly, nchunk, n8))
+    X = J.permute(0, 2, 1, 3, 4, 5)  # (M, nchunk, Npoly, N, 2, 2)
+    return X.reshape(M * nchunk, Npoly * N * 2, 2)
+
+
+def _z_of_zbar_blocks(Xb, M, Npoly, nchunk, n8):
+    """Inverse of :func:`_zbar_blocks_of_z` (the real part of Z)."""
+    N = n8 // 8
+    J = Xb.reshape(M, nchunk, Npoly, N, 2, 2).permute(0, 2, 1, 3, 4, 5)
+    return jones_to_params(J).reshape(M, Npoly, nchunk * n8)
 
 
 def _shard_sum(parts):
@@ -115,11 +174,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
     package's, with ``nshards`` for the mesh: ``solver_mode`` /
     ``robust_nu`` select the x-step solver, ``collect_trace`` adds the
     per-band residuals and the rho trajectory, ``consensus_cfg`` the
-    round structure (module doc)."""
-    if spatial is not None:
-        raise NotImplementedError(
-            "not ported yet: spatial regularization of the consensus ADMM "
-            "(parallel/spatial.py, ROADMAP.md, A7)")
+    round structure (module doc), ``spatial`` a :class:`SpatialConfig`."""
     dev = resolve_device(device)
     ccfg = (consensus_cfg if consensus_cfg is not None
             else consensus.ConsensusConfig())
@@ -145,9 +200,12 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
     # the reduced z-step keeps its slices but concatenates Z back every
     # round when the full Z is needed (the per-band telemetry)
     zmode = "grouped" if not reduced else (
-        "reduced_gather" if collect_trace else "reduced_scatter")
-    # fixed rho and no staleness: the reduced Bii never changes
-    den_static = reduced and not bb_rho and not use_staleness
+        "reduced_gather" if (spatial is not None or collect_trace)
+        else "reduced_scatter")
+    # fixed rho, no staleness and no spatial alpha: the reduced Bii
+    # never changes
+    den_static = (reduced and not bb_rho and not use_staleness
+                  and spatial is None)
     have_sched = (fine or ccfg.slot_schedule is not None
                   or ccfg.group_schedule is not None)
     ndev = int(nshards)
@@ -214,8 +272,9 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
             return _shard_sum([terms[d * G:(d + 1) * G].sum(dim=0)
                                for d in range(ndev)])
 
-        def den_inv(rho_cur, w=None):
-            """pinv(psum_f w_f rho_f B_f B_f^T): (M, Npoly, Npoly)."""
+        def den_inv(rho_cur, w=None, fed_alpha=None):
+            """pinv(psum_f w_f rho_f B_f B_f^T [+ alpha I]): (M, Npoly,
+            Npoly)."""
             parts = []
             for d in range(ndev):
                 sl_ = slice(d * G, (d + 1) * G)
@@ -225,7 +284,11 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 else:
                     parts.append(torch.einsum("g,gm,gp,gq->mpq", w, rho_cur[sl_],
                                               B[sl_], B[sl_]))
-            return consensus.pinv(_shard_sum(parts))
+            P_sum = _shard_sum(parts)
+            if fed_alpha is not None:
+                P_sum = P_sum + fed_alpha[:, None, None] * torch.eye(
+                    Npoly, dtype=P_sum.dtype, device=dev)[None]
+            return consensus.pinv(P_sum)
 
         def kslices(x):
             """``psum_scatter`` over the solution axis: shard e's slice."""
@@ -238,6 +301,44 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                                   Zsh_[e][start_d:start_d + Mg])
                      for e in range(ndev)]
             return _unflat(torch.cat(parts, dim=-1), nchunk_max, n8)
+
+        use_spatial = spatial is not None
+        if use_spatial:
+            # the master's spatial state, computed once a round
+            cdt = complex_dtype_of(dtype)
+            Phi_c = spatial.Phi.to(dev, cdt)
+            Phikk_c = spatial.Phikk.to(dev, cdt)
+            alpha_sp = spatial.alpha.to(dev, dtype)
+            use_diff = spatial.Z_diff0 is not None
+            Zspat = torch.zeros((2 * (n8 // 8) * Npoly, Phikk_c.shape[0]),
+                                dtype=cdt, device=dev)
+            Zbar_flat = torch.zeros((M, Npoly, K), dtype=dtype, device=dev)
+            Xsp = torch.zeros_like(Zbar_flat)
+            Zdiff0_c = (torch.as_tensor(spatial.Z_diff0).to(dev, cdt)
+                        if use_diff else None)
+            Zdiff, Psi = Zdiff0_c, torch.zeros_like(Zspat)
+            sres = torch.zeros((), dtype=dtype, device=dev)
+
+        def spatial_update(Z_, Xsp_, Zdiff_, Psi_):
+            """FISTA refit, Zbar and X updates, and the diffuse
+            constraint's Zdiff/Psi steps (sagecal_master.cpp:887-926)."""
+            Zs = update_spatialreg_fista(
+                _zbar_blocks_of_z(Z_, M, Npoly, nchunk_max, n8), Phikk_c,
+                Phi_c, spatial.mu, maxiter=spatial.fista_maxiter,
+                Z_diff=Zdiff_ if use_diff else None,
+                Psi=Psi_ if use_diff else None,
+                gamma=spatial.gamma if use_diff else 0.0)
+            if use_diff:
+                g = spatial.gamma
+                Zdiff_ = (Zdiff0_c + 0.5 * Psi_ + 0.5 * g * Zs) / (
+                    1.0 + 0.5 * g + spatial.lam_diff)
+                Psi_ = Psi_ + g * (Zs - Zdiff_)
+            Zbar_new = _z_of_zbar_blocks(spatial_model_apply(Zs, Phi_c), M,
+                                         Npoly, nchunk_max, n8).to(dtype)
+            Zerr = Z_ - Zbar_new
+            Xsp_new = Xsp_ + alpha_sp[:, None, None] * Zerr
+            sres_ = torch.linalg.norm(Zerr.reshape(-1)) / Zerr.numel()
+            return Zbar_new, Xsp_new, Zs, sres_, Zdiff_, Psi_
 
         # ---- admm 0: plain solve of every band -------------------------
         zeros_b = torch.zeros_like(p0[0])
@@ -278,7 +379,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
             ddn = torch.sqrt((dd * dd).sum(dim=(1, 2))) / rn
             return prn, ddn
 
-        dres_t, pres_t, prn_t, ddn_t, rho_t = [], [], [], [], []
+        dres_t, pres_t, sres_t, prn_t, ddn_t, rho_t = [], [], [], [], [], []
         if collect_trace:
             # round-0 rows: the plain solve against the first consensus
             prn0, _ = band_residuals(p, Z, Z, rho)
@@ -332,10 +433,18 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 p1_act.append(sl(p1_g, d))
                 Yhat_act.append(ya)
 
-            # z-step
+            # z-step, with the spatial term alpha Zbar - X
+            # (sagecal_master.cpp:855-872)
+            z_extra = fed_alpha = None
+            if use_spatial:
+                z_extra = alpha_sp[:, None, None] * Zbar_flat - Xsp
+                fed_alpha = alpha_sp
             if zmode == "grouped":
-                Z1 = consensus.update_global_z(
-                    numerator(_flat(Yhat_all1), w), den_inv(rho, w))
+                num = numerator(_flat(Yhat_all1), w)
+                if use_spatial:
+                    num = num + z_extra
+                Z1 = consensus.update_global_z(num,
+                                               den_inv(rho, w, fed_alpha))
                 BZ1_act = [sl(bz_of(Z1, bands[d]), d) for d in range(ndev)]
                 dres = consensus.admm_dual_residual(Z1, Z)
             else:
@@ -361,8 +470,12 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                             num_sh1.append(n)
                     else:
                         num_sh1 = [num_sh[e] + dsh[e] for e in range(ndev)]
-                Bii = Bii0 if den_static else den_inv(rho, w)
-                Zsh1 = [consensus.update_global_z(n, Bii) for n in num_sh1]
+                Bii = Bii0 if den_static else den_inv(rho, w, fed_alpha)
+                num_solve = num_sh1
+                if use_spatial:
+                    num_solve = [n + x for n, x in zip(num_sh1,
+                                                       kslices(z_extra))]
+                Zsh1 = [consensus.update_global_z(n, Bii) for n in num_solve]
                 if zmode == "reduced_gather":
                     Z1 = torch.cat(Zsh1, dim=2)
                     BZ1_act = [sl(bz_of(Z1, bands[d]), d)
@@ -376,6 +489,12 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                     dres = torch.sqrt(ss) / float(M * Npoly * K) ** 0.5
                     Z1 = None
                 Zsh, num_sh = Zsh1, num_sh1
+            if use_spatial:
+                if it % spatial.cadence == 0:
+                    # the cadenced refit on the new consensus
+                    (Zbar_flat, Xsp, Zspat, sres, Zdiff,
+                     Psi) = spatial_update(Z1, Xsp, Zdiff, Psi)
+                sres_t.append(sres)
 
             # dual update, primal residual, BB rho
             Y1, rho1 = Y.clone(), rho.clone()
@@ -423,10 +542,14 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                          dual_res_band=torch.stack(ddn_t),
                          rho_trace=torch.stack(rho_t))
         empty = torch.zeros((1, 1), dtype=torch.complex64, device=dev)
+        spat = dict(Zspat=empty, spat_res=torch.zeros_like(dres),
+                    Zspat_diff=empty)
+        if use_spatial:
+            spat = dict(Zspat=Zspat, Zspat_diff=Zdiff if use_diff else empty,
+                        spat_res=torch.cat([zero] + [x.reshape(1)
+                                                     for x in sres_t]))
         return AdmmResult(p=p, Y=Y, Z=Z, rho=rho, dual_res=dres,
-                          primal_res=pres, Zspat=empty,
-                          spat_res=torch.zeros_like(dres), Zspat_diff=empty,
-                          **extra)
+                          primal_res=pres, **spat, **extra)
 
     def fn(data_stack, cdata_stack, p0, rho, B):
         from sagecal_tpu_torch.obs.trace import get_tracer

@@ -5,9 +5,14 @@ package's ``RunConfig`` field by field for a spread of argv (the same
 flags and defaults); ``main(argv, device="cpu")`` runs a fullbatch and
 returns 0, or 3 when ``--abort-on-divergence`` stops a diverged run;
 every mode the port does not have yet exits 2 naming its ROADMAP.md
-item (``serve``, ``-f`` and ``-N`` are dispatched; their unported options
-are refused too: tests/test_torch_serve.py, and the ``-f``/``-N`` cases
-here).
+item (``serve``, ``spatial``, ``-f`` and ``-N`` are dispatched; their
+unported options are refused too: tests/test_torch_serve.py, and the
+``-f``/``-N``/``spatial`` cases here).  The spatial modes (``spatial``,
+``-f`` with ``-N``, ``-X``, ``--spatial-n0``, ``--spatial-diffuse-id``)
+run to exit 0 on the CPU; a malformed ``-X`` is a usage error.  Their
+results are held against the JAX package in
+tests/test_torch_distributed_spatial.py, test_torch_spatial_app.py and
+test_torch_federated_app.py.
 """
 
 import dataclasses
@@ -119,14 +124,14 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
     (["serve", "--requests", "r.json", "--resume"], "A9"),
     (["fleet"], "A9"), (["load"], "A9"),
     (["stream"], "A9"), (["widefield"], "A8"), (["refine"], "A8"),
-    (["spatial"], "A7"), (["convert", "a.ms", "b.h5"], "A10"),
+    (["convert", "a.ms", "b.h5"], "A10"),
     (["diag", "events"], "A11"),
-    (["-f", "band*.h5", "-s", "sky.txt", "-N", "2"], "A7"),
-    (["-f", "band*.h5", "-s", "sky.txt", "-X", "1e-3,1e-4,2,20,2"], "A7"),
-    (["-f", "band*.h5", "-s", "sky.txt", "--spatial-n0", "2"], "A7"),
-    (["-f", "band*.h5", "-s", "sky.txt", "--spatial-diffuse-id", "3"],
-     "A7"),
     (["-f", "band*.h5", "-s", "sky.txt", "--multihost"], "A7"),
+    (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--resume"], "A9"),
+    (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every",
+      "1"], "A9"),
+    (["spatial", "--synthetic", "2", "--resume"], "A9"),
+    (["spatial", "--synthetic", "2", "--checkpoint-every", "1"], "A9"),
     (["-f", "band*.h5", "-s", "sky.txt", "--resume"], "A9"),
     (["-d", "x.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every", "1"],
      "A9"),
@@ -138,3 +143,54 @@ def test_unported_modes_exit_nonzero_naming_their_item(argv, item, capsys):
 
     assert main(argv, device="cpu") == 2
     assert f"ROADMAP.md, {item}" in capsys.readouterr().err
+
+
+@pytest.fixture()
+def bands(tmp_path):
+    """tests/test_torch_distributed_spatial.py's band files and skies: 4
+    bands of 7 stations, two tiles, the diffuse sky t3 with its -G file."""
+    from test_torch_distributed_spatial import _diffuse_bands
+
+    _diffuse_bands(tmp_path)
+    return tmp_path
+
+
+@pytest.mark.parametrize("mode", [
+    ["spatial", "--synthetic", "2", "--nstations", "5", "-j", "1", "-e", "1",
+     "-g", "2", "-l", "2", "--fista-maxiter", "10"],
+    ["-N", "1", "-M", "2", "-A", "2", "-l", "3"],
+    ["-X", "1e-3,1e-4,2,10,1", "-A", "2", "-G", "{d}/t3.rho"],
+    ["--spatial-n0", "2", "-A", "2", "--spatial-basis", "sharmonic"],
+    ["-X", "1e-3,1e-4,2,10,1", "-A", "3", "--spatial-diffuse-id", "3",
+     "-c", "{d}/t3.sky.txt.cluster"],
+])
+def test_spatial_modes_run_to_exit_0(bands, mode):
+    from sagecal_tpu_torch.apps.cli import main
+
+    d = str(bands)
+    mode = [m.format(d=d) for m in mode]
+    if mode[0] == "spatial":
+        argv = mode + ["-o", f"{d}/sp"]
+        want = [f"{d}/sp.json", f"{d}/sp.npz"]
+    else:
+        sky = f"{d}/t3.sky.txt" if "-c" in mode else f"{d}/t.sky.txt"
+        argv = ["-s", sky, "-c", sky + ".cluster", "-f", f"{d}/band*.h5",
+                "-t", "2", "-e", "1", "-g", "2", "-j", "1",
+                "-p", f"{d}/z.txt"] + mode
+        want = [f"{d}/z.txt.band3"]
+        if "-X" in mode:
+            want.append(f"{d}/z.txt.spatial.ppm")
+    assert main(argv, device="cpu") == 0
+    import os
+
+    assert all(os.path.exists(p) for p in want), want
+
+
+@pytest.mark.parametrize("x", ["1e-3,1e-4,2,20", "1e-3,1e-4,two,20,2"])
+def test_malformed_x_is_a_usage_error(x, capsys):
+    from sagecal_tpu_torch.apps.cli import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["-f", "band*.h5", "-s", "sky.txt", "-X", x], device="cpu")
+    assert e.value.code == 2
+    assert "-X expects 5" in capsys.readouterr().err

@@ -52,6 +52,8 @@ MODULES = (
     "sagecal_tpu_torch.parallel.spatial",
     "sagecal_tpu_torch.parallel.async_consensus",
     "sagecal_tpu_torch.apps.distributed", "sagecal_tpu_torch.apps.minibatch",
+    "sagecal_tpu_torch.ops.diffuse", "sagecal_tpu_torch.parallel.federated",
+    "sagecal_tpu_torch.apps.spatial", "sagecal_tpu_torch.apps.federated",
 )
 
 

@@ -37,7 +37,12 @@ before its trust region reaches the rounding floor), bit-identical on
 repeat; the ``-f`` and ``-N`` apps at f32 launch #1 once per band per
 tile (or minibatch),
 repeat bit-identically, stay within 5e-3 of the CPU, and fail when #1
-fails.
+fails.  The spatially regularized consensus ADMM with the diffuse
+constraint, and the federated minibatch round and average, on the card
+within 1e-8 relative of the CPU at f64 and bit-identical on repeat; the
+diffuse re-predict within 1e-10 of the CPU at f64 and 5e-3 at f32; #1
+against its plain version (1e-5 of the model's max abs, bit-identical on
+repeat) on a float32 tile whose diffuse cluster was predicted again.
 """
 
 import pytest
@@ -1358,3 +1363,156 @@ def test_minibatch_on_the_card_launches_1_per_band_and_repeats(cuda,
     for (g0, g1), (w0, w1) in zip(a[0], cpu[0]):
         assert g1 < g0 and abs(g1 - w1) <= 5e-3 * w1
     assert np.abs(a[2] - cpu[2]).max() <= 5e-3 * np.abs(cpu[2]).max()
+
+
+# ------------------- spatial regularization, diffuse sky, federated mode
+
+
+def _spatial_config(device, B, diffuse=True):
+    """A shapelet basis over _mesh_problem's two cluster positions and,
+    with ``diffuse``, the diffuse constraint's initial model."""
+    from sagecal_tpu_torch.parallel.mesh import SpatialConfig
+    from sagecal_tpu_torch.parallel.spatial import (
+        basis_blocks, find_initial_spatial, phikk_matrix,
+        spatial_basis_modes,
+    )
+
+    modes, _ = spatial_basis_modes([0.0, 0.02], [0.0, -0.01], 2, 0.05)
+    Phi = basis_blocks(modes, torch.complex128, device)
+    Zd = (torch.from_numpy(find_initial_spatial(B, modes, 8)).to(device)
+          if diffuse else None)
+    return SpatialConfig(Phi=Phi, Phikk=phikk_matrix(Phi, 1e-6),
+                         alpha=torch.tensor([6.0, 9.0], dtype=torch.float64,
+                                            device=device),
+                         mu=1e-4, cadence=1, fista_maxiter=25, Z_diff0=Zd,
+                         gamma=0.3, lam_diff=1e-3)
+
+
+@pytest.mark.parametrize("zstep", ["grouped", "reduced"])
+def test_spatial_mesh_on_the_card_matches_the_cpu(cuda, zstep):
+    """The consensus ADMM with spatial regularization and the diffuse
+    constraint, 4 bands on 2 shards: within 1e-8 of the CPU at f64 in
+    every field (Zspat, spat_res and Zspat_diff included), bit-identical
+    on repeat."""
+    import numpy as np
+
+    from sagecal_tpu_torch.interop import admm_result_to_numpy
+    from sagecal_tpu_torch.parallel.consensus import ConsensusConfig
+    from sagecal_tpu_torch.parallel.mesh import make_admm_mesh_fn
+    from sagecal_tpu_torch.solvers.lm import LMConfig
+
+    args = _mesh_problem(4)
+    B = args[4].numpy()
+    runs = [admm_result_to_numpy(make_admm_mesh_fn(
+        2, nadmm=4, max_emiter=1, plain_emiter=1, lm_config=LMConfig(itmax=4),
+        spatial=_spatial_config(dev, B), device=dev,
+        consensus_cfg=ConsensusConfig(zstep=zstep))(*args))
+        for dev in ("cpu", cuda, cuda)]
+    cpu, gpu, again = runs
+    assert set(cpu) == set(gpu)
+    assert all(np.array_equal(gpu[k], again[k]) for k in gpu)
+    for k, want in cpu.items():
+        scale = max(float(np.abs(want).max()), 1e-300)
+        assert float(np.abs(gpu[k] - want).max()) <= 1e-8 * scale, k
+    assert np.count_nonzero(cpu["spat_res"]) == 3
+
+
+def _diffuse_tile(device, dtype, n0=4, seed=3):
+    """A 2-channel tile of 8 stations with a point cluster and an
+    all-shapelet cluster (``data/simsky.py::shapelet_source_batch``),
+    and a seeded spatial model (2N, 2G), G = 4."""
+    import numpy as np
+
+    from sagecal_tpu_torch.data.simsky import shapelet_source_batch
+    from sagecal_tpu_torch.io.simulate import make_visdata
+    from sagecal_tpu_torch.ops.rime import point_source_batch
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    rng = np.random.default_rng(seed)
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    d = make_visdata(nstations=8, tilesz=3, nchan=2, dtype=dtype,
+                     device=device)
+    src, tab = shapelet_source_batch(0.003, -0.002, 2.0,
+                                     rng.standard_normal((n0, n0)), beta=0.01,
+                                     dtype=tdt, device=device)
+    pt = point_source_batch([0.01], [0.0], [1.0], dtype=tdt, device=device)
+    cdata = build_cluster_data(d, [pt, src], [1, 1], shapelets=tab)
+    Z = 0.2 * (rng.standard_normal((16, 8)) + 1j * rng.standard_normal((16, 8)))
+    for s in range(8):
+        Z[2 * s:2 * s + 2, 0:2] += np.eye(2)
+    cdt = torch.complex128 if tdt == torch.float64 else torch.complex64
+    return d, cdata, src, tab, torch.from_numpy(Z).to(device, cdt)
+
+
+@pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
+def test_diffuse_repredict_on_the_card_matches_the_cpu(cuda, f64):
+    import numpy as np
+
+    from sagecal_tpu_torch.ops.diffuse import recalculate_diffuse_coherencies
+
+    dt = np.float64 if f64 else np.float32
+    got = []
+    for dev in ("cpu", cuda, cuda):
+        d, c, src, tab, Z = _diffuse_tile(dev, dt)
+        got.append(recalculate_diffuse_coherencies(
+            d, c, 1, src, tab, Z, 2, 5e-3).coh.cpu().numpy())
+    cpu, gpu, again = got
+    assert np.array_equal(gpu, again)
+    tol = 1e-10 if f64 else 5e-3
+    assert np.abs(gpu - cpu).max() <= tol * np.abs(cpu).max()
+
+
+def test_kernel_1_matches_plain_on_repredicted_coherencies(cuda):
+    """#1 on a float32 tile whose shapelet cluster was predicted again
+    under a spatial model (the distributed app's second tile)."""
+    import numpy as np
+
+    from sagecal_tpu_torch.core.types import jones_to_params
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.kernels.parity import compare_predict_on_tile
+    from sagecal_tpu_torch.ops.diffuse import recalculate_diffuse_coherencies
+
+    d, c, src, tab, Z = _diffuse_tile(cuda, np.float32)
+    c2 = recalculate_diffuse_coherencies(d, c, 1, src, tab, Z, 2, 5e-3)
+    assert not torch.equal(c2.coh[1], c.coh[1])
+    p = jones_to_params(random_jones(2, 8, seed=4, amp=0.2,
+                                     dtype=np.complex64, device=cuda))[:, None]
+    out = compare_predict_on_tile(d, c2, p)
+    assert out["model_rel"] <= 1e-5 and out["bitwise_repeat"], out
+
+
+def test_federated_round_and_average_on_the_card_match_the_cpu(cuda):
+    """Two federated minibatch rounds, the average and a third round on
+    _mesh_problem's 4 bands: within 1e-8 of the CPU at f64, bit-identical
+    on repeat."""
+    import numpy as np
+
+    from sagecal_tpu_torch.interop import federated_state_to_numpy
+    from sagecal_tpu_torch.parallel.federated import (
+        init_federated_state, make_fed_avg_fn, make_federated_minibatch_fn,
+    )
+
+    data, cdata, p0, rho, B = _mesh_problem(4)
+
+    def run(dev):
+        st = init_federated_state(4, 2, 1, 64, 2, 5, torch.float64,
+                                  device=dev)
+        step = make_federated_minibatch_fn(4, itmax=4, lbfgs_m=5, alpha=5.0,
+                                           device=dev)
+        avg = make_fed_avg_fn(4, alpha=5.0, device=dev)
+        out = []
+        for r in range(3):
+            st, dres, cost = step(data, cdata, st, rho, B)
+            out += [dres.cpu().numpy(), cost.cpu().numpy()]
+            if r == 1:
+                st = avg(st)
+        return out, federated_state_to_numpy(st)
+
+    cpu, gpu, again = (run(dev) for dev in ("cpu", cuda, cuda))
+    for x, y in zip(gpu[0] + list(gpu[1].values()),
+                    again[0] + list(again[1].values())):
+        assert np.array_equal(x, y)
+    for x, y in zip(gpu[0] + list(gpu[1].values()),
+                    cpu[0] + list(cpu[1].values())):
+        scale = max(float(np.abs(y).max()), 1e-300)
+        assert float(np.abs(x - y).max()) <= 1e-8 * scale

@@ -151,8 +151,6 @@ def test_mesh_refuses_spatial_and_bad_configs():
     from sagecal_tpu_torch.parallel import consensus
     from sagecal_tpu_torch.parallel.mesh import make_admm_mesh_fn
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_admm_mesh_fn(2, 3, spatial=object(), device="cpu")
     with pytest.raises(ValueError, match="staleness"):
         make_admm_mesh_fn(2, 3, device="cpu",
                           consensus_cfg=consensus.ConsensusConfig(
