@@ -72,7 +72,7 @@ each printing lines of its own; any failure exits non-zero:
             res_0.  Each solve's wall, EM and LBFGS seconds, the RTR/NSD
             host syncs per cluster solve and peak device memory;
 7. fullbatch the fullbatch app, through the CLI's parser and config
-            (``-j 3 -e 1 -g 2 -l 10 -t 60 --f32 --fused``) and
+            (``-j 3 -e 1 -g 1 -l 10 -t 60 --f32 --fused``) and
             ``run_fullbatch`` on an in-memory ``vis.h5``
             (``io/memh5.py::MemFile``; the card's machine has no h5py)
             made by the port's ``create_dataset``/``simulate_dataset``:
@@ -137,7 +137,7 @@ each printing lines of its own; any failure exits non-zero:
             the lanes, its build time printed); the requests
             built from files, one bucket, routed to "fused_batch" by
             ``choose_batched_path`` and solved by ``sagefit_packed_batch``
-            (mode 3, 3 EM passes, max_iter 2, max_lbfgs 10; every lane
+            (mode 3, 1 EM pass, max_iter 2, max_lbfgs 10; every lane
             res_1 < res_0; both batched kernels launched, the solo ones
             not; counts set to 0 just before); batched vs sequential
             ``solve_tile`` solves/s; a second fused_batch run bit-identical
@@ -149,8 +149,9 @@ each printing lines of its own; any failure exits non-zero:
             gradient and sum kernels on the device alone), and the plan
             build times of phases 3 and 11;
 12. service the calibration service through the serve CLI's parser and
-            config (``--f32 --fused --batch 8 -j 3 -e 3 -g 2 -l 10
-            --shadow-rate 0.25``, the reference serve defaults) and
+            config (``--f32 --fused --batch 8 -j 3 -e 1 -g 2 -l 10
+            --shadow-rate 0.25``, the reference serve defaults but one EM
+            pass) and
             ``apps.serve.run_serve`` over an in-memory ``vis.h5`` of 8
             north-star tiles (``MemFile``) with an LSM sky of 8 point
             clusters: tenant A's 16 requests make two full buckets of one
@@ -185,9 +186,10 @@ each printing lines of its own; any failure exits non-zero:
             and -B 2's with off-diagonal (XY) power; #3/#4 against their
             plain version on the -B 2 coherencies at identity and random
             gains, Gaussian and robust, at phase 3's tolerances; the CLI
-            with ``-j 3 -e 1 -g 2 -l 10 -t 60 --f32 --fused -B 2
+            with ``-j 3 -e 1 -g 1 -l 10 -t 60 --f32 --fused -B 2
             --element-coeffs hba`` (``-g 6`` until phases 14-15, 3
-            until phases 16-17):
+            until phases 16-17, 2 until the sharded, multihost,
+            widefield and refine phases):
             res_1 < res_0, #3/#4 launched in the solve and #1 once in
             the residual step (counts set to 0 before the tile, read at
             its closing log line); a second run with SAGECAL_TRACE=1 and
@@ -200,7 +202,7 @@ each printing lines of its own; any failure exits non-zero:
             the least squares, dR, host eigensolves) printed;
 14. distributed  the multi-band consensus ADMM (graded config 4, cut to
             4 sub-bands and -A 3) through the CLI (``-f 'band*.h5' -t 60
-            --f32 -j 1 -e 1 -g 2 -A 3 -P 2 -Q 2 -r 5 -C 1``, with
+            --f32 -j 1 -e 1 -g 1 -A 3 -P 2 -Q 2 -r 5 -C 1``, with
             SAGECAL_TELEMETRY=1) and ``apps.distributed.run_distributed``
             over four in-memory band datasets of the north-star geometry
             at 130-170 MHz, phase 4's 100-cluster sky under true gains
@@ -257,12 +259,47 @@ each printing lines of its own; any failure exits non-zero:
             below its cost at the identity, and each band's solution
             file holds one interval of 100 x 62 gains;
 then    the ``spatial`` app through the CLI (``spatial -f ... -t 60 -e
-            1 -g 2 -l 10 --f32``, SAGECAL_TELEMETRY=1) over phase 16's
+            1 -g 1 -l 10 --f32``, SAGECAL_TELEMETRY=1) over phase 16's
             bands and phase 14's sky (the app, as the JAX package's,
             predicts point and extended sources, not shapelets): tile 0
             of each band, ``<out>.json`` and ``<out>.npz`` written,
             k_aic and k_mdl within 1..2, FISTA's fit_rel finite; the
-            seconds of each band's solve and of FISTA printed.
+            seconds of each band's solve and of FISTA printed;
+sharded     (run after phase 4, on its tile) the rows-sharded joint fit
+            (``solvers/sharded.py``, the torch-op joint cost at f32, 10
+            LBFGS iterations) unsharded and in 4 row blocks: costs within
+            1e-5 relative, p within 1e-4 of its norm; each run's seconds
+            and peak device memory above the tile printed;
+multihost   (run after phase 14, on its files) phase 14's bands and
+            flags through ``-f ... --multihost`` as two ranks on the one
+            card over gloo with CUDA tensors (each rank a process that
+            rebuilds the bands in its own MemFile registry, LOCAL_RANK 0,
+            SAGECAL_DIST_BACKEND=gloo): the Z file and every band's
+            solution file bit-identical to phase 14's, #1 twice a rank;
+            then one nccl rank on bands 0-1 at -A 3: #1 twice, the Z
+            file's rows; each rank's seconds printed;
+widefield   the documented run (``widefield -S 10000 --nblobs 40 -k 8 -n
+            40 --extent-m 60 --freq0 30e6``) at f64, ``--ntiles 2 -e 1 -g
+            2``: every tile's sampled rel_err under the a-priori bound of
+            (8, 1.5), 1.06e-4, the watchdog ok; tile 0's hierarchical
+            coherencies on the card within 1e-10 relative of the port's
+            on the CPU; the plan, hierarchical and exact predict, check
+            and solve seconds a tile, peak memory;
+refine      dataset mode on a MemFile tile at the north-star width (62
+            stations, 100 clusters, cluster 0 of two sources, 2
+            channels, 4 timeslots) at f64: ``refine --free-flux 0:0
+            --outer-iters 2 --ridge 100 --adjoint-cg-iters 256`` with
+            P0's catalog flux 15% off;
+            each outer iteration's seconds, the Gauss-Newton and adjoint
+            products, peak memory (``--adjoint-cg-iters 256``); the
+            app's first gradient (its budgets, from its start) within
+            1e-3 of a central difference of the outer cost, and the
+            flux closer to the truth than the catalog; the inner
+            gradient's ratio after the app's budget at ``--ridge`` 1e-2,
+            10 and 100, the adjoint's residual at the default 64
+            products; at the default ``--ridge 1e-2`` the implicit
+            gradient against its difference (printed) and the unrolled
+            route's (within 1e-3).
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -300,8 +337,11 @@ RES1_TOL = 5e-3
 # serve bucket: the reference's ServeConfig.batch default, requests of
 # 8 point clusters each on the north-star geometry
 SERVE_B, SERVE_CLUSTERS, SERVE_RAGGED = 8, 8, 6
-# the serve defaults' depth: mode 3, 3 EM passes, max_iter 2, max_lbfgs 10
-SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 3, 2, 10
+# the serve defaults' depth: mode 3, max_iter 2, max_lbfgs 10, and one EM
+# pass (cut from the defaults' 3 when the sharded, multihost, widefield
+# and refine phases joined, to keep the script near 600 s on an "NVIDIA
+# H100 80GB HBM3, 700.00 W")
+SERVE_MAX_EMITER, SERVE_MAX_ITER, SERVE_MAX_LBFGS = 1, 2, 10
 SEED = 0  # lane generators: derive_lane_generators(SEED, request ids)
 # the warm-started tile: the serve lane's sky size at the north-star
 # geometry (~1 s an EM pass), at the main path's depth
@@ -318,18 +358,20 @@ EXT_BOUND = 1.5  # param_bound of the LBFGS-B solve (mode 3)
 EXT_BUCKET_MAX_EMITER, EXT_BUCKET_MAX_ITER = 1, SERVE_MAX_ITER
 # the fullbatch app: two tiles of the north-star geometry through the
 # CLI's flags (APP_FLAGS, with -g cut from 6 to 3 when the beam phase
-# joined and to 2 when the spatial and federated phases did, to keep the
-# script near 540 s on an "NVIDIA H100 80GB HBM3, 700.00 W"); telemetry
+# joined, to 2 when the spatial and federated phases did and to 1 when
+# the sharded, multihost, widefield and refine phases did, to keep the
+# script near 600 s on an "NVIDIA H100 80GB HBM3, 700.00 W"); telemetry
 # off/on in robust RTR
 # (the mode with counted host reads) on the warm phase's sky
 FB_NTIME = 2 * TILESZ
 APP_FLAGS = ("--f32", "--fused", "-j", "3", "-e", "1", "-g", "6", "-l", "10",
              "-t", str(TILESZ))
-FB_FLAGS = APP_FLAGS[:6] + ("-g", "2") + APP_FLAGS[8:]
+FB_FLAGS = APP_FLAGS[:6] + ("-g", "1") + APP_FLAGS[8:]
 FB_TEL_MODE = 5
 
-# the calibration service: the reference serve defaults (-j 3 -e 3 -g 2
-# -l 10 --batch 8) with --f32 --fused and a quarter of the requests
+# the calibration service: the reference serve defaults (-j 3 -g 2 -l 10
+# --batch 8; -e cut to SERVE_MAX_EMITER) with --f32 --fused and a quarter
+# of the requests
 # shadow-audited, over one in-memory dataset of SVC_TILES north-star
 # tiles: tenant A's SVC_A requests make two full buckets of one shape,
 # tenant B's SVC_B (SVC_HYBRID hybrid chunks on two clusters) one ragged
@@ -345,9 +387,12 @@ SVC_TILES, SVC_A, SVC_B, SVC_HYBRID = 8, 16, 3, 2
 # north-star tile, sagecal-mpi -f -A 10 -P 2 -Q 2; cut to DIST_BANDS
 # bands and -A 3, the least depth at which -C 1's BB update fires), run
 # with SAGECAL_TELEMETRY=1 for the per-band residuals and rho trajectory
+# (-g 1: cut from 2 when the refine phase's gradient witness joined, to
+# keep the script near 600 s on an "NVIDIA H100 80GB HBM3, 700.00 W";
+# phases 14 and 16 and the multihost runs share it)
 DIST_BANDS = 4
 DIST_FREQS = (130e6, 170e6)
-DIST_FLAGS = ("-t", str(TILESZ), "--f32", "-j", "1", "-e", "1", "-g", "2",
+DIST_FLAGS = ("-t", str(TILESZ), "--f32", "-j", "1", "-e", "1", "-g", "1",
               "-A", "3", "-P", "2", "-Q", "2", "-r", "5", "-C", "1")
 # the minibatch bandpass app (graded config 2: -N 1, Student's-t, 100
 # clusters on one observation): 8 channels in 4 mini-bands in consensus,
@@ -369,7 +414,8 @@ SPAT_FLAGS = DIST_FLAGS + ("-X", "1e-3,1e-4,3,20,2", "--spatial-diffuse-id",
 # minibatches of TILESZ timeslots, and the spatial app over them
 FED_FLAGS = ("-N", "1", "-M", "2", "-A", "2", "-u", "5", "--f32", "-l", "10",
              "-t", str(SPAT_NTIME), "-P", "2", "-Q", "2", "-r", "5")
-SPAPP_FLAGS = ("-t", str(TILESZ), "-e", "1", "-g", "2", "-l", "10", "--f32")
+# (-g 1: cut from 2 with phase 14's, for the same reason)
+SPAPP_FLAGS = ("-t", str(TILESZ), "-e", "1", "-g", "1", "-l", "10", "--f32")
 
 # the kbisect tool's run: every variant, in the JAX tool's documented order
 BISECT_VARIANTS = ("c", "b", "a", "d", "e", "f")
@@ -1380,9 +1426,9 @@ def fullbatch_telemetry(args, dirname: str):
 # reference -B codes timed, and the CLI with -B 2 and --element-coeffs
 BEAM_CODES = (1, 2, 3, 5)  # array, array x element, element, wideband full
 BEAM_CORE, BEAM_REMOTE_TILES, BEAM_CORE_TILES = 24, 48, 24
-# at phase 7's depth (-g 2; -g 6 until the consensus phases joined, 3
-# until the spatial ones did, to keep the script near 540 s on an
-# "NVIDIA H100 80GB HBM3, 700.00 W")
+# at phase 7's depth (-g 1; -g 6 until the consensus phases joined, 3
+# until the spatial ones did, 2 until the sharded, multihost, widefield
+# and refine ones did)
 BEAM_FLAGS = FB_FLAGS + ("-B", "2", "--element-coeffs", "hba")
 
 
@@ -3187,18 +3233,585 @@ def phase_spatial_app(dirname: str, pattern: str, sky: str, clus: str):
     return out
 
 
+# the rows-sharded joint fit: the main tile's torch-op joint cost at f32,
+# unsharded and in SHARD_N row blocks, SHARD_ITMAX LBFGS iterations each
+SHARD_N, SHARD_ITMAX = 4, 10
+SHARD_COST_TOL, SHARD_P_TOL = 1e-5, 1e-4
+# --multihost: phase 14's bands and flags as MH_RANKS ranks on the one
+# card (gloo with CUDA tensors; NCCL takes one rank a GPU), then one nccl
+# rank on MH_NCCL_BANDS of the bands
+MH_RANKS, MH_NCCL_BANDS, MH_TIMEOUT = 2, 2, 420
+# the widefield app: the documented run (USER_MANUAL.md, "widefield -S
+# 10000 --nblobs 40 -k 8 -n 40 --extent-m 60 --freq0 30e6") at f64, two
+# tiles, -e 1 -g 2; tile 0's coherencies on the card against the CPU's
+WF_FLAGS = ("-S", "10000", "--nblobs", "40", "-k", "8", "-n", "40",
+            "--extent-m", "60", "--freq0", "30e6", "--ntiles", "2", "-e",
+            "1", "-g", "2")
+WF_CPU_TOL = 1e-10
+# sky-model refinement in dataset mode: a MemFile tile at the north-star
+# width (62 stations, 100 clusters, NCHAN channels) at f64, REFINE_NTIME
+# timeslots (the depth; cut to keep the phase near a minute and a half),
+# observed through gains REFINE_GAIN_AMP from the identity; the catalog's
+# first flux (in a cluster of two sources) off by REFINE_PERTURB and
+# free, two outer iterations at --ridge REFINE_RIDGE and
+# --adjoint-cg-iters REFINE_ADJOINT.  Then the app's first gradient (its
+# budgets, from its own start: the catalog flux, identity gains) against
+# a central difference of the outer cost with the same budgets (the JAX
+# package's 1e-3 pin).  The implicit gradient is exact only at the inner
+# fixed point with the adjoint solved: at the default --ridge 1e-2 the
+# app's 12 Gauss-Newton steps of 32 CG products do not reach the fixed
+# point at this width and the adjoint CG does not converge; at
+# REFINE_RIDGE the inner solve does, and the adjoint needs more than the
+# default 64 products (its residual 3e-2 there).  The phase shows
+# both: the inner gradient's ratio after the app's inner budget at each
+# of REFINE_RIDGES, the adjoint's residual and gradient at 64 products,
+# the implicit gradient against its difference at the default ridge
+# (printed), and there the unrolled route, exact for what the solver
+# ran, against its own difference (checked; at REFINE_WITNESS
+# Gauss-Newton steps and CG products, since its graph grows with the
+# products: ~0.3 GiB each at this width)
+REFINE_NTIME, REFINE_EPS, REFINE_FD_TOL = 4, 1e-2, 1e-3
+REFINE_GAIN_AMP, REFINE_PERTURB = 0.05, 1.15
+REFINE_RIDGE, REFINE_ADJOINT = 100.0, 256
+REFINE_RIDGES = (1e-2, 10.0, 100.0)
+REFINE_FLAGS = ("--free-flux", "0:0", "--outer-iters", "2", "--ridge",
+                str(REFINE_RIDGE), "--adjoint-cg-iters", str(REFINE_ADJOINT))
+REFINE_WITNESS = (4, 8)
+
+
+def phase_sharded(data, cdata, p0):
+    """The rows-sharded joint fit on the main tile (module doc)."""
+    from sagecal_tpu_torch.solvers import pad_rows_to, sharded_joint_fit
+
+    data, cdata = pad_rows_to(data, cdata, SHARD_N)
+    runs = {}
+    base = torch.cuda.memory_allocated()
+    for k in (1, SHARD_N):
+        torch.cuda.reset_peak_memory_stats()
+        t = sync_clock()
+        p, cost, it = sharded_joint_fit(data, cdata, p0, k, itmax=SHARD_ITMAX)
+        sec = sync_clock() - t
+        peak = torch.cuda.max_memory_allocated()
+        runs[k] = dict(p=p, cost=float(cost), iterations=int(it), seconds=sec,
+                       peak_bytes=peak, transient_bytes=peak - base)
+        print(f"[sharded] nshards {k}: cost {float(cost):.8e} after {it} "
+              f"LBFGS iterations, {sec:.2f} s, peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the tile)", flush=True)
+    a, b = runs[1], runs[SHARD_N]
+    cost_rel = abs(b["cost"] - a["cost"]) / abs(a["cost"])
+    p_rel = float((b["p"] - a["p"]).norm() / a["p"].norm())
+    print(f"[sharded] cost rel diff {cost_rel:.3e} (tol {SHARD_COST_TOL}), "
+          f"p rel diff {p_rel:.3e} of its norm (tol {SHARD_P_TOL}); "
+          f"transient memory ratio "
+          f"{b['transient_bytes'] / max(a['transient_bytes'], 1):.3f}",
+          flush=True)
+    if not (cost_rel <= SHARD_COST_TOL and p_rel <= SHARD_P_TOL):
+        fail(f"sharded: nshards {SHARD_N} parts from the unsharded fit "
+             f"(cost {cost_rel:.3e}, p {p_rel:.3e})")
+    if not (np.isfinite(a["cost"]) and a["iterations"] > 0):
+        fail(f"sharded: the unsharded fit did not run: {a}")
+    return {k: {kk: v for kk, v in r.items() if kk != "p"}
+            for k, r in runs.items()} | {"cost_rel": cost_rel, "p_rel": p_rel}
+
+
+def multihost_rank(dirname: str, argv_json: str) -> None:
+    """One rank of phase ``multihost``: phase 14's bands rebuilt in this
+    process's ``MemFile`` registry under ``dirname``, then the CLI with
+    ``argv`` (the rank environment set by the parent); prints one JSON
+    line with its seconds and #1 launches."""
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    t = sync_clock()
+    pattern, sky, clus = dist_datasets(dirname)
+    make_s = sync_clock() - t
+    some = pattern.replace("*", "[" + "".join(
+        str(b) for b in range(MH_NCCL_BANDS)) + "]")
+    argv = [a.format(pattern=pattern, some=some, sky=sky, clus=clus)
+            for a in json.loads(argv_json)]
+    _reset_launches()
+    t = sync_clock()
+    rc = cli_main(argv, open_file=MemFile)
+    wall = sync_clock() - t
+    print("[rank] " + json.dumps({
+        "rank": int(os.environ["RANK"]), "rc": rc, "dataset_s": make_s,
+        "wall_s": wall, "launches": _read_launches()}), flush=True)
+
+
+def _spawn_ranks(dirname: str, argv: list, env: dict, nranks: int):
+    """Run ``nranks`` processes of :func:`multihost_rank` with ``env``
+    and the rank variables; returns their parsed rank lines.  Every
+    process is waited for, and killed at the time limit."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(nranks):
+        rdir = os.path.join(dirname, f"rank{r}")
+        os.makedirs(rdir, exist_ok=True)
+        code = "import sys, chip_smoke; chip_smoke.multihost_rank(*sys.argv[1:])"
+        penv = dict(os.environ, **env, RANK=str(r), WORLD_SIZE=str(nranks),
+                    LOCAL_RANK="0", MASTER_ADDR="localhost",
+                    MASTER_PORT=str(port),
+                    PYTHONPATH=here + os.pathsep + os.environ.get(
+                        "PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, rdir, json.dumps(argv)], env=penv, cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs, lines = [], []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MH_TIMEOUT)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        got = [json.loads(line[7:]) for line in out.splitlines()
+               if line.startswith("[rank] ")]
+        if p.returncode != 0 or not got or got[0]["rc"] != 0:
+            print(out[-4000:], flush=True)
+            fail(f"multihost: rank {r} exited {p.returncode}")
+        lines.append(got[0])
+    return lines
+
+
+def phase_multihost(dirname: str):
+    """``-f ... --multihost`` over ranks on the one card (module doc)."""
+    sol = os.path.join(dirname, "mh.z")
+    elog = os.path.join(dirname, "mh_events.jsonl")
+    base = ["-s", "{sky}", "-c", "{clus}", "-f", "{pattern}", *DIST_FLAGS]
+    env = {"SAGECAL_TELEMETRY": "1", "SAGECAL_EVENT_LOG": elog,
+           "SAGECAL_DIST_BACKEND": "gloo"}
+    t = sync_clock()
+    ranks = _spawn_ranks(dirname, base + ["-p", sol, "--multihost"], env,
+                         MH_RANKS)
+    wall = sync_clock() - t
+    for r in ranks:
+        print(f"[multihost] gloo rank {r['rank']}: datasets "
+              f"{r['dataset_s']:.1f} s, run {r['wall_s']:.1f} s, #1 "
+              f"launches {r['launches']['fused_predict_fwd']}", flush=True)
+    # the one-process run of phase 14: dist.z and its band files
+    ref = os.path.join(dirname, "dist.z")
+    same = {}
+    for suffix in [""] + [f".band{b}" for b in range(DIST_BANDS)]:
+        with open(ref + suffix, "rb") as fa, open(sol + suffix, "rb") as fb:
+            same[suffix or "Z"] = fa.read() == fb.read()
+    print(f"[multihost] {MH_RANKS} gloo ranks with CUDA tensors, "
+          f"{DIST_BANDS} shards: {wall:.1f} s with process start; files "
+          f"bit-identical to phase 14's one-process run: {same}", flush=True)
+    if not all(same.values()):
+        fail(f"multihost: files differ from the one-process run: {same}")
+    per_rank = [r["launches"]["fused_predict_fwd"] for r in ranks]
+    if per_rank != [DIST_BANDS // MH_RANKS] * MH_RANKS:
+        fail(f"multihost: #1 launches per rank {per_rank}")
+    # one nccl rank (the production backend) on two of the bands
+    nsol = os.path.join(dirname, "nccl.z")
+    nargv = ["-s", "{sky}", "-c", "{clus}", "-f", "{some}", *DIST_FLAGS,
+             "-p", nsol, "--multihost"]
+    t = sync_clock()
+    (nccl,) = _spawn_ranks(os.path.join(dirname, "nccl"), nargv,
+                           {"SAGECAL_DIST_BACKEND": "nccl"}, 1)
+    nwall = sync_clock() - t
+    zrows = sum(1 for line in open(nsol) if not line.startswith("#")) - 1
+    print(f"[multihost] one nccl rank on {MH_NCCL_BANDS} bands: run "
+          f"{nccl['wall_s']:.1f} s ({nwall:.1f} s with process start), #1 "
+          f"launches {nccl['launches']['fused_predict_fwd']}, Z file "
+          f"{zrows} rows", flush=True)
+    if nccl["launches"]["fused_predict_fwd"] != MH_NCCL_BANDS:
+        fail(f"multihost: the nccl rank launched #1 "
+             f"{nccl['launches']['fused_predict_fwd']} times")
+    if zrows != 2 * 8 * NSTATIONS:
+        fail(f"multihost: the nccl run's Z file holds {zrows} rows")
+    return {"gloo_ranks": ranks, "gloo_wall_s": wall, "same": same,
+            "nccl": nccl, "nccl_wall_s": nwall,
+            "launches_per_rank": per_rank}
+
+
+def phase_widefield(dirname: str):
+    """The widefield app and its hierarchical predict (module doc)."""
+    from sagecal_tpu_torch.apps import widefield as wf
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.data.simsky import make_sky
+    from sagecal_tpu_torch.sky.farfield import apriori_rel_bound
+    from sagecal_tpu_torch.sky import predict as hier_predict
+    from sagecal_tpu_torch.sky.predict import gather_sources
+    from sagecal_tpu_torch.sky.tree import build_source_tree, partition_by_tree
+
+    out_dir = os.path.join(dirname, "wf")
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    rc = cli_main(["widefield", *WF_FLAGS, "--out-dir", out_dir])
+    wall = sync_clock() - t
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"widefield: the CLI exited {rc}")
+    with open(os.path.join(out_dir, "widefield.json")) as fh:
+        summary = json.load(fh)
+    bound = apriori_rel_bound(8, 1.5)
+    for i, tile in enumerate(summary["tiles"]):
+        print(f"[widefield] tile {i}: res {tile['res_0']:.6e} -> "
+              f"{tile['res_1']:.6e}, sampled rel_err {tile['rel_err']:.3e} "
+              f"(a-priori bound {bound:.3e}), plan {tile['plan_s']:.3f} s, "
+              f"hierarchical predict {tile['predict_s']:.3f} s, check "
+              f"{tile['check_s']:.3f} s, solve {tile['solve_s']:.2f} s",
+              flush=True)
+    if not all(t_["rel_err"] is not None and t_["rel_err"] < bound
+               for t_ in summary["tiles"]):
+        fail(f"widefield: a sampled error is not under {bound:.3e}")
+    if not summary["hier_watchdog_ok"]:
+        fail("widefield: the hier predict watchdog degraded")
+    # tile 0's coherencies, on the card and on the CPU, and the exact
+    # predict's time per tile on the card
+    cfg = wf.config_from_args(wf.build_parser().parse_args(
+        [*WF_FLAGS, "--out-dir", out_dir]))
+    cohs, exact_s, hier_s = {}, [], []
+    parts = {k: [] for k in ("node_moments", "far_field_tiles",
+                             "near_field_tiles")}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = sync_clock()
+            out = fn(*a, **kw)
+            parts[name][-1] += sync_clock() - t0
+            return out
+        return run
+
+    for dev in (None, "cpu"):  # None: the card
+        sky = make_sky(nstations=cfg.nstations, tilesz=cfg.ntiles * cfg.tilesz,
+                       nchan=cfg.nchan, nclusters=cfg.nblobs, freq0=cfg.freq0,
+                       gain_amp=cfg.gain_amp, noise_sigma=cfg.noise_sigma,
+                       seed=cfg.seed, dtype=np.float64, wide_field=True,
+                       nsources=cfg.nsources, fov=cfg.fov,
+                       cluster_scale=cfg.cluster_scale,
+                       extent_m=cfg.extent_m, device=dev)
+        merged = wf._merge_sources(sky.clusters)
+        tree = build_source_tree(merged.ll.cpu().numpy(),
+                                 merged.mm.cpu().numpy(),
+                                 merged.nn.cpu().numpy(),
+                                 leaf_size=cfg.leaf_size)
+        eff = [gather_sources(merged, g)
+               for g in partition_by_tree(tree, cfg.nclusters)]
+        tiles = range(cfg.ntiles) if dev is None else (0,)
+        for ti in tiles:
+            data_t = wf._slice_tile(sky.data, ti, cfg.tilesz)
+            timing = {}
+            if dev is None:
+                # the hierarchical predict's parts, each ended by a sync
+                saved = {k: getattr(hier_predict, k) for k in parts}
+                for k in parts:
+                    parts[k].append(0.0)
+                    setattr(hier_predict, k, timed(k, saved[k]))
+            try:
+                coh = wf._tile_coherencies(cfg, data_t, eff, timing)
+            finally:
+                if dev is None:
+                    for k in parts:
+                        setattr(hier_predict, k, saved[k])
+            if ti == 0:
+                cohs[dev or "cuda"] = coh.cpu()
+            if dev is None:
+                hier_s.append(timing["plan_s"] + timing["predict_s"])
+                timing = {}
+                ex_cfg = wf.WidefieldConfig(**{**cfg.__dict__, "exact": True})
+                wf._tile_coherencies(ex_cfg, data_t, eff, timing)
+                exact_s.append(timing["predict_s"])
+    err = float((cohs["cuda"] - cohs["cpu"]).abs().max()
+                / cohs["cpu"].abs().max())
+    rows = cohs["cpu"].shape[-1]
+    print(f"[widefield] {cfg.nsources} sources -> {summary['nclusters_eff']} "
+          f"clusters {summary['cluster_sizes']}, {rows} rows a tile; tile "
+          f"0 coherencies card vs CPU {err:.3e} of the max abs (tol "
+          f"{WF_CPU_TOL}); per tile on the card: hierarchical (plan + "
+          f"predict) {[round(x, 3) for x in hier_s]} s ("
+          + ", ".join(f"{k} {[round(x, 4) for x in v]}"
+                      for k, v in parts.items())
+          + f" s), exact {[round(x, 3) for x in exact_s]} s; app run "
+          f"{wall:.1f} s, peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    if not err <= WF_CPU_TOL:
+        fail(f"widefield: the card's coherencies part from the CPU's by "
+             f"{err:.3e}")
+    return {"summary": summary, "wall_s": wall, "peak_bytes": peak,
+            "card_vs_cpu": err, "hier_s": hier_s, "exact_s": exact_s,
+            "hier_parts_s": parts}
+
+
+def refine_sky(dirname: str):
+    """``write_sky``'s 100 point clusters with a second source in
+    cluster 0 (P0's position moved by 0.3 degrees in declination, flux
+    3): a lone source's flux is absorbed by its cluster's gains, a
+    cluster of two keeps the flux ratio.  Returns (true sky file,
+    cluster file, catalog file with P0's flux off by REFINE_PERTURB,
+    P0's true flux)."""
+    true_sky, clus = write_sky(dirname, nclusters=NCLUSTERS, name="refine")
+    with open(true_sky) as fh:
+        lines = fh.readlines()
+    p0 = next(line.split() for line in lines if line.startswith("P0 "))
+    dm = int(p0[5]) + 18  # 0.3 degrees in arcminutes (P0 sits above 0.9 rad)
+    extra = p0[:5] + [str(dm % 60), p0[6], "3.0"] + p0[8:]
+    extra[0], extra[4] = "Q0", str(int(p0[4]) + dm // 60)
+    with open(true_sky, "a") as fh:
+        fh.write(" ".join(extra) + "\n")
+    with open(clus) as fh:
+        clines = fh.readlines()
+    clines[0] = clines[0].rstrip("\n") + " Q0\n"
+    with open(clus, "w") as fh:
+        fh.writelines(clines)
+    true_flux = float(p0[7])
+    sky = os.path.join(dirname, "refine_catalog.txt")
+    with open(true_sky) as fin, open(sky, "w") as fout:
+        for line in fin:
+            f = line.split()
+            if f and f[0] == "P0":
+                f[7] = f"{true_flux * REFINE_PERTURB:.6f}"
+                line = " ".join(f) + "\n"
+            fout.write(line)
+    return true_sky, clus, sky, true_flux
+
+
+def refine_fd(problem, theta, p0, gradient="implicit", **budget) -> dict:
+    """The outer gradient in P0's flux of ``gradient``'s route at
+    ``budget`` against a central difference of the outer cost with the
+    same inner budget."""
+    from sagecal_tpu_torch.refine import make_outer_value_and_grad
+
+    _, vg, cost = make_outer_value_and_grad(problem, gradient=gradient,
+                                            **budget)
+    _, g = vg(theta, p0)
+    e = torch.zeros_like(theta)
+    e[0] = REFINE_EPS
+    fd = (float(cost(theta + e, p0)) - float(cost(theta - e, p0))) / (
+        2 * REFINE_EPS)
+    return {"grad": float(g[0]), "fd": fd,
+            "rel": abs(float(g[0]) - fd) / abs(fd)}
+
+
+def refine_product_ms(problem, theta, p, reps: int = 10) -> dict:
+    """Milliseconds of one Gauss-Newton product (``"jtj"``, the inner
+    CG's) and one exact Hessian-vector product (``"hvp"``, the
+    adjoint's) at ``p``, each the mean of ``reps`` after a warm-up."""
+    from sagecal_tpu_torch.refine.implicit import _hessian_matvec
+    from sagecal_tpu_torch.refine.objective import cluster_data_from_theta
+
+    cdata = cluster_data_from_theta(problem, theta)
+    v = torch.randn(p.shape, dtype=p.dtype, device=p.device,
+                    generator=torch.Generator(p.device).manual_seed(0))
+    out = {}
+    for kind in ("jtj", "hvp"):
+        _hessian_matvec(problem, p, theta, v, kind, cdata=cdata)
+        t = sync_clock()
+        for _ in range(reps):
+            _hessian_matvec(problem, p, theta, v, kind, cdata=cdata)
+        out[kind] = (sync_clock() - t) / reps * 1e3
+    return out
+
+
+def refine_adjoint(problem, theta, pstar, iters: int) -> dict:
+    """The implicit route's gradient in P0's flux at the inner solution
+    ``pstar`` with ``iters`` adjoint CG products (the exact Hessian, as
+    ``refine/implicit.py``'s backward), and the adjoint's relative
+    residual ``|H v - pbar| / |pbar|``."""
+    from sagecal_tpu_torch.refine.implicit import (
+        _hessian_matvec, _inner_grad, cg_solve,
+    )
+    from sagecal_tpu_torch.refine.objective import (
+        cluster_data_from_theta, outer_cost,
+    )
+
+    cdata = cluster_data_from_theta(problem, theta)
+    with torch.enable_grad():
+        pp = pstar.detach().requires_grad_(True)
+        (pbar,) = torch.autograd.grad(outer_cost(problem, pp, theta, cdata),
+                                      pp)
+        th = theta.detach().requires_grad_(True)
+        (direct,) = torch.autograd.grad(outer_cost(problem, pstar, th), th)
+
+    def hv(u):
+        return _hessian_matvec(problem, pstar, theta, u, "hvp", cdata=cdata)
+
+    v = cg_solve(hv, pbar, iters)
+    resid = float((pbar - hv(v)).norm() / pbar.norm())
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        g = _inner_grad(problem, pstar, th, create_graph=True)
+        (mixed,) = torch.autograd.grad(torch.dot(g, v), th)
+    return {"grad": float(direct[0] - mixed[0]), "resid": resid}
+
+
+def refine_ridge_witness(problem, theta, p0, app_budget: dict,
+                         check: dict) -> dict:
+    """Why the app runs at REFINE_RIDGE and REFINE_ADJOINT (module doc):
+    after the app's inner budget at each ridge, the inner gradient's
+    ratio to its start and the implicit gradient with the default 64
+    adjoint products (its residual); at the default ridge that gradient
+    against its difference (printed) and the unrolled route against its
+    own (checked).  ``check``: the app's gradient check at REFINE_RIDGE,
+    whose difference the 64-product gradient there is read against."""
+    import dataclasses
+
+    from sagecal_tpu_torch.refine.implicit import (
+        _inner_grad, gauss_newton_solve,
+    )
+
+    t0 = sync_clock()
+    out = {"inner_ratio": {}, "adjoint64": {}}
+    for ridge in REFINE_RIDGES:
+        prob = dataclasses.replace(problem, ridge=ridge)
+        ps = gauss_newton_solve(prob, theta, p0, iters=app_budget["iters"],
+                                cg_iters=app_budget["cg_iters"],
+                                damping=app_budget["damping"])
+        out["inner_ratio"][ridge] = float(
+            _inner_grad(prob, ps, theta).norm()
+            / _inner_grad(prob, p0, theta).norm())
+        if ridge in (REFINE_RIDGES[0], REFINE_RIDGE):
+            out["adjoint64"][ridge] = refine_adjoint(prob, theta, ps, 64)
+    default = dataclasses.replace(problem, ridge=REFINE_RIDGES[0])
+    budget = dict(app_budget, adjoint_cg_iters=64)
+    out["implicit"] = refine_fd(default, theta, p0, **budget)
+    iters, cg = REFINE_WITNESS
+    torch.cuda.reset_peak_memory_stats()
+    out["unrolled"] = refine_fd(default, theta, p0, gradient="unrolled",
+                                iters=iters, cg_iters=cg,
+                                damping=app_budget["damping"])
+    out["unrolled"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = sync_clock() - t0
+    imp, unr = out["implicit"], out["unrolled"]
+    a_hi = out["adjoint64"][REFINE_RIDGE]
+    a_lo = out["adjoint64"][REFINE_RIDGES[0]]
+    print(f"[refine] after the app's inner budget, the inner gradient's "
+          f"ratio to its start: "
+          + ", ".join(f"--ridge {k:g} {v:.3e}"
+                      for k, v in out["inner_ratio"].items())
+          + f"; with 64 adjoint products at --ridge {REFINE_RIDGE:g}: "
+          f"residual {a_hi['resid']:.3e}, gradient {a_hi['grad']:.8e}, rel "
+          f"{abs(a_hi['grad'] - check['fd']) / abs(check['fd']):.3e} to "
+          f"the check's difference; at --ridge {REFINE_RIDGES[0]:g}: "
+          f"residual {a_lo['resid']:.3e}, the implicit gradient "
+          f"{imp['grad']:.8e} vs central difference {imp['fd']:.8e}, rel "
+          f"{imp['rel']:.3e} (not checked), the unrolled route ({iters} x "
+          f"{cg}) {unr['grad']:.8e} vs {unr['fd']:.8e}, rel "
+          f"{unr['rel']:.3e} (tol {REFINE_FD_TOL}), peak "
+          f"{unr['peak_bytes'] / 2**30:.2f} GiB; {out['seconds']:.1f} s",
+          flush=True)
+    if not unr["rel"] <= REFINE_FD_TOL:
+        fail(f"refine: at --ridge {REFINE_RIDGES[0]:g} the unrolled gradient "
+             f"parts from its finite difference by {unr['rel']:.3e}")
+    return out
+
+
+def phase_refine(dirname: str):
+    """Sky-model refinement in dataset mode (module doc)."""
+    from sagecal_tpu_torch.apps import refine as rf
+    from sagecal_tpu_torch.apps.cli import main as cli_main
+    from sagecal_tpu_torch.device import resolve_device
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.refine import SkySpec
+    from sagecal_tpu_torch.refine.implicit import MATVEC_COUNTS
+
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    t0 = sync_clock()
+    true_sky, clus, sky, true_flux = refine_sky(dirname)
+    clusters, _, _ = load_sky(true_sky, clus, RA0, DEC0, dtype=torch.float64)
+    path = os.path.join(dirname, "refine.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=REFINE_NTIME,
+                     nchan=NCHAN, clusters=clusters,
+                     jones=random_jones(NCLUSTERS, NSTATIONS, seed=3,
+                                        amp=REFINE_GAIN_AMP,
+                                        dtype=np.complex128),
+                     noise_sigma=1e-3, seed=0, dec0=DEC0, open_file=MemFile)
+    MemFile(path, "r+").attrs["ra0"] = RA0
+    prefix = os.path.join(dirname, "rf")
+    argv = ["refine", "-d", path, "-s", sky, "-c", clus, "-t",
+            str(REFINE_NTIME), *REFINE_FLAGS, "-o", prefix]
+    for k in MATVEC_COUNTS:
+        MATVEC_COUNTS[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = sync_clock()
+    rc = cli_main(argv, open_file=MemFile)
+    wall = sync_clock() - t
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(MATVEC_COUNTS)
+    if rc != 0:
+        fail(f"refine: the CLI exited {rc}")
+    trace = [json.loads(line) for line in open(prefix + ".trace.jsonl")]
+    for e in trace:
+        print(f"[refine] outer {e['iter']}: cost {e['cost']:.8e}, gradnorm "
+              f"{e['gradnorm']:.4e}, flux {e['theta'][0]:.6f} (true "
+              f"{true_flux:.6f}, catalog {true_flux * REFINE_PERTURB:.6f}), "
+              f"{e['seconds']:.2f} s", flush=True)
+    # the app's first gradient: its budgets, its start (the catalog
+    # flux, identity gains)
+    args = rf.build_parser().parse_args(argv[1:])
+    cfg = rf.config_from_args(args)
+    problem, _ = rf._build_problem(cfg, SkySpec(flux=[(0, 0)]), print,
+                                   resolve_device(), MemFile)
+    app_budget = dict(iters=cfg.inner_iters, cg_iters=cfg.cg_iters,
+                      damping=cfg.damping,
+                      adjoint_cg_iters=cfg.adjoint_cg_iters,
+                      adjoint_matvec=cfg.adjoint_matvec)
+    th = problem.spec.theta0(problem.clusters, problem.tables).to(
+        problem.data.device)
+    p0 = problem.identity_gains()
+    t = sync_clock()
+    check = refine_fd(problem, th, p0, **app_budget)
+    check["seconds"] = sync_clock() - t
+    print(f"[refine] {NSTATIONS} stations, {NCLUSTERS} clusters, "
+          f"{REFINE_NTIME} timeslots x {NCHAN} channels at f64: run "
+          f"{wall:.1f} s, Gauss-Newton matvecs {counts['inner']}, adjoint "
+          f"Hessian-vector products {counts['adjoint']}, peak device "
+          f"memory {peak / 2**30:.3f} GiB; the app's first gradient "
+          f"(--ridge {cfg.ridge:g}, {cfg.inner_iters} x {cfg.cg_iters} "
+          f"inner, {cfg.adjoint_cg_iters} adjoint) {check['grad']:.8e} vs "
+          f"central difference {check['fd']:.8e}: rel {check['rel']:.3e} "
+          f"(tol {REFINE_FD_TOL}; {check['seconds']:.1f} s)", flush=True)
+    if not check["rel"] <= REFINE_FD_TOL:
+        fail(f"refine: the app's gradient parts from its finite difference "
+             f"by {check['rel']:.3e}")
+    product_ms = refine_product_ms(problem, th, p0)
+    print(f"[refine] one product at this width: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in product_ms.items()),
+          flush=True)
+    witness = refine_ridge_witness(problem, th, p0, app_budget, check)
+    remove(path)
+    if not (len(trace) == 2 and all(np.isfinite(x["cost"]) for x in trace)):
+        fail(f"refine: the trace is {trace}")
+    flux_err = [abs(x["theta"][0] - true_flux) / true_flux for x in trace]
+    if not flux_err[-1] < REFINE_PERTURB - 1.0:
+        fail(f"refine: the flux did not move toward the truth: {flux_err}")
+    out = {"wall_s": wall, "iter_s": [x["seconds"] for x in trace],
+           "matvecs": counts, "peak_bytes": peak, "check": check,
+           "witness": witness, "product_ms": product_ms,
+           "flux_err": flux_err,
+           "cost": [x["cost"] for x in trace]}
+    out["seconds"] = sync_clock() - t0
+    print(f"[refine] phase wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 1: cut from 2 when the consensus phases (14, 15) joined, to keep
     # the script near 450 s on an "NVIDIA H100 80GB HBM3, 700.00 W" (the
     # main, warm, extended and telemetry solves run at this depth)
     ap.add_argument("--max-emiter", type=int, default=1)
-    # 2: cut from 6 to 4 when the fullbatch phase joined, to 3 when the
-    # beam phase did and to 2 when the spatial and federated phases did,
-    # to keep the script near 540 s on an "NVIDIA H100 80GB HBM3, 700.00
+    # 1: cut from 6 to 4 when the fullbatch phase joined, to 3 when the
+    # beam phase did, to 2 when the spatial and federated phases did and
+    # to 1 when the sharded, multihost, widefield and refine phases did,
+    # to keep the script near 600 s on an "NVIDIA H100 80GB HBM3, 700.00
     # W" (the main, warm, extended and telemetry solves run at this
     # depth)
-    ap.add_argument("--max-iter", type=int, default=2)
+    ap.add_argument("--max-iter", type=int, default=1)
     ap.add_argument("--max-lbfgs", type=int, default=10)
     ap.add_argument("--json-out", default=None,
                     help="also write every number printed to this file")
@@ -3223,6 +3836,7 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         data, cdata, p0, coh_s = main_tile(d)
         main_out = phase_main(args, d, data, cdata, p0)
+    shard_out = phase_sharded(data, cdata, p0)
     with tempfile.TemporaryDirectory() as d:
         warm_out = phase_warm(args, d)
     with tempfile.TemporaryDirectory() as d:
@@ -3289,6 +3903,7 @@ def main():
         svc_out = phase_service(d)
     with tempfile.TemporaryDirectory() as d:
         dist_out = phase_distributed(d)
+        mh_out = phase_multihost(d)
     with tempfile.TemporaryDirectory() as d:
         mb_out = phase_minibatch(d)
     with tempfile.TemporaryDirectory() as d:
@@ -3299,6 +3914,10 @@ def main():
         spapp_out = phase_spatial_app(d, pattern, psky, pclus)
         for f in range(DIST_BANDS):
             remove(os.path.join(d, f"band{f}.h5"))
+    with tempfile.TemporaryDirectory() as d:
+        wf_out = phase_widefield(d)
+    with tempfile.TemporaryDirectory() as d:
+        rf_out = phase_refine(d)
     worst["fused_predict_fwd"] = max(worst["fused_predict_fwd"],
                                      spat_out["parity"]["model_max_abs_err"])
     for k, v in svc_out["parity"]["worst"].items():
@@ -3335,6 +3954,18 @@ def main():
           f"{spapp_out['wall_s']:.1f} s, per band "
           f"{[round(x, 2) for x in spapp_out['band_s']]} s, FISTA "
           f"{spapp_out['fista_s']} s", flush=True)
+    print(f"[times] ({card}) sharded fit: unsharded "
+          f"{shard_out[1]['seconds']:.2f} s peak "
+          f"{shard_out[1]['peak_bytes'] / 2**30:.3f} GiB, {SHARD_N} blocks "
+          f"{shard_out[SHARD_N]['seconds']:.2f} s peak "
+          f"{shard_out[SHARD_N]['peak_bytes'] / 2**30:.3f} GiB; multihost: "
+          f"{MH_RANKS} gloo ranks "
+          f"{[round(r['wall_s'], 1) for r in mh_out['gloo_ranks']]} s, one "
+          f"nccl rank {mh_out['nccl']['wall_s']:.1f} s; widefield: app "
+          f"{wf_out['wall_s']:.1f} s, peak {wf_out['peak_bytes'] / 2**30:.3f}"
+          f" GiB; refine: run {rf_out['wall_s']:.1f} s, per outer iteration "
+          f"{[round(x, 2) for x in rf_out['iter_s']]} s, peak "
+          f"{rf_out['peak_bytes'] / 2**30:.3f} GiB", flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -3362,7 +3993,11 @@ def main():
         "minibatch (4 bands x 2 minibatches)":
             mb_out["launches"]["fused_predict_fwd"],
         "spatial (2 tiles, 4 bands)":
-            spat_out["launches"]["fused_predict_fwd"]}
+            spat_out["launches"]["fused_predict_fwd"],
+        "multihost (1 tile, 4 bands, per gloo rank)":
+            mh_out["launches_per_rank"],
+        "multihost (1 tile, 2 bands, one nccl rank)":
+            mh_out["nccl"]["launches"]["fused_predict_fwd"]}
     if args.json_out:
         with open(args.json_out, "w") as fh:
             json.dump({"card": card, "main": main_out, "warm": warm_out,
@@ -3373,6 +4008,8 @@ def main():
                        "service": svc_out, "distributed": dist_out,
                        "minibatch": mb_out, "spatial": spat_out,
                        "federated": fed_out, "spatial_app": spapp_out,
+                       "sharded": shard_out, "multihost": mh_out,
+                       "widefield": wf_out, "refine": rf_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,

@@ -9,8 +9,12 @@ multi-band consensus ADMM (``apps/distributed.py``; with ``-X`` or
 under the diffuse constraint), ``-f ... -N 1`` federated calibration
 (``apps/federated.py``), ``-N 1 ...`` the minibatch app
 (``apps/minibatch.py``); ``... cli serve --requests r.json`` runs the
-calibration service (``apps/serve.py``) and ``... cli spatial -f
-'band*.h5' ...`` the spatial app (``apps/spatial.py``).  :func:`main` takes ``device`` for
+calibration service (``apps/serve.py``), ``... cli spatial -f
+'band*.h5' ...`` the spatial app (``apps/spatial.py``), ``... cli
+widefield ...`` the wide-field app (``apps/widefield.py``) and ``...
+cli refine ...`` sky-model refinement (``apps/refine.py``); ``-f ...
+--multihost`` runs the multi-band mode over ``torch.distributed`` ranks
+(``parallel/multihost.py``).  :func:`main` takes ``device`` for
 Python callers (``device="cpu"`` in the tests); the command line always
 means the card.  Exit codes: 0 done, 3 when ``--abort-on-divergence``
 stopped a diverged run, 2 for a usage error or a mode the port does not
@@ -27,8 +31,8 @@ from sagecal_tpu_torch.apps.config import RunConfig
 # subcommands of the reference CLI not ported yet and the ROADMAP.md
 # item that ports each one
 _SUBCOMMANDS = {
-    "diag": "A11", "fleet": "A9", "load": "A9",
-    "stream": "A9", "widefield": "A8", "refine": "A8", "convert": "A10",
+    "diag": "A11", "fleet": "A9", "load": "A9", "stream": "A9",
+    "convert": "A10",
 }
 
 
@@ -158,7 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "consensus-ADMM over the device mesh (ref sagecal-mpi "
                     "-f 'pattern')")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host runs (not ported: ROADMAP.md, A7c)")
+                    help="run -f over torch.distributed ranks (RANK, "
+                    "WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK "
+                    "from the environment, as torchrun sets them)")
     ap.add_argument("-U", "--global-residual", type=int, default=0,
                     help="if >0, compute final residuals from the GLOBAL "
                     "consensus solution B_f Z instead of the per-band "
@@ -312,6 +318,14 @@ def main(argv=None, device=None, open_file=None) -> int:
         from sagecal_tpu_torch.apps.spatial import main as spatial_main
 
         return spatial_main(argv[1:], device=device, open_file=open_file)
+    if argv and argv[0] == "widefield":
+        from sagecal_tpu_torch.apps.widefield import main as widefield_main
+
+        return widefield_main(argv[1:], device=device)
+    if argv and argv[0] == "refine":
+        from sagecal_tpu_torch.apps.refine import main as refine_main
+
+        return refine_main(argv[1:], device=device, open_file=open_file)
     if argv and argv[0] in _SUBCOMMANDS:
         return _not_ported(f"the {argv[0]!r} subcommand",
                            _SUBCOMMANDS[argv[0]])
@@ -360,10 +374,9 @@ def _dispatch(args, cfg, device, open_file=None) -> int:
     """The reference's mode dispatch (main.cpp:295-307; -f is the
     sagecal-mpi mode, MPI/main.cpp:336-366): -f with -N > 0 to the
     federated app, -f to the distributed app, -N > 0 to the minibatch
-    app, else fullbatch.  Multi-host runs are refused naming ROADMAP.md's
-    A7c."""
-    if args.multihost:
-        return _not_ported("--multihost (multi-host runs)", "A7c")
+    app, else fullbatch.  ``--multihost`` spreads a -f run over the
+    environment's ranks; the other modes ignore it, as the JAX
+    package's do."""
     if args.band_pattern and cfg.epochs > 0:
         from sagecal_tpu_torch.apps.federated import run_federated
 
@@ -384,7 +397,7 @@ def _dispatch(args, cfg, device, open_file=None) -> int:
                         **_spatial_options(args), mdl=args.mdl,
                         global_residual=bool(args.global_residual),
                         adaptive_rho=args.adaptive_rho > 0, device=device,
-                        open_file=open_file)
+                        open_file=open_file, multihost=args.multihost)
     elif cfg.epochs > 0:
         from sagecal_tpu_torch.apps.minibatch import run_minibatch
 

@@ -4,9 +4,11 @@ as the reference, ``use_f64=True`` and ``use_fused_predict=False``
 included.  Field names follow the reference's single-letter flags (see
 ``cli.py``).  Fields whose feature the port has not reached yet are
 kept, and ``apps/fullbatch.py`` refuses them by name.  :class:`ServeConfig`
-is the reference's too, for ``apps/serve.py``, and :class:`SpatialConfig`
-for ``apps/spatial.py``; the other config dataclasses of that module
-belong to the apps of ROADMAP.md's A8 and A9.
+is the reference's too, for ``apps/serve.py``, :class:`SpatialConfig`
+for ``apps/spatial.py``, :class:`WidefieldConfig` for
+``apps/widefield.py`` and :class:`RefineConfig` for ``apps/refine.py``;
+the other config dataclasses of that module belong to the apps of
+ROADMAP.md's A9.
 """
 
 from __future__ import annotations
@@ -211,3 +213,106 @@ class ServeConfig:
     # escalate a drift-tolerance breach (obs/shadow.DRIFT_TOLERANCES)
     # from report-only to a run abort (exit 3) after the drain
     abort_on_drift: bool = False
+
+
+@dataclasses.dataclass
+class RefineConfig:
+    """The ``refine`` app: differentiable sky-model refinement
+    (``refine/``).  An outer LBFGS over the free sky parameters wraps
+    the inner gain solve; gradients flow through the inner fixed point
+    (implicit function theorem by default, truncated unrolling as the
+    fallback).  The torch-op predict only: the hand kernels have no
+    coherency cotangent (``refine/objective.py::require_xla_predict``)."""
+
+    dataset: str = ""  # vis.h5 (one tile); empty with synthetic>0
+    sky_model: str = ""
+    cluster_file: str = ""
+    out_prefix: str = "refine-out"  # <prefix>.json / .npz / .trace.jsonl
+    tilesz: int = 2
+    # which parameters are free: "c:s" entries (cluster:source index),
+    # comma-separated; modes entries are "c:m" (cluster:flat mode idx)
+    free_flux: str = "0:0"
+    free_spec: str = ""
+    free_pos: str = ""
+    free_modes: str = ""
+    # outer loop
+    outer_iters: int = 10
+    lbfgs_m: int = 7
+    gradient: str = "implicit"  # or "unrolled"
+    tol: float = 0.0
+    # inner solve / adjoint
+    inner_iters: int = 12
+    cg_iters: int = 32
+    damping: float = 1e-6
+    adjoint_cg_iters: int = 64
+    adjoint_matvec: str = "hvp"  # or "jtj" (Gauss-Newton)
+    ridge: float = 1e-2  # inner gain prior (degeneracy breaker)
+    # synthetic mode: simulate a make_sky fixture, perturb one flux by
+    # this factor, refine it back
+    synthetic: int = 0  # >0: nstations of the synthetic sky
+    perturb: float = 1.15
+    noise_sigma: float = 0.0
+    seed: int = 3
+    # elastic (outer-state checkpoints; ROADMAP.md, A9)
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    use_f64: bool = True
+    verbose: bool = False
+
+
+@dataclasses.dataclass
+class WidefieldConfig:
+    """The ``widefield`` app: 10k+-source wide-field calibration through
+    the hierarchical sky predict (``sky/``).  A synthetic compact-array
+    observation (``data/simsky.py::make_sky(wide_field=True)``) is
+    collapsed into ``nclusters`` tree-partitioned effective directions,
+    and each tile's cluster coherencies come from
+    ``predict_coherencies_hier`` (checked a-posteriori by the quality
+    watchdog) before the SAGE solve."""
+
+    out_dir: str = "widefield-out"
+    # synthetic wide-field sky (data/simsky.py wide_field branch)
+    nstations: int = 24
+    ntiles: int = 4             # solve tiles (total obs = ntiles*tilesz)
+    tilesz: int = 2             # time samples per solve tile
+    nchan: int = 1
+    nsources: int = 2000        # total point sources across the field
+    nblobs: int = 12            # spatial blobs the sky generator draws
+    fov: float = 1.1            # field diameter, direction cosines
+    cluster_scale: float = 0.004
+    freq0: float = 30e6         # low-frequency all-sky regime
+    extent_m: float = 80.0      # compact-array station layout radius
+    gain_amp: float = 0.1
+    noise_sigma: float = 0.0
+    seed: int = 11
+    # hierarchical predict knobs (sky/predict.py)
+    nclusters: int = 4          # tree-collapsed effective directions
+    order: int = 8              # multipole/Taylor truncation order p
+    theta: float = 1.5          # well-separation phase budget (rad)
+    leaf_size: int = 32
+    tile_rows: int = 128
+    source_chunk: int = 32
+    exact: bool = False         # route through the exact predict instead
+    # a-posteriori verification: rows sampled per tile; the verdict
+    # degrades when the sampled error exceeds max_rel_err (<= 0: the
+    # a-priori bound of (order, theta))
+    hier_nsample: int = 32
+    hier_max_rel_err: float = 1e-3
+    # solver (RunConfig semantics)
+    max_emiter: int = 3
+    max_iter: int = 2
+    max_lbfgs: int = 10
+    lbfgs_m: int = 7
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS
+    nulow: float = 2.0
+    nuhigh: float = 30.0
+    randomize: bool = True
+    res_ratio: float = 5.0
+    abort_on_divergence: bool = False
+    # elastic (checkpoints at tile boundaries; ROADMAP.md, A9)
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    use_f64: bool = True
+    verbose: bool = False

@@ -42,7 +42,16 @@ events, runs the consensus watchdog (``--abort-on-divergence``), writes
 a ``distributed`` run span, ``tile`` spans and the synthetic per-band
 and per-round spans of the ADMM window, and keeps the flight recorder,
 as the fullbatch app does.  ``resume`` / ``checkpoint_every`` need
-ROADMAP.md's A9; multi-host runs its A7c.
+ROADMAP.md's A9.
+
+``multihost=True`` runs the mesh over ``torch.distributed``
+(``parallel/multihost.py``; the rank environment of ``torchrun``): as
+in the JAX package every rank builds the whole workload and solves only
+the bands of its own shards.  Each band's solution file and residual
+column are written by the rank that solves it; rank 0 writes the Z
+file, the event log and the spatial plot.  (Every JAX process writes
+every file.)  The band count padded to the shards must split evenly
+over the ranks.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from sagecal_tpu_torch.obs.trace import (
 from sagecal_tpu_torch.ops.diffuse import recalculate_diffuse_coherencies
 from sagecal_tpu_torch.ops.residual import calculate_residuals
 from sagecal_tpu_torch.parallel import consensus
+from sagecal_tpu_torch.parallel import multihost as mh
 from sagecal_tpu_torch.parallel.admm import (
     factor_schedule, round_work_weights,
 )
@@ -212,12 +222,14 @@ def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
                     spatial_fista_maxiter: int = 30, mdl: bool = False,
                     global_residual: bool = False, adaptive_rho: bool = True,
                     nshards: Optional[int] = None, device=None,
-                    open_file=None):
+                    open_file=None, multihost: bool = False):
     """Calibrate a multi-band observation on ``device`` (CUDA unless
     ``device="cpu"``).  ``datasets``: the band files, or None to expand
     ``cfg.dataset`` as a glob (the reference's ``-f 'pattern'``; over
     ``open_file``'s registry when it has a ``glob``, as ``MemFile``
-    does).  ``nshards``: the virtual shards (module doc).  The
+    does).  ``nshards``: the virtual shards (module doc);
+    ``multihost``: spread them over the ranks of the environment's
+    process group (module doc; each rank on ``cuda:LOCAL_RANK``).  The
     ``spatial_*`` options are the JAX package's: ``spatial_n0 > 0``
     switches the spatial regularization on, ``spatial_beta <= 0`` takes
     the master's auto scale, ``spatial_diffuse_id`` names the
@@ -225,27 +237,36 @@ def run_distributed(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
     are its (sp_gamma, sh_lambda).  Returns the per-tile (dual_res,
     primal_res) traces."""
     _refuse(cfg)
-    dev = resolve_device(device)
-    if datasets is None:
-        finder = getattr(open_file, "glob", None)
-        datasets = (finder(cfg.dataset) if finder is not None
-                    else sorted(_glob.glob(cfg.dataset)))
-    if not datasets:
-        raise ValueError(f"no band datasets match {cfg.dataset!r}")
+    group = None
+    if multihost:
+        dev = mh.rank_device(device)
+        group = mh.init_from_env(dev)
+    else:
+        dev = resolve_device(device)
     nadmm = nadmm if nadmm is not None else max(cfg.admm_iters, 2)
     handles: List[VisDataset] = []
     open_files: List = []
+    ok = False
     try:
+        if datasets is None:
+            finder = getattr(open_file, "glob", None)
+            datasets = (finder(cfg.dataset) if finder is not None
+                        else sorted(_glob.glob(cfg.dataset)))
+        if not datasets:
+            raise ValueError(f"no band datasets match {cfg.dataset!r}")
         for p in datasets:
             handles.append(VisDataset(p, "r+", open_file))
         sp = SpatialOptions(
             spatial_n0, spatial_beta, spatial_mu, spatial_alpha,
             spatial_cadence, spatial_basis, spatial_diffuse_id,
             spatial_gamma, spatial_lam, spatial_fista_maxiter)
-        return _run(cfg, list(datasets), handles, open_files, log, nadmm,
-                    mdl, global_residual, adaptive_rho, nshards, dev,
-                    open_file, sp)
+        out = _run(cfg, list(datasets), handles, open_files, log, nadmm,
+                   mdl, global_residual, adaptive_rho, nshards, dev,
+                   open_file, sp, group)
+        ok = True
+        return out
     finally:
+        mh.close(group, ok=ok)
         for fh in open_files + handles:
             try:
                 fh.close()
@@ -290,7 +311,7 @@ def _spatial_config(sp: SpatialOptions, clusters, cdefs, nchunk_max, alpha_m,
 
 def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
          global_residual, adaptive_rho, nshards, dev, open_file,
-         sp: SpatialOptions):
+         sp: SpatialOptions, group=None):
     rdt = torch.float64 if cfg.use_f64 else torch.float32
     cdtype = torch.complex128 if cfg.use_f64 else torch.complex64
     metas = [h.meta for h in handles]
@@ -321,7 +342,14 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     ndev = min(int(nshards), Nf) if nshards else Nf
     Nf_pad = -(-Nf // ndev) * ndev
     log(f"distributed: {Nf} bands on {ndev} shards"
-        + (f" (padded to {Nf_pad})" if Nf_pad != Nf else ""))
+        + (f" (padded to {Nf_pad})" if Nf_pad != Nf else "")
+        + (f", rank {group.rank} of {group.world}" if group else ""))
+    # the bands this process solves and writes; rank 0 writes the rest
+    G_slots = Nf_pad // ndev
+    own_shards = range(ndev) if group is None else group.shard_range(ndev)
+    own_bands = [b for d in own_shards
+                 for b in range(d * G_slots, (d + 1) * G_slots) if b < Nf]
+    lead = group is None or group.rank == 0
     B = consensus.setup_polynomials(freqs, freq0, cfg.npoly,
                                     cfg.poly_type).numpy()
     if Nf_pad != Nf:
@@ -355,7 +383,8 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             plain_emiter=max(cfg.max_emiter, 2),
             lm_config=LMConfig(itmax=cfg.max_iter), bb_rho=adaptive_rho,
             solver_mode=cfg.solver_mode, spatial=spatial,
-            collect_trace=collect, consensus_cfg=ccfg, device=dev)
+            collect_trace=collect, consensus_cfg=ccfg, group=group,
+            device=dev)
 
     # fine-grained rounds rebalance their slot schedule on the first
     # tile's unflagged fractions: the function is built there
@@ -367,7 +396,7 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
         device=dev, x64_enabled=cfg.use_f64, app="distributed", bands=Nf,
         nadmm=nadmm, nshards=ndev, solver_mode=cfg.solver_mode,
         n_clusters=M, n_stations=N, adaptive_rho=adaptive_rho)
-    elog = default_event_log(manifest=manifest)
+    elog = default_event_log(manifest=manifest) if lead else None
     install_crash_handlers()
     if elog is not None:
         register_event_log(elog)
@@ -376,17 +405,19 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     tracer = get_tracer()
 
     # solution files: the global Z and one per band
-    zfh = open(cfg.out_solutions, "w")
-    open_files.append(zfh)
-    write_global_z_header(zfh, freq0, cfg.npoly, N, M, M * nchunk_max)
-    band_fhs = []
-    for i in range(Nf):
+    zfh = None
+    if lead:
+        zfh = open(cfg.out_solutions, "w")
+        open_files.append(zfh)
+        write_global_z_header(zfh, freq0, cfg.npoly, N, M, M * nchunk_max)
+    band_fhs = {}
+    for i in own_bands:
         fh = open(f"{cfg.out_solutions}.band{i}", "w")
         open_files.append(fh)
         solio.write_header(fh, metas[i].freq0, metas[i].deltaf,
                            metas[i].deltat * cfg.tilesz / 60.0, N, M,
                            M * nchunk_max)
-        band_fhs.append(fh)
+        band_fhs[i] = fh
 
     eye = jones_to_params(identity_jones(N, cdtype, device=dev))
     p_bands = eye.expand(Nf_pad, M, nchunk_max, n8).clone()
@@ -502,10 +533,11 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
                     f"(aic {np.array2string(aic, precision=2)}, "
                     f"mdl {np.array2string(mdl_s, precision=2)})")
             with timer.phase("write"):
-                append_global_z(zfh, out.Z, N, cfg.npoly, nchunk_max)
+                if zfh is not None:
+                    append_global_z(zfh, out.Z, N, cfg.npoly, nchunk_max)
                 jsols = params_to_jones(out.p[:Nf]).reshape(
                     Nf, M * nchunk_max, N, 2, 2).cpu().numpy()
-                for i in range(Nf):
+                for i in own_bands:
                     solio.append_solutions(band_fhs[i], jsols[i])
                     p_res = out.p[i]
                     if global_residual:
@@ -567,7 +599,7 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
                       phase_totals=dict(timer.totals))
             elog.close()
             unregister_event_log(elog)
-        if sp.n0 > 0 and sp.basis == "shapelet" and pairs:
+        if sp.n0 > 0 and sp.basis == "shapelet" and pairs and lead:
             # the master's spatial-model plot (sagecal_master.cpp:1198)
             # of the last tile's model
             from sagecal_tpu_torch.utils.ppm import plot_spatial_model

@@ -43,37 +43,83 @@ class SegmentPlan:
                            device=dest.device)
         index[sdest, rank] = order  # (destination, rank) pairs are unique
         self.index = index
+        self.dest = dest
         self.n = n
         self.ndest = ndest
 
+    def _sum(self, values: torch.Tensor) -> torch.Tensor:
+        padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+        return padded[self.index].sum(dim=1)
+
     def sum(self, values: torch.Tensor) -> torch.Tensor:
-        """(n, ...) values -> (ndest, ...) per-destination sums."""
+        """(n, ...) values -> (ndest, ...) per-destination sums.
+        Differentiable: the backward is the gather of the cotangent by
+        destination (and its backward this sum again), so no derivative
+        order adds values with atomics."""
         if values.shape[0] != self.n:
             raise ValueError(f"{values.shape[0]} values for a plan of "
                              f"{self.n} items")
-        padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
-        return padded[self.index].sum(dim=1)
+        if values.requires_grad:
+            return _SegmentSum.apply(values, self)
+        return self._sum(values)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """:meth:`SegmentPlan.sum` whose backward gathers the cotangent by
+    destination (the padded-index backward would accumulate every pad
+    slot into one row)."""
+
+    @staticmethod
+    def forward(ctx, values, plan):
+        ctx.plan = plan
+        return plan._sum(values)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _DestGather.apply(grad, ctx.plan), None
+
+
+class _DestGather(torch.autograd.Function):
+    """``grad[plan.dest]``, the transpose of a segment sum; its backward
+    is the segment sum."""
+
+    @staticmethod
+    def forward(ctx, grad, plan):
+        ctx.plan = plan
+        return grad.index_select(0, plan.dest)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.plan.sum(grad), None
 
 
 class _GatherRows(torch.autograd.Function):
     """``tab.index_select(0, idx)`` whose backward sums the row
-    cotangents per table row with a :class:`SegmentPlan`."""
+    cotangents per table row with a :class:`SegmentPlan` (``plan``, or
+    one built from ``idx``)."""
 
     @staticmethod
-    def forward(ctx, tab, idx):
+    def forward(ctx, tab, idx, plan):
         ctx.save_for_backward(idx)
         ctx.ntab = tab.shape[0]
+        ctx.plan = plan
         return tab.index_select(0, idx)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (idx,) = ctx.saved_tensors
-        return SegmentPlan(idx, ctx.ntab).sum(grad), None
+        plan = ctx.plan if ctx.plan is not None else SegmentPlan(idx,
+                                                                 ctx.ntab)
+        return plan.sum(grad), None, None
 
 
-def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(tab: torch.Tensor, idx: torch.Tensor,
+                plan: "SegmentPlan" = None) -> torch.Tensor:
     """Rows ``idx`` of ``tab`` (``tab.index_select(0, idx)``),
-    differentiable with a fixed-order backward (module doc)."""
-    return _GatherRows.apply(tab, idx)
+    differentiable with a fixed-order backward (module doc).  ``plan``:
+    a :class:`SegmentPlan` of ``idx`` into ``tab.shape[0]`` rows, for a
+    caller that gathers by the same index many times (built at each
+    backward otherwise)."""
+    return _GatherRows.apply(tab, idx, plan)

@@ -23,8 +23,14 @@ coupling crosses with :func:`spatial_config_to_numpy` /
 :func:`spatial_config_from_numpy` (a ``SpatialConfig``), and the
 federated mode's carried state with :func:`federated_state_to_numpy` /
 :func:`federated_state_from_numpy` (a ``FederatedState``, its LBFGS
-memory stacked band-major as the JAX package keeps it).  Numpy only in,
-numpy only out: this module does not import ``sagecal_tpu``.
+memory stacked band-major as the JAX package keeps it).  The wide-field
+and refinement state crosses with :func:`vis_from_numpy` (a ``VisData``),
+:func:`source_tree_from_numpy`, :func:`hier_routing_from_numpy` and
+:func:`hier_plan_from_numpy` (a JAX ``HierPlan`` rebuilt on the device,
+its segment sums included), :func:`sky_spec_from_numpy`,
+:func:`refine_problem_from_numpy` and :func:`refine_result_to_numpy`.
+Numpy only in, numpy only out: this module does not import
+``sagecal_tpu``.
 """
 
 from __future__ import annotations
@@ -316,3 +322,97 @@ def federated_state_from_numpy(obj, device=None):
                    for k in ("vacant", "nfilled", "niter")})
         mem.append(LBFGSMemory(**kw))
     return FederatedState(mem=mem, **{k: t(d[k]) for k in FED_STATE_FIELDS})
+
+
+def vis_from_numpy(data, device=None) -> VisData:
+    """A ``VisData`` given as numpy arrays (a dict, or any object with
+    the fields as attributes, e.g. the JAX package's) -> the port's on
+    ``device``."""
+    dev = resolve_device(device)
+    return VisData(
+        **{k: _tensor(k, _field(data, k), dev) for k in VIS_ARRAYS},
+        **{k: float(_field(data, k)) for k in ("freq0", "deltaf", "deltat")},
+        **{k: int(_field(data, k)) for k in ("tilesz", "nbase",
+                                             "nstations")})
+
+
+def source_tree_from_numpy(tree):
+    """A JAX ``SourceTree`` (or an object with its fields) -> the port's
+    (host numpy, copied)."""
+    from sagecal_tpu_torch.sky.tree import SourceTree
+
+    return SourceTree(**{f.name: (np.array(_field(tree, f.name))
+                                  if f.name != "depth"
+                                  else int(_field(tree, f.name)))
+                         for f in dataclasses.fields(SourceTree)})
+
+
+def hier_routing_from_numpy(routing):
+    """A JAX ``HierRouting`` (or an object with its fields) -> the
+    port's."""
+    from sagecal_tpu_torch.sky.tree import HierRouting
+
+    arrays = ("far_idx", "far_valid", "near_src", "near_valid")
+    counts = ("ntiles", "tile_rows", "rows", "far_pairs",
+              "near_sources_total")
+    return HierRouting(
+        **{k: np.array(_field(routing, k)) for k in arrays},
+        **{k: int(_field(routing, k)) for k in counts},
+        theta=float(_field(routing, "theta")))
+
+
+def hier_plan_from_numpy(plan, device=None, dtype=torch.float64):
+    """A JAX ``HierPlan`` (its tree, routing, theta, row order and
+    ``npol``) -> the port's plan on ``device`` with ``dtype`` node
+    centres and validity masks."""
+    from sagecal_tpu_torch.sky.predict import plan_from_routing
+
+    return plan_from_routing(
+        source_tree_from_numpy(plan.tree),
+        hier_routing_from_numpy(plan.routing), float(plan.theta),
+        np.asarray(plan.row_perm), int(plan.npol), dtype,
+        resolve_device(device))
+
+
+def sky_spec_from_numpy(spec):
+    """A JAX ``SkySpec`` (any object with its four key tuples) -> the
+    port's."""
+    from sagecal_tpu_torch.refine.skyparams import SkySpec
+
+    return SkySpec(flux=spec.flux, spec=spec.spec, pos=spec.pos,
+                   modes=spec.modes)
+
+
+def refine_problem_from_numpy(problem, device=None):
+    """A JAX ``RefineProblem`` -> the port's on ``device``: its tile
+    (:func:`vis_from_numpy`), clusters (:func:`sources_from_numpy`),
+    shapelet tables (:func:`shapelets_from_numpy`), free-parameter spec
+    and scalars."""
+    from sagecal_tpu_torch.refine.objective import RefineProblem
+
+    dev = resolve_device(device)
+    tables = problem.tables
+    if tables is not None:
+        tables = [None if t is None else shapelets_from_numpy(t, dev)
+                  for t in tables]
+    anchor = problem.p_anchor
+    return RefineProblem(
+        data=vis_from_numpy(problem.data, dev),
+        clusters=[sources_from_numpy(c, dev) for c in problem.clusters],
+        tables=tables, spec=sky_spec_from_numpy(problem.spec),
+        fdelta=float(problem.fdelta), ridge=float(problem.ridge),
+        p_anchor=(None if anchor is None
+                  else torch.from_numpy(np.array(anchor)).to(dev)),
+        source_chunk=int(problem.source_chunk))
+
+
+def refine_result_to_numpy(res) -> dict:
+    """A port ``RefineResult`` -> numpy: theta, p, cost, gradnorm,
+    iterations, the trace and the outer LBFGS memory's arrays."""
+    mem = res.memory
+    return dict(theta=res.theta.detach().cpu().numpy(),
+                p=res.p.detach().cpu().numpy(), cost=float(res.cost),
+                gradnorm=float(res.gradnorm), iterations=int(res.iterations),
+                trace=list(res.trace),
+                mem_s=mem.s.cpu().numpy(), mem_y=mem.y.cpu().numpy(),
+                mem_rho=mem.rho.cpu().numpy())

@@ -233,6 +233,48 @@ def assess_consensus(primal_res_band, dual_res_band,
     return "ok", [], health
 
 
+def check_hier_predict(elog, rel_err: float, bound: float, log=None,
+                       **context) -> Tuple[str, List[str]]:
+    """Watchdog of the hierarchical sky predict: the sampled
+    a-posteriori error of a ``predict_coherencies_hier`` call
+    (``sky/predict.py::sampled_error_estimate``) against the knob it
+    must stay under (the app's ``hier_max_rel_err``).  Emits a
+    ``hier_predict_check`` event, sets the ``sagecal_hier_predict_error``
+    gauge, and escalates to a ``quality_degraded`` event and the
+    watchdog counter when the knob is violated or the estimate is not
+    finite.  Returns ``(verdict, reasons)``: ``"ok"`` or ``"degraded"``,
+    never ``"diverged"`` (the solve watchdog owns that verdict)."""
+    rel_err = float(rel_err)
+    bound = float(bound)
+    verdict, reasons = "ok", []
+    if not np.isfinite(rel_err):
+        verdict = "degraded"
+        reasons.append("hier predict error is non-finite")
+    elif rel_err > bound:
+        verdict = "degraded"
+        reasons.append(
+            f"hier predict sampled rel err {rel_err:.3e} exceeds "
+            f"bound {bound:.3e}")
+
+    reg = get_registry()
+    reg.gauge_set("sagecal_hier_predict_error",
+                  rel_err if np.isfinite(rel_err) else -1.0,
+                  help="sampled relative error of the latest "
+                       "hierarchical sky prediction vs exact")
+    if verdict != "ok":
+        reg.counter_inc("sagecal_quality_watchdog_total",
+                        help="watchdog escalations", verdict=verdict)
+
+    if elog is not None:
+        elog.emit("hier_predict_check", verdict=verdict, reasons=reasons,
+                  rel_err=rel_err, bound=bound, **context)
+        if verdict == "degraded":
+            elog.emit("quality_degraded", reasons=reasons, **context)
+    if log is not None and verdict != "ok":
+        log(f"hier predict watchdog: {verdict} ({', '.join(reasons)})")
+    return verdict, reasons
+
+
 def abort_if_diverged(elog, verdict: str, reasons: Sequence[str],
                       **context) -> None:
     """The ``--abort-on-divergence`` exit path: emit a structured

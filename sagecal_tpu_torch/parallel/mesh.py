@@ -48,6 +48,17 @@ Zbar); with ``Z_diff0`` the diffuse-sky constraint's Zdiff and Psi step
 with it.  That state is the master's, computed once a round (the mesh
 replicates it on every device); with it a reduced z-step runs in its
 gather form, since the refit needs the full Z.
+
+``group=`` (a :class:`~sagecal_tpu_torch.parallel.multihost.ShardGroup`)
+spreads the shards over processes, the JAX mesh across hosts: each rank
+runs the x-steps of its own contiguous range of shards, one
+``all_gather`` of shard blocks a round hands every rank every shard's
+x-step result (round 0: the Jones stack the manifold alignment needs),
+every ``psum`` above is a fixed-order shard sum over the ranks, and the
+reduced z-step's per-shard slices of Z are gathered the same way.  The
+rest of a round is computed alike on every rank.  Sums keep their
+order, so W ranks give the bits of one process with the same
+``nshards``.  With no group the code path is the one-process one.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from sagecal_tpu_torch.core.types import (
     complex_dtype_of, jones_to_params, params_to_jones,
 )
 from sagecal_tpu_torch.device import resolve_device
-from sagecal_tpu_torch.parallel import consensus
+from sagecal_tpu_torch.parallel import consensus, multihost
 from sagecal_tpu_torch.parallel.admm import admm_sagefit, factor_schedule
 from sagecal_tpu_torch.parallel.manifold import manifold_average
 from sagecal_tpu_torch.parallel.spatial import (
@@ -162,6 +173,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                       collect_trace: bool = False,
                       consensus_cfg: Optional[
                           consensus.ConsensusConfig] = None,
+                      group: Optional[multihost.ShardGroup] = None,
                       device=None):
     """Build the consensus ADMM function over ``nshards`` virtual shards
     on ``device`` (CUDA unless ``device="cpu"``).
@@ -174,7 +186,9 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
     package's, with ``nshards`` for the mesh: ``solver_mode`` /
     ``robust_nu`` select the x-step solver, ``collect_trace`` adds the
     per-band residuals and the rho trajectory, ``consensus_cfg`` the
-    round structure (module doc), ``spatial`` a :class:`SpatialConfig`."""
+    round structure (module doc), ``spatial`` a :class:`SpatialConfig`;
+    ``group`` the ranks that share the shards (module doc; ``nshards``
+    a multiple of their count)."""
     dev = resolve_device(device)
     ccfg = (consensus_cfg if consensus_cfg is not None
             else consensus.ConsensusConfig())
@@ -209,6 +223,13 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
     have_sched = (fine or ccfg.slot_schedule is not None
                   or ccfg.group_schedule is not None)
     ndev = int(nshards)
+    # this rank's shards (all of them in one process)
+    own = range(ndev) if group is None else group.shard_range(ndev)
+
+    def ssum(parts):
+        """``psum`` of this rank's per-shard partials."""
+        return (_shard_sum(parts) if group is None
+                else multihost.shard_sum(parts, group))
 
     def run(data_stack, cdata_stack, p0, rho, B):
         Nf, M, nchunk_max, n8 = p0.shape
@@ -269,14 +290,13 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
             wf = band_weights(w)
             if wf is not None:
                 terms = wf[:, None, None, None] * terms
-            return _shard_sum([terms[d * G:(d + 1) * G].sum(dim=0)
-                               for d in range(ndev)])
+            return ssum([terms[d * G:(d + 1) * G].sum(dim=0) for d in own])
 
         def den_inv(rho_cur, w=None, fed_alpha=None):
             """pinv(psum_f w_f rho_f B_f B_f^T [+ alpha I]): (M, Npoly,
             Npoly)."""
             parts = []
-            for d in range(ndev):
+            for d in own:
                 sl_ = slice(d * G, (d + 1) * G)
                 if w is None:
                     parts.append(torch.einsum("gm,gp,gq->mpq", rho_cur[sl_],
@@ -284,7 +304,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 else:
                     parts.append(torch.einsum("g,gm,gp,gq->mpq", w, rho_cur[sl_],
                                               B[sl_], B[sl_]))
-            P_sum = _shard_sum(parts)
+            P_sum = ssum(parts)
             if fed_alpha is not None:
                 P_sum = P_sum + fed_alpha[:, None, None] * torch.eye(
                     Npoly, dtype=P_sum.dtype, device=dev)[None]
@@ -293,6 +313,13 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
         def kslices(x):
             """``psum_scatter`` over the solution axis: shard e's slice."""
             return [x[..., e * Ks:(e + 1) * Ks] for e in range(ndev)]
+
+        def solve_slices(nums, Bii_):
+            """Each shard's slice of Z from its numerator slice (this
+            rank's shards), gathered to every shard's."""
+            return multihost.gather_list(
+                [consensus.update_global_z(nums[e], Bii_) for e in own],
+                group)
 
         def a2a_bz(Zsh_, band_d, start_d):
             """Shard d's active target B_f Z (Mg rows from ``start_d``)
@@ -342,9 +369,10 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
 
         # ---- admm 0: plain solve of every band -------------------------
         zeros_b = torch.zeros_like(p0[0])
-        p = torch.stack([fit(b, p0[b], zeros_b, zeros_b,
-                             torch.zeros_like(rho[b]), plain_emiter)
-                         for b in range(Nf)])
+        p = multihost.gather_shards(torch.stack(
+            [fit(b, p0[b], zeros_b, zeros_b, torch.zeros_like(rho[b]),
+                 plain_emiter)
+             for d in own for b in range(d * G, (d + 1) * G)]), group)
         if use_manifold_align:
             # the master's unitary-ambiguity fix over all Nf bands
             # (sagecal_master.cpp:826-838)
@@ -362,7 +390,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
         else:
             num_sh = kslices(numerator(_flat(Yhat)))
             Bii0 = den_inv(rho)
-            Zsh = [consensus.update_global_z(n, Bii0) for n in num_sh]
+            Zsh = solve_slices(num_sh, Bii0)
             Z = torch.cat(Zsh, dim=2)
         BZ_all = torch.stack([bz_of(Z, b) for b in range(Nf)])
         Y = Yhat - rho[:, :, None, None] * BZ_all
@@ -411,10 +439,10 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 whole-band rounds)."""
                 return x[c0s[d]:c0s[d] + Mg] if fine else x
 
-            # x-steps of every shard, all on the previous round's state
-            p1, Yhat_all1 = p.clone(), Yhat_all.clone()
-            p1_act, Yhat_act = [], []
-            for d in range(ndev):
+            # x-steps of this rank's shards, all on the previous round's
+            # state, gathered to every shard's
+            p1_own = []
+            for d in own:
                 b = bands[d]
                 if zmode == "reduced_scatter":
                     BZ_g = a2a_bz(Zsh, b, c0s[d])
@@ -425,8 +453,13 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                         BZ_g = pad
                 else:
                     BZ_g = bz_of(Z, b)
-                p1_g = fit(b, p[b], Y[b], BZ_g, rho[b], max_emiter,
-                           (c0s[d], Mg) if fine else None)
+                p1_own.append(fit(b, p[b], Y[b], BZ_g, rho[b], max_emiter,
+                                  (c0s[d], Mg) if fine else None))
+            p1_all = multihost.gather_list(p1_own, group)
+            p1, Yhat_all1 = p.clone(), Yhat_all.clone()
+            p1_act, Yhat_act = [], []
+            for d in range(ndev):
+                b, p1_g = bands[d], p1_all[d]
                 ya = sl(Y[b], d) + sl(rho[b], d)[:, None, None] * sl(p1_g, d)
                 Yhat_all1[b, c0s[d]:c0s[d] + ya.shape[0]] = ya
                 p1[b] = p1_g
@@ -455,12 +488,12 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                     # factors' Yhat moved, so only their Gram delta is
                     # summed over shards (rows c0 alike on every shard)
                     deltas = []
-                    for d in range(ndev):
+                    for d in own:
                         b = bands[d]
                         old = Yhat_all[b, c0s[d]:c0s[d] + Yhat_act[d].shape[0]]
                         deltas.append(consensus.accumulate_z_term(
                             B[b], _flat(Yhat_act[d] - old)))
-                    dsh = kslices(_shard_sum(deltas))
+                    dsh = kslices(ssum(deltas))
                     if fine:
                         num_sh1 = []
                         for e in range(ndev):
@@ -475,7 +508,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 if use_spatial:
                     num_solve = [n + x for n, x in zip(num_sh1,
                                                        kslices(z_extra))]
-                Zsh1 = [consensus.update_global_z(n, Bii) for n in num_solve]
+                Zsh1 = solve_slices(num_solve, Bii)
                 if zmode == "reduced_gather":
                     Z1 = torch.cat(Zsh1, dim=2)
                     BZ1_act = [sl(bz_of(Z1, bands[d]), d)
@@ -484,8 +517,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 else:
                     BZ1_act = [a2a_bz(Zsh1, bands[d], c0s[d])
                                for d in range(ndev)]
-                    ss = _shard_sum([((Zsh1[e] - Zsh[e]) ** 2).sum()
-                                     for e in range(ndev)])
+                    ss = ssum([((Zsh1[e] - Zsh[e]) ** 2).sum() for e in own])
                     dres = torch.sqrt(ss) / float(M * Npoly * K) ** 0.5
                     Z1 = None
                 Zsh, num_sh = Zsh1, num_sh1
@@ -506,8 +538,9 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                 rho_g = sl(rho[b], d)
                 Y1[b, rows] = Yhat_act[d] - rho_g[:, None, None] * BZ1_act[d]
                 pr = _flat(p1_act[d] - BZ1_act[d])
-                pres_parts.append(torch.linalg.norm(pr.reshape(-1))
-                                  / float(pr.numel()) ** 0.5)
+                if d in own:
+                    pres_parts.append(torch.linalg.norm(pr.reshape(-1))
+                                      / float(pr.numel()) ** 0.5)
                 if bb_rho:
                     dY = _flat(Yhat_act[d]) - _flat(Yhat_prev[b, rows])
                     dJ = _flat(p1_act[d]) - _flat(p_prev[b, rows])
@@ -518,7 +551,7 @@ def make_admm_mesh_fn(nshards: int, nadmm: int, max_emiter: int = 1,
                     rho1[b, rows] = rho_new if visit % 2 == 1 else rho_g
                 Yhat_prev1[b, rows] = Yhat_act[d]
                 p_prev1[b, rows] = p1_act[d]
-            pres = _shard_sum(pres_parts) / ndev
+            pres = ssum(pres_parts) / ndev
             if collect_trace:
                 prn, ddn = band_residuals(p1, Z1, Z, rho1)
                 prn_t.append(prn)

@@ -31,7 +31,10 @@ PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
           "phase_beam", "phase_predict",
           "phase_bisect",
           "phase_times", "serve_parity", "phase_serve", "serve_times",
-          "phase_service", "phase_distributed", "phase_minibatch")
+          "phase_service", "phase_distributed", "phase_minibatch",
+          "phase_spatial", "phase_federated", "phase_spatial_app",
+          "phase_sharded", "phase_multihost", "phase_widefield",
+          "phase_refine")
 
 
 def timed(module, seconds: dict):

@@ -5,9 +5,14 @@ package's ``RunConfig`` field by field for a spread of argv (the same
 flags and defaults); ``main(argv, device="cpu")`` runs a fullbatch and
 returns 0, or 3 when ``--abort-on-divergence`` stops a diverged run;
 every mode the port does not have yet exits 2 naming its ROADMAP.md
-item (``serve``, ``spatial``, ``-f`` and ``-N`` are dispatched; their
-unported options are refused too: tests/test_torch_serve.py, and the
-``-f``/``-N``/``spatial`` cases here).  The spatial modes (``spatial``,
+item (``serve``, ``spatial``, ``widefield``, ``refine``, ``-f`` and
+``-N`` are dispatched; their unported options are refused too:
+tests/test_torch_serve.py, and the ``-f``/``-N``/``spatial``/
+``widefield``/``refine`` cases here).  ``widefield``, ``refine`` (and
+its ``--fused`` refusal, exit 2 with ``FusedSkyGradientError``) and
+``-f ... --multihost`` run on the CPU; their results are held against
+the JAX package in tests/test_torch_widefield.py, test_torch_refine.py
+and test_torch_multihost.py.  The spatial modes (``spatial``,
 ``-f`` with ``-N``, ``-X``, ``--spatial-n0``, ``--spatial-diffuse-id``)
 run to exit 0 on the CPU; a malformed ``-X`` is a usage error.  Their
 results are held against the JAX package in
@@ -123,10 +128,11 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--requests", "r.json", "--resume"], "A9"),
     (["fleet"], "A9"), (["load"], "A9"),
-    (["stream"], "A9"), (["widefield"], "A8"), (["refine"], "A8"),
+    (["stream"], "A9"), (["widefield", "--resume"], "A9"),
+    (["refine", "--synthetic", "3", "--checkpoint-every", "1"], "A9"),
     (["convert", "a.ms", "b.h5"], "A10"),
     (["diag", "events"], "A11"),
-    (["-f", "band*.h5", "-s", "sky.txt", "--multihost"], "A7"),
+    (["widefield", "--checkpoint-every", "2"], "A9"),
     (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--resume"], "A9"),
     (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every",
       "1"], "A9"),
@@ -137,6 +143,7 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
      "A9"),
     (["-d", "x.h5", "-s", "sky.txt", "--device-profile", "prof"], "A11"),
     (["-d", "x.h5", "-s", "sky.txt", "--resume"], "A9"),
+    (["refine", "--synthetic", "3", "--resume"], "A9"),
 ])
 def test_unported_modes_exit_nonzero_naming_their_item(argv, item, capsys):
     from sagecal_tpu_torch.apps.cli import main
@@ -194,3 +201,59 @@ def test_malformed_x_is_a_usage_error(x, capsys):
         main(["-f", "band*.h5", "-s", "sky.txt", "-X", x], device="cpu")
     assert e.value.code == 2
     assert "-X expects 5" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["widefield", "-n", "6", "--ntiles", "2", "-S", "120", "--nblobs", "3",
+      "-k", "2", "-j", "1", "-e", "1", "-g", "2", "-l", "2",
+      "--out-dir", "{d}/wf"], ["{d}/wf/widefield.json",
+                               "{d}/wf/solutions.npz"]),
+    (["refine", "--synthetic", "3", "--outer-iters", "1", "--inner-iters",
+      "3", "--adjoint-matvec", "jtj", "-o", "{d}/rf/r"],
+     ["{d}/rf/r.json", "{d}/rf/r.npz", "{d}/rf/r.trace.jsonl"]),
+])
+def test_widefield_and_refine_run_to_exit_0(tmp_path, argv, want):
+    from sagecal_tpu_torch.apps.cli import main
+
+    d = str(tmp_path)
+    assert main([a.format(d=d) for a in argv], device="cpu") == 0
+    import os
+
+    assert all(os.path.exists(p.format(d=d)) for p in want)
+
+
+def test_refine_fused_exits_2_with_fused_sky_gradient_error(capsys):
+    from sagecal_tpu_torch.apps.cli import main
+
+    assert main(["refine", "--synthetic", "3", "--fused"], device="cpu") == 2
+    assert "FusedSkyGradientError" in capsys.readouterr().err
+
+
+def test_multihost_one_rank_writes_the_one_process_files(bands, monkeypatch):
+    """``-f ... --multihost`` as a world of one gloo rank (the rank
+    environment set here) writes the files of the run without it."""
+    import socket
+
+    from sagecal_tpu_torch.apps.cli import main
+
+    d = str(bands)
+    base = ["-s", f"{d}/t.sky.txt", "-c", f"{d}/t.sky.txt.cluster", "-f",
+            f"{d}/band*.h5", "-t", "2", "-e", "1", "-g", "2", "-j", "1",
+            "-A", "2"]
+    assert main(base + ["-p", f"{d}/a.txt"], device="cpu") == 0
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert main(base + ["-p", f"{d}/b.txt", "--multihost"],
+                device="cpu") == 0
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    for suffix in ["", ".band0", ".band3"]:
+        with open(f"{d}/a.txt{suffix}", "rb") as fa, \
+                open(f"{d}/b.txt{suffix}", "rb") as fb:
+            assert fa.read() == fb.read(), suffix

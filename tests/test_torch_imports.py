@@ -54,6 +54,13 @@ MODULES = (
     "sagecal_tpu_torch.apps.distributed", "sagecal_tpu_torch.apps.minibatch",
     "sagecal_tpu_torch.ops.diffuse", "sagecal_tpu_torch.parallel.federated",
     "sagecal_tpu_torch.apps.spatial", "sagecal_tpu_torch.apps.federated",
+    "sagecal_tpu_torch.solvers.sharded", "sagecal_tpu_torch.parallel.multihost",
+    "sagecal_tpu_torch.sky", "sagecal_tpu_torch.sky.tree",
+    "sagecal_tpu_torch.sky.farfield", "sagecal_tpu_torch.sky.nearfield",
+    "sagecal_tpu_torch.sky.predict", "sagecal_tpu_torch.refine",
+    "sagecal_tpu_torch.refine.skyparams", "sagecal_tpu_torch.refine.objective",
+    "sagecal_tpu_torch.refine.implicit", "sagecal_tpu_torch.refine.outer",
+    "sagecal_tpu_torch.apps.widefield", "sagecal_tpu_torch.apps.refine",
 )
 
 

@@ -43,6 +43,10 @@ within 1e-8 relative of the CPU at f64 and bit-identical on repeat; the
 diffuse re-predict within 1e-10 of the CPU at f64 and 5e-3 at f32; #1
 against its plain version (1e-5 of the model's max abs, bit-identical on
 repeat) on a float32 tile whose diffuse cluster was predicted again.
+The rows-sharded joint fit, the hierarchical sky predict, the widefield
+app and the refinement gradient on the card within 1e-8 relative of the
+CPU at f64 (the predict 1e-10 of its max abs), the sharded fit and the
+predict bit-identical on repeat.
 """
 
 import pytest
@@ -1516,3 +1520,105 @@ def test_federated_round_and_average_on_the_card_match_the_cpu(cuda):
                     cpu[0] + list(cpu[1].values())):
         scale = max(float(np.abs(y).max()), 1e-300)
         assert float(np.abs(x - y).max()) <= 1e-8 * scale
+
+
+def _sharded_tile(device):
+    from sagecal_tpu_torch.core.types import identity_jones, jones_to_params
+    from sagecal_tpu_torch.data.simsky import make_sky
+    from sagecal_tpu_torch.solvers import pad_rows_to
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    import numpy as np
+
+    sky = make_sky(nstations=7, tilesz=4, nchan=1, nclusters=2, seed=6,
+                   dtype=np.float64, device=device)
+    cdata = build_cluster_data(sky.data, sky.clusters, [1, 1], fdelta=0.0)
+    p0 = jones_to_params(identity_jones(7, torch.complex128, device=device)
+                         ).expand(2, 1, 56).clone()
+    data, cdata = pad_rows_to(sky.data, cdata, 8)
+    return data, cdata, p0
+
+
+def test_sharded_fit_on_the_card_matches_the_cpu_and_repeats(cuda):
+    from sagecal_tpu_torch.solvers import sharded_joint_fit
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        data, cdata, p0 = _sharded_tile(dev)
+        outs[dev] = [sharded_joint_fit(data, cdata, p0, k, itmax=20,
+                                       robust_nu=5.0, device=dev)
+                     for k in (1, 4, 4)]
+    for k in range(3):
+        pc, cc, _ = outs["cpu"][k]
+        pg, cg, _ = outs["cuda"][k]
+        assert abs(float(cg) - float(cc)) <= 1e-9 * abs(float(cc))
+        assert float((pg.cpu() - pc).abs().max()) <= 1e-7 * float(
+            pc.abs().max())
+    assert torch.equal(outs["cuda"][1][0], outs["cuda"][2][0])
+
+
+def test_hier_predict_on_the_card_matches_the_cpu_and_repeats(cuda):
+    import numpy as np
+
+    from sagecal_tpu_torch.data.simsky import make_sky
+    from sagecal_tpu_torch.sky import predict_coherencies_hier
+
+    cohs = {}
+    for dev in ("cpu", "cuda"):
+        sky = make_sky(nstations=12, tilesz=2, nchan=2, nclusters=8,
+                       freq0=30e6, wide_field=True, nsources=600,
+                       extent_m=60.0, dtype=np.float64, device=dev)
+        from sagecal_tpu_torch.apps.widefield import _merge_sources
+
+        src = _merge_sources(sky.clusters)
+        d = sky.data
+        cohs[dev] = [predict_coherencies_hier(d.u, d.v, d.w, d.freqs, src,
+                                              order=8, theta=1.5)
+                     for _ in range(2)]
+    ref = cohs["cpu"][0]
+    err = float((cohs["cuda"][0].cpu() - ref).abs().max())
+    assert err <= 1e-10 * float(ref.abs().max())
+    assert torch.equal(cohs["cuda"][0], cohs["cuda"][1])
+
+
+def test_widefield_app_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import json
+
+    from sagecal_tpu_torch.apps.widefield import main
+
+    argv = ["-n", "8", "--ntiles", "2", "-S", "400", "--nblobs", "6", "-k",
+            "3", "-j", "1", "-e", "1", "-g", "2", "-l", "4"]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        assert main(argv + ["--out-dir", str(out)], device=dev) == 0
+        got[dev] = json.load(open(out / "widefield.json"))
+    for a, b in zip(got["cuda"]["tiles"], got["cpu"]["tiles"]):
+        for k in ("res_0", "res_1"):
+            assert abs(a[k] - b[k]) <= 1e-8 * abs(b[k])
+        assert abs(a["rel_err"] - b["rel_err"]) <= 1e-10
+
+
+def test_refine_gradient_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+
+    from sagecal_tpu_torch.data.simsky import make_sky, perturb_flux
+    from sagecal_tpu_torch.refine import (
+        RefineProblem, SkySpec, make_outer_value_and_grad,
+    )
+
+    got = {}
+    for dev in ("cpu", "cuda"):
+        sky = make_sky(nstations=5, tilesz=2, seed=3, dtype=np.float64,
+                       device=dev)
+        prob = RefineProblem(data=sky.data, clusters=perturb_flux(sky),
+                             tables=sky.shapelet_tables,
+                             spec=SkySpec(flux=[(0, 0)]))
+        _, vg, _ = make_outer_value_and_grad(prob, iters=6,
+                                             adjoint_matvec="jtj")
+        th = prob.spec.theta0(prob.clusters, prob.tables)
+        got[dev] = vg(th, prob.identity_gains())
+    hc, gc = got["cpu"]
+    hg, gg = got["cuda"]
+    assert abs(float(hg) - float(hc)) <= 1e-8 * abs(float(hc))
+    assert abs(float(gg[0]) - float(gc[0])) <= 1e-7 * abs(float(gc[0]))
