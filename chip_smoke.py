@@ -288,7 +288,7 @@ widefield   the documented run (``widefield -S 10000 --nblobs 40 -k 8 -n
 refine      dataset mode on a MemFile tile at the north-star width (62
             stations, 100 clusters, cluster 0 of two sources, 2
             channels, 4 timeslots) at f64: ``refine --free-flux 0:0
-            --outer-iters 2 --ridge 100 --adjoint-cg-iters 256`` with
+            --outer-iters 1 --ridge 100 --adjoint-cg-iters 256`` with
             P0's catalog flux 15% off;
             each outer iteration's seconds, the Gauss-Newton and adjoint
             products, peak memory (``--adjoint-cg-iters 256``); the
@@ -299,7 +299,37 @@ refine      dataset mode on a MemFile tile at the north-star width (62
             10 and 100, the adjoint's residual at the default 64
             products; at the default ``--ridge 1e-2`` the implicit
             gradient against its difference (printed) and the unrolled
-            route's (within 1e-3).
+            route's (within 1e-3);
+elastic     (run after phase 7; elastic checkpoints and ``--resume``)
+            phase 7's first app run writes a checkpoint after each tile
+            (``--checkpoint-every 1``; each write's seconds and bytes
+            printed) and its second runs without: the two bit-identical.
+            Then phase 7's run in a subprocess that rebuilds its MemFile
+            dataset, SIGTERMed as its first checkpoint lands
+            (``elastic/faultinject.py::kill_at_checkpoint``), and
+            ``--resume`` in another such subprocess: the solutions file
+            bit-identical to phase 7's, #3/#4 and #1 launched for tile 1
+            only, and tile 1's residual column (the resumed process's;
+            tile 0's died with the killed process's MemFile) bit-identical
+            to phase 7's; then ``FleetWorker._solve_large`` on phase 7's
+            first tile in 4 row blocks, timed, held to the unsharded fit
+            (cost 1e-5 relative, gains 1e-4 of their norm);
+fleet       (run after phase 12, over its request manifest and flags
+            without shadow audits) ``fleet``'s coordinator
+            (``apps/fleet.py::run_coordinator``) spawns 2 workers on the
+            card (each a process that rebuilds phase 12's dataset in its
+            own MemFile registry; lease TTL 5 s; a fresh kernel store),
+            and SIGKILLs the worker that built the library into the
+            store (whichever took the store's lock first; it prints a
+            line when it saves) once the library is saved and that
+            worker holds a lease: every request one result manifest,
+            every verdict phase 12's, every solution phase 12's bit for
+            bit or (another batch composition) within 5e-3 of its max
+            abs; requests per second, p50/p95 latency, and each worker's
+            claims, steals, kernel builds, store hits and #5/#6, #3/#4
+            launches printed; the surviving worker, the second to reach
+            the store, builds nothing, and one library is built
+            fleet-wide.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -382,6 +412,12 @@ SVC_FLAGS = ("--f32", "--fused", "--batch", str(SERVE_B), "-j", "3",
              "-l", str(SERVE_MAX_LBFGS), "--shadow-rate",
              str(SVC_SHADOW_RATE))
 SVC_TILES, SVC_A, SVC_B, SVC_HYBRID = 8, 16, 3, 2
+
+# elastic checkpoints and the fleet: the killed and the resumed phase-7
+# runs and the fleet each get a time limit; the fleet's lease TTL (s)
+# and its workers; phase 12's flags without the shadow audits
+ELASTIC_TIMEOUT, FLEET_TIMEOUT, FLEET_TTL, FLEET_WORKERS = 300, 420, 5.0, 2
+FLEET_FLAGS = SVC_FLAGS[:-2]
 
 # the multi-band consensus ADMM (graded config 4: 32 sub-bands of the
 # north-star tile, sagecal-mpi -f -A 10 -P 2 -Q 2; cut to DIST_BANDS
@@ -1277,13 +1313,19 @@ def phase_fullbatch(args, dirname: str):
 
     sol = os.path.join(dirname, "fb.solutions")
     runs = []
+    # run 1 checkpoints after each tile, run 2 does not
+    ckpt = ("--checkpoint-every", "1", "--checkpoint-dir",
+            os.path.join(dirname, "fb.ckpt"))
+    writes = []
     for k in range(2):
         log = TileLog()
         fb.calculate_residuals = spy if k == 0 else real
         torch.cuda.reset_peak_memory_stats()
         t = sync_clock()
         try:
-            results = fullbatch_cli(path, sky, clus, sol, log=log)
+            with timed_checkpoints(writes):
+                results = fullbatch_cli(path, sky, clus, sol, log=log,
+                                        extra=ckpt if k == 0 else ())
         finally:
             fb.calculate_residuals = real
         wall = sync_clock() - t
@@ -1300,8 +1342,14 @@ def phase_fullbatch(args, dirname: str):
     a, b = runs
     same = (a["results"] == b["results"] and a["solutions"] == b["solutions"]
             and np.array_equal(a["column"], b["column"]))
-    print(f"[fullbatch] second run bit-identical (res, solutions file, "
-          f"residual column): {same}", flush=True)
+    for w in writes:
+        print(f"[elastic] checkpoint {os.path.basename(w['path'])}: write "
+              f"{w['seconds'] * 1e3:.1f} ms, {w['bytes']} bytes", flush=True)
+    if len(writes) != FB_NTIME // TILESZ:
+        fail(f"elastic: {len(writes)} checkpoints written in run 1")
+    print(f"[fullbatch] second run (no checkpoints) bit-identical to the "
+          f"first (res, solutions file, residual column): {same}",
+          flush=True)
     if not same:
         fail("fullbatch: a second run gave different bits")
 
@@ -1324,16 +1372,200 @@ def phase_fullbatch(args, dirname: str):
         fail(f"fullbatch -a 1: launches {sim_launches}")
     if not sim_err <= MODEL_TOL:
         fail(f"fullbatch -a 1: model column off by {sim_err}")
+    large = fleet_large(path, sky, clus, dirname)
     remove(path)
     out.update(runs=[{k: r[k] for k in ("results", "tiles", "wall_s",
                                         "peak_bytes")} for r in runs],
+               checkpoints=writes, large=large,
                bitwise=same,
                simulation={"seconds": sim_s, "launches": sim_launches,
                            "rel": sim_err},
                telemetry=fullbatch_telemetry(args, dirname))
     out["seconds"] = sync_clock() - t_start
     print(f"[fullbatch] phase wall time {out['seconds']:.1f} s", flush=True)
-    return out
+    return out, {"solutions": a["solutions"], "column": a["column"]}
+
+
+class timed_checkpoints:
+    """Times every checkpoint write (``elastic/checkpoint.py::
+    write_checkpoint``, as the manager calls it) into ``writes``: path,
+    seconds, bytes."""
+
+    def __init__(self, writes: list):
+        self.writes = writes
+
+    def __enter__(self):
+        from sagecal_tpu_torch.elastic import checkpoint as ck
+
+        self.real = real = ck.write_checkpoint
+
+        def timed(path, arrays, meta):
+            t = time.perf_counter()
+            out = real(path, arrays, meta)
+            self.writes.append({"path": out,
+                                "seconds": time.perf_counter() - t,
+                                "bytes": os.path.getsize(out)})
+            return out
+
+        ck.write_checkpoint = timed
+        return self
+
+    def __exit__(self, *exc):
+        from sagecal_tpu_torch.elastic import checkpoint as ck
+
+        ck.write_checkpoint = self.real
+        return False
+
+
+def fleet_large(path: str, sky: str, clus: str, dirname: str) -> dict:
+    """The fleet's large placement: ``FleetWorker._solve_large`` on tile
+    0 of phase 7's dataset in SHARD_N row blocks (the rows-sharded joint
+    fit, as a worker with several devices places a request of
+    ``large_stations`` or more), timed, held to the unsharded fit of the
+    same inputs (module doc, phase elastic)."""
+    from sagecal_tpu_torch.apps.config import FleetConfig
+    from sagecal_tpu_torch.core.types import (
+        identity_jones, jones_to_params, params_to_jones,
+    )
+    from sagecal_tpu_torch.fleet.queue import WorkItem
+    from sagecal_tpu_torch.fleet.worker import FleetWorker
+    from sagecal_tpu_torch.io.dataset import VisDataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.skymodel import load_sky
+    from sagecal_tpu_torch.io.solutions import read_solutions
+    from sagecal_tpu_torch.solvers import pad_rows_to, sharded_joint_fit
+    from sagecal_tpu_torch.solvers.sage import build_cluster_data
+
+    out_dir = os.path.join(dirname, "large")
+    cfg = FleetConfig(out_dir=out_dir, large_stations=NSTATIONS,
+                      max_lbfgs=SHARD_ITMAX, use_f64=False, timeline=False)
+    worker = FleetWorker(cfg, log=lambda m: print(f"[large] {m}"),
+                         open_file=MemFile)
+    req = {"request_id": "large0", "tenant": "t0", "dataset": path,
+           "sky_model": sky, "cluster_file": clus, "t0": 0,
+           "tilesz": TILESZ}
+    t = sync_clock()
+    worker._solve_large(WorkItem(request_id="large0", tenant="t0",
+                                 request=req, enqueued_at=time.time(),
+                                 large=True), False, None, nshards=SHARD_N)
+    sec = sync_clock() - t
+    with open(os.path.join(out_dir, "large0.result.json")) as fh:
+        doc = json.load(fh)
+    # the unsharded fit of the same inputs, on the worker's device
+    dev = worker.device
+    with VisDataset(path, "r", MemFile) as ds:
+        data = ds.load_tile(0, TILESZ, dtype=np.float32, device=dev)
+    clusters, cdefs, shapelets = load_sky(sky, clus, RA0, DEC0,
+                                          dtype=torch.float32, device=dev)
+    cdata = build_cluster_data(data, clusters, [cd.nchunk for cd in cdefs],
+                               shapelets=shapelets)
+    eye = jones_to_params(identity_jones(NSTATIONS, torch.complex64,
+                                         device=dev))
+    p0 = eye.expand(len(clusters), 1, 8 * NSTATIONS)
+    data, cdata = pad_rows_to(data, cdata, SHARD_N)
+    t = sync_clock()
+    p1, cost1, _ = sharded_joint_fit(data, cdata, p0, 1, itmax=SHARD_ITMAX)
+    sec1 = sync_clock() - t
+    cost_rel = abs(doc["res_0"] - float(cost1)) / abs(float(cost1))
+    _, jsol = read_solutions(doc["solutions"])
+    ref = params_to_jones(p1).reshape(jsol.shape[1:]).cpu().numpy()
+    p_rel = float(np.linalg.norm(jsol[0] - ref) / np.linalg.norm(ref))
+    print(f"[elastic] large placement: _solve_large in {SHARD_N} row "
+          f"blocks {sec:.2f} s ({doc['iterations']} LBFGS iterations, "
+          f"placed {doc['placed']}), the unsharded fit {sec1:.2f} s; cost "
+          f"rel diff {cost_rel:.3e}, gains rel diff {p_rel:.3e}", flush=True)
+    if not (cost_rel <= SHARD_COST_TOL and p_rel <= SHARD_P_TOL):
+        fail(f"large placement parts from the unsharded fit (cost "
+             f"{cost_rel:.3e}, gains {p_rel:.3e})")
+    return {"seconds": sec, "unsharded_s": sec1, "cost_rel": cost_rel,
+            "p_rel": p_rel, "iterations": doc["iterations"]}
+
+
+def elastic_child(dirname: str, argv_json: str) -> None:
+    """One process of phase ``elastic``: phase 7's dataset rebuilt in this
+    process's MemFile registry under ``dirname``, then phase 7's app with
+    the extra flags ``argv``; writes the residual column to
+    ``<dirname>/column.npy`` and prints one JSON line of its tiles' kernel
+    launches and results."""
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    path, sky, clus = fullbatch_dataset(dirname, NCLUSTERS, FB_NTIME, "fb")
+    log = TileLog()
+    t = sync_clock()
+    results = fullbatch_cli(path, sky, clus,
+                            os.path.join(dirname, "fb.solutions"),
+                            extra=json.loads(argv_json), log=log)
+    wall = sync_clock() - t
+    np.save(os.path.join(dirname, "column.npy"),
+            np.asarray(MemFile(path, "r")["corrected"]))
+    print("[child] " + json.dumps({"wall_s": wall, "results": results,
+                                   "tiles": log.tiles}), flush=True)
+
+
+def phase_elastic(dirname: str, ref: dict):
+    """Kill phase 7's run at its first checkpoint and resume it (module
+    doc, phase elastic)."""
+    from sagecal_tpu_torch.elastic.faultinject import (
+        kill_at_checkpoint, run_subprocess,
+    )
+    from sagecal_tpu_torch.io.solutions import validate_solutions
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; chip_smoke.elastic_child(*sys.argv[1:])"
+    env = {"PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    ckpt = os.path.join(dirname, "fb.ckpt")
+    sol = os.path.join(dirname, "fb.solutions")
+
+    def argv(*extra):
+        return [sys.executable, "-c", code, dirname,
+                json.dumps(["--checkpoint-dir", ckpt, *extra])]
+
+    t = sync_clock()
+    rc, out, err = kill_at_checkpoint(argv("--checkpoint-every", "1"), ckpt,
+                                      1, timeout=ELASTIC_TIMEOUT, poll=0.05,
+                                      env=env, cwd=here)
+    kill_s = sync_clock() - t
+    done = validate_solutions(sol)["n_intervals"] if os.path.exists(sol) \
+        else 0
+    print(f"[elastic] run killed at its first checkpoint: exit {rc} after "
+          f"{kill_s:.1f} s with process start, {done} solution interval(s) "
+          f"on disk, checkpoints {sorted(os.listdir(ckpt))}", flush=True)
+    if rc == 0 or done != 1:
+        print((out + err)[-4000:], flush=True)
+        fail(f"elastic: the run was not killed after tile 0 (exit {rc}, "
+             f"{done} intervals)")
+    t = sync_clock()
+    rc, out, err = run_subprocess(argv("--resume"), env=env,
+                                  timeout=ELASTIC_TIMEOUT, cwd=here)
+    resume_s = sync_clock() - t
+    got = [json.loads(line[8:]) for line in out.splitlines()
+           if line.startswith("[child] ")]
+    if rc != 0 or not got:
+        print((out + err)[-4000:], flush=True)
+        fail(f"elastic: the resumed run exited {rc}")
+    run = got[0]
+    same_sol = open(sol).read() == ref["solutions"]
+    column = np.load(os.path.join(dirname, "column.npy"))
+    rows1 = slice(TILESZ, 2 * TILESZ)
+    same_col = np.array_equal(column[rows1], ref["column"][rows1])
+    launches = [tile["launches"] for tile in run["tiles"]]
+    print(f"[elastic] resumed run: {run['wall_s']:.1f} s ({resume_s:.1f} s "
+          f"with process start and the dataset), tiles solved "
+          f"{len(run['tiles'])}, launches {launches}; solutions file "
+          f"bit-identical to phase 7's: {same_sol}; tile 1's residual column "
+          f"bit-identical to phase 7's: {same_col} (tile 0's column was in "
+          f"the killed process's MemFile)", flush=True)
+    if not same_sol:
+        fail("elastic: the resumed solutions file differs from phase 7's")
+    if not same_col:
+        fail("elastic: the resumed tile's residual column differs")
+    if len(launches) != 1 or launches[0]["fused_predict_fwd"] != 1 or \
+            launches[0]["fused_cost_fwd"] <= 0 or \
+            launches[0]["fused_cost_bwd"] <= 0:
+        fail(f"elastic: the resumed run's launches {launches}")
+    return {"killed_s": kill_s, "resume_s": resume_s,
+            "resume_wall_s": run["wall_s"], "launches": launches,
+            "bitwise_solutions": same_sol, "bitwise_column_tile1": same_col}
 
 
 def fullbatch_telemetry(args, dirname: str):
@@ -2225,6 +2457,26 @@ def rel_max(a, b) -> float:
     return ((a - b).abs() / b.abs()).max().item()
 
 
+def service_dataset(dirname: str, sky: str, clus: str) -> str:
+    """The service phase's in-memory ``vis.h5`` (module doc, phase 12)
+    from its sky files: SVC_TILES north-star tiles of SERVE_CLUSTERS
+    point clusters under true gains, noise 1e-3; returns its path."""
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.simulate import random_jones
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
+    truth = random_jones(SERVE_CLUSTERS, NSTATIONS, seed=5, amp=0.2,
+                         dtype=np.complex128)
+    path = os.path.join(dirname, "svc.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=SVC_TILES * TILESZ,
+                     nchan=NCHAN, clusters=clusters, jones=truth,
+                     noise_sigma=1e-3, seed=0, dec0=DEC0, open_file=MemFile)
+    MemFile(path, "r+").attrs["ra0"] = RA0
+    return path
+
+
 def service_workload(dirname: str):
     """The service phase's requests (module doc, phase 12): one
     in-memory ``vis.h5`` of SVC_TILES north-star tiles made by the
@@ -2247,14 +2499,7 @@ def service_workload(dirname: str):
             cid, nchunk, *names = line.split()
             nchunk = SVC_HYBRID if k < 2 else int(nchunk)
             dst.write(f"{cid} {nchunk} {' '.join(names)}\n")
-    clusters, _, _ = load_sky(sky, clus, RA0, DEC0, dtype=torch.float64)
-    truth = random_jones(SERVE_CLUSTERS, NSTATIONS, seed=5, amp=0.2,
-                         dtype=np.complex128)
-    path = os.path.join(dirname, "svc.h5")
-    simulate_dataset(path, nstations=NSTATIONS, ntime=SVC_TILES * TILESZ,
-                     nchan=NCHAN, clusters=clusters, jones=truth,
-                     noise_sigma=1e-3, seed=0, dec0=DEC0, open_file=MemFile)
-    MemFile(path, "r+").attrs["ra0"] = RA0
+    path = service_dataset(dirname, sky, clus)
 
     def req(rid, tenant, cfile, t0):
         return {"request_id": rid, "tenant": tenant, "dataset": path,
@@ -2507,9 +2752,8 @@ def service_drift(summary, reqs, out_dir: str) -> list:
 
 
 def phase_service(dirname: str):
-    """The calibration service (module doc, phase 12)."""
-    from sagecal_tpu_torch.io.memh5 import remove
-
+    """The calibration service (module doc, phase 12); its dataset stays
+    for phase fleet."""
     t_start = sync_clock()
     manifest, reqs, path = service_workload(dirname)
     make_s = sync_clock() - t_start
@@ -2549,7 +2793,6 @@ def phase_service(dirname: str):
           flush=True)
     if not same:
         fail("service: serving the same requests again gave other bits")
-    remove(path)
     out = {
         "dataset_s": make_s, "wall_s": [wall, wall2],
         "solves_per_sec": summary["solves_per_sec"],
@@ -2560,13 +2803,231 @@ def phase_service(dirname: str):
         "parity": parity, "launches_outside_solves": watch.outside,
         "results": [{k: r[k] for k in ("request_id", "kernel_path",
                                        "verdict", "res_0", "res_1",
-                                       "latency_s")}
+                                       "latency_s", "solutions", "batch",
+                                       "lane", "bucket")}
                     for r in summary["results"]],
+        "manifest": manifest, "dataset": path,
         "bitwise_repeat": same,
     }
     out["seconds"] = sync_clock() - t_start
     print(f"[service] phase wall time {out['seconds']:.1f} s", flush=True)
     return out
+
+
+def glob_json(dirname: str) -> list:
+    """The kernel store's sidecars (one an artifact)."""
+    return [n for n in os.listdir(dirname) if n.endswith(".json")]
+
+
+def fleet_worker(dirname: str, *argv) -> None:
+    """One worker process of phase ``fleet``: phase 12's dataset rebuilt
+    in this process's MemFile registry from its sky files under
+    ``dirname``, then ``apps.fleet.run_worker`` with the fleet's argv on
+    the card; its claims (and steals: claims of a lease another worker
+    held) counted through the queue's ``claim``; prints one JSON line of
+    its summary and kernel launches."""
+    from sagecal_tpu_torch.apps.fleet import (
+        build_parser, config_from_args, run_worker,
+    )
+    from sagecal_tpu_torch.fleet.queue import LeaseQueue
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.serve.aot_store import AOTArtifactStore
+
+    save = AOTArtifactStore.save
+
+    def announced(self, *a, **k):
+        """The store's save, then a line that tells phase fleet which
+        worker built the library."""
+        lib = save(self, *a, **k)
+        print(f"[built] {os.getpid()}", flush=True)
+        return lib
+
+    AOTArtifactStore.save = announced
+    t = sync_clock()
+    service_dataset(dirname, os.path.join(dirname, "svc.txt"),
+                    os.path.join(dirname, "svc.txt.cluster"))
+    make_s = sync_clock() - t
+    claims, steals = [], []
+    claim = LeaseQueue.claim
+
+    def counted(self, rid, now=None):
+        held = self.read_lease(rid)
+        won = claim(self, rid, now=now)
+        if won:
+            claims.append(rid)
+            if held and held.get("worker") not in (None, self.worker):
+                steals.append(rid)
+        return won
+
+    LeaseQueue.claim = counted
+    _reset_launches()
+    t = sync_clock()
+    summary = run_worker(config_from_args(build_parser().parse_args(argv)),
+                         open_file=MemFile)
+    wall = sync_clock() - t
+    print("[worker] " + json.dumps({
+        "worker": summary["worker"], "dataset_s": make_s, "wall_s": wall,
+        "claims": claims, "steals": steals, "solved": summary["solved"],
+        "cycles": summary["cycles"], "store": summary["store"],
+        "builds": summary["builds"], "launches": _read_launches()}),
+        flush=True)
+
+
+def phase_fleet(dirname: str, svc: dict):
+    """A coordinator and two workers over phase 12's requests, the one
+    that built the library SIGKILLed while it holds a lease (module doc,
+    phase fleet)."""
+    import signal
+    import threading
+
+    from sagecal_tpu_torch.apps.fleet import (
+        build_parser, config_from_args, run_coordinator, worker_argv,
+    )
+    from sagecal_tpu_torch.fleet.queue import LeaseQueue
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.io.solutions import read_solutions
+    from sagecal_tpu_torch.serve.request import load_requests
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(dirname, "fleet")
+    store = os.path.join(dirname, "fleet-store")
+    cfg = config_from_args(build_parser().parse_args(
+        ["--requests", svc["manifest"], "--out-dir", out_dir, "--aot-store",
+         store, "--workers", str(FLEET_WORKERS), "--lease-ttl",
+         str(FLEET_TTL), "--max-idle", "60", "--max-respawns", "0",
+         *FLEET_FLAGS]))
+    code = "import sys, chip_smoke; chip_smoke.fleet_worker(*sys.argv[1:])"
+    outs = {}
+
+    def argv_fn(cfg_, slot):
+        return [sys.executable, "-c", code, dirname,
+                *worker_argv(cfg_, slot)[3:]]
+
+    class Piped(subprocess.Popen):
+        """The workers' output, kept per pid."""
+
+        def __init__(self, args, **kw):
+            super().__init__(args, cwd=here, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, **kw)
+            buf = outs[self.pid] = []
+            threading.Thread(target=lambda: buf.extend(self.stdout),
+                             daemon=True).start()
+
+    pids, killed = [], {}
+
+    def log(msg):
+        print(f"[fleet] {msg}", flush=True)
+        if "spawned" in msg:
+            pids.extend(int(x) for x in
+                        msg.split("[")[1].split("]")[0].split(","))
+
+    def builder():
+        """The slot of the worker that saved the library into the store
+        (it prints ``[built] <pid>``), or None before then.  Either
+        worker may take the store's lock first."""
+        for slot, pid in enumerate(pids):
+            if any(line.startswith("[built] ")
+                   for line in list(outs.get(pid, []))):
+                return slot
+        return None
+
+    def assassin():
+        """SIGKILL the worker that built the library once it holds a
+        lease, so that the survivor is the one that loads it."""
+        q = LeaseQueue(os.path.join(out_dir, "queue"), worker="probe")
+        deadline = time.time() + FLEET_TIMEOUT
+        while time.time() < deadline and len(pids) < FLEET_WORKERS:
+            time.sleep(0.05)
+        while time.time() < deadline:
+            slot = builder()
+            wid = f"w{slot}"
+            held = [it.request_id for it in q.items()
+                    if (q.read_lease(it.request_id) or {}).get("worker")
+                    == wid] if slot is not None else []
+            if held:
+                os.kill(pids[slot], signal.SIGKILL)
+                killed.update(worker=wid, pid=pids[slot], held=held,
+                              at=time.time())
+                print(f"[fleet] SIGKILL {wid} (pid {pids[slot]}), the "
+                      f"worker that built the library, holding {held}",
+                      flush=True)
+                return
+            time.sleep(0.05)
+
+    real_popen = subprocess.Popen
+    subprocess.Popen = Piped
+    watcher = threading.Thread(target=assassin, daemon=True)
+    watcher.start()
+    t = sync_clock()
+    try:
+        summary = run_coordinator(cfg, requests=load_requests(
+            svc["manifest"]), log=log, open_file=MemFile, argv_fn=argv_fn)
+    finally:
+        subprocess.Popen = real_popen
+    wall = sync_clock() - t
+    watcher.join(timeout=5)
+    workers = []
+    for pid in pids:
+        lines = [line for line in outs.get(pid, [])
+                 if line.startswith("[worker] ")]
+        if lines:
+            workers.append(json.loads(lines[-1][9:]))
+        elif pid != killed.get("pid"):
+            print("".join(outs.get(pid, []))[-4000:], flush=True)
+            fail(f"fleet: worker pid {pid} printed no summary")
+    for w in workers:
+        print(f"[fleet] worker {w['worker']}: dataset {w['dataset_s']:.1f} "
+              f"s, run {w['wall_s']:.1f} s, {len(w['claims'])} claims, "
+              f"{len(w['steals'])} steals, {w['solved']} solved in "
+              f"{w['cycles']} cycles, kernel builds {w['builds']}, store "
+              f"{w['store']}, launches {w['launches']}", flush=True)
+    ref = {r["request_id"]: r for r in svc["results"]}
+    docs = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".result.json"):
+            with open(os.path.join(out_dir, name)) as fh:
+                doc = json.load(fh)
+            docs[doc["request_id"]] = doc
+    bitwise, close, worst = 0, 0, 0.0
+    for rid, r in ref.items():
+        doc = docs.get(rid)
+        if doc is None or doc["verdict"] != r["verdict"]:
+            fail(f"fleet: request {rid}: {doc and doc['verdict']} against "
+                 f"phase 12's {r['verdict']}")
+        a, b = (read_solutions(x)[1] for x in (r["solutions"],
+                                                doc["solutions"]))
+        if np.array_equal(a, b):
+            bitwise += 1
+        else:
+            rel = float(np.abs(a - b).max() / np.abs(a).max())
+            worst = max(worst, rel)
+            close += rel <= 5e-3
+    builds = sum(w["builds"] for w in workers)
+    alive_builds = [w["builds"] for w in workers]
+    print(f"[fleet] {summary['done']}/{summary['requests']} done in "
+          f"{wall:.1f} s with process start: {summary['solves_per_sec']:.4f} "
+          f"requests/s, p50 latency {summary['p50_latency_s']:.3f} s, p95 "
+          f"{summary['p95_latency_s']:.3f} s; manifests {len(docs)} for "
+          f"{len(ref)} requests; solutions bit-identical to phase 12's "
+          f"{bitwise}, others within 5e-3 {close} (worst {worst:.2e}); "
+          f"kernel builds of the reporting workers {alive_builds}, store "
+          f"artifacts {len(glob_json(store))}", flush=True)
+    if not killed:
+        fail("fleet: the worker that built the library held no lease "
+             "after it saved it")
+    if not summary["drained"] or sorted(docs) != sorted(ref):
+        fail(f"fleet: {len(docs)} manifests for {len(ref)} requests, "
+             f"drained {summary['drained']}")
+    if bitwise + close != len(ref):
+        fail(f"fleet: solutions off phase 12's by {worst:.2e}")
+    if builds > 1 or alive_builds != [0] or \
+            workers[0]["store"]["aot_hits"] < 1:
+        fail(f"fleet: kernel builds per reporting worker {alive_builds}, "
+             f"store {[w['store'] for w in workers]}")
+    remove(svc["dataset"])
+    return {"wall_s": wall, "summary": summary, "workers": workers,
+            "killed": killed, "bitwise": bitwise, "close": close,
+            "worst_rel": worst}
 
 
 def serve_times():
@@ -3274,7 +3735,7 @@ REFINE_NTIME, REFINE_EPS, REFINE_FD_TOL = 4, 1e-2, 1e-3
 REFINE_GAIN_AMP, REFINE_PERTURB = 0.05, 1.15
 REFINE_RIDGE, REFINE_ADJOINT = 100.0, 256
 REFINE_RIDGES = (1e-2, 10.0, 100.0)
-REFINE_FLAGS = ("--free-flux", "0:0", "--outer-iters", "2", "--ridge",
+REFINE_FLAGS = ("--free-flux", "0:0", "--outer-iters", "1", "--ridge",
                 str(REFINE_RIDGE), "--adjoint-cg-iters", str(REFINE_ADJOINT))
 REFINE_WITNESS = (4, 8)
 
@@ -3784,7 +4245,9 @@ def phase_refine(dirname: str):
           flush=True)
     witness = refine_ridge_witness(problem, th, p0, app_budget, check)
     remove(path)
-    if not (len(trace) == 2 and all(np.isfinite(x["cost"]) for x in trace)):
+    outer = int(REFINE_FLAGS[REFINE_FLAGS.index("--outer-iters") + 1])
+    if not (len(trace) == outer
+            and all(np.isfinite(x["cost"]) for x in trace)):
         fail(f"refine: the trace is {trace}")
     flux_err = [abs(x["theta"][0] - true_flux) / true_flux for x in trace]
     if not flux_err[-1] < REFINE_PERTURB - 1.0:
@@ -3842,7 +4305,10 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         ext_out = phase_extended(args, d)
     with tempfile.TemporaryDirectory() as d:
-        fb_out = phase_fullbatch(args, d)
+        fb_out, fb_ref = phase_fullbatch(args, d)
+    with tempfile.TemporaryDirectory() as d:
+        elastic_out = phase_elastic(d, fb_ref)
+    del fb_ref
     with tempfile.TemporaryDirectory() as d:
         beam_out = phase_beam(d)
     for out in (ext_out, beam_out):
@@ -3901,6 +4367,7 @@ def main():
     print_split(card, "fused_cost_batch_bwd", serve_t["fused_cost_batch_bwd"])
     with tempfile.TemporaryDirectory() as d:
         svc_out = phase_service(d)
+        fleet_out = phase_fleet(d, svc_out)
     with tempfile.TemporaryDirectory() as d:
         dist_out = phase_distributed(d)
         mh_out = phase_multihost(d)
@@ -3966,6 +4433,19 @@ def main():
           f" GiB; refine: run {rf_out['wall_s']:.1f} s, per outer iteration "
           f"{[round(x, 2) for x in rf_out['iter_s']]} s, peak "
           f"{rf_out['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    fs = fleet_out["summary"]
+    print(f"[times] ({card}) elastic: checkpoint writes "
+          + ", ".join(f"{w['seconds'] * 1e3:.1f} ms ({w['bytes']} B)"
+                      for w in fb_out["checkpoints"])
+          + f", phase 7 {fb_out['seconds']:.1f} s; killed run "
+          f"{elastic_out['killed_s']:.1f} s, resumed run "
+          f"{elastic_out['resume_wall_s']:.1f} s "
+          f"({elastic_out['resume_s']:.1f} s with process start); large "
+          f"placement {fb_out['large']['seconds']:.2f} s ({SHARD_N} row "
+          f"blocks), unsharded {fb_out['large']['unsharded_s']:.2f} s; "
+          f"fleet: {fleet_out['wall_s']:.1f} s, {fs['solves_per_sec']:.4f} "
+          f"requests/s, p50 {fs['p50_latency_s']:.3f} s, p95 "
+          f"{fs['p95_latency_s']:.3f} s", flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -4010,6 +4490,7 @@ def main():
                        "federated": fed_out, "spatial_app": spapp_out,
                        "sharded": shard_out, "multihost": mh_out,
                        "widefield": wf_out, "refine": rf_out,
+                       "elastic": elastic_out, "fleet": fleet_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,

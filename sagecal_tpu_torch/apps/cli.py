@@ -12,13 +12,17 @@ under the diffuse constraint), ``-f ... -N 1`` federated calibration
 calibration service (``apps/serve.py``), ``... cli spatial -f
 'band*.h5' ...`` the spatial app (``apps/spatial.py``), ``... cli
 widefield ...`` the wide-field app (``apps/widefield.py``) and ``...
-cli refine ...`` sky-model refinement (``apps/refine.py``); ``-f ...
+cli refine ...`` sky-model refinement (``apps/refine.py``), ``... cli
+fleet ...`` a coordinator and its worker processes over a lease queue
+(``apps/fleet.py``); ``-f ...
 --multihost`` runs the multi-band mode over ``torch.distributed`` ranks
 (``parallel/multihost.py``).  :func:`main` takes ``device`` for
 Python callers (``device="cpu"`` in the tests); the command line always
 means the card.  Exit codes: 0 done, 3 when ``--abort-on-divergence``
-stopped a diverged run, 2 for a usage error or a mode the port does not
-have yet; the message names its ROADMAP.md item.
+stopped a diverged run, 5 when ``--resume`` found a checkpoint of
+another configuration (or a solutions file that disagrees with it), 2
+for a usage error or a mode the port does not have yet; the message
+names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from sagecal_tpu_torch.apps.config import RunConfig
 # subcommands of the reference CLI not ported yet and the ROADMAP.md
 # item that ports each one
 _SUBCOMMANDS = {
-    "diag": "A11", "fleet": "A9", "load": "A9", "stream": "A9",
+    "diag": "A11", "load": "A9b", "stream": "A9b",
     "convert": "A10",
 }
 
@@ -211,7 +215,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="terminate (with a structured run_aborted event) "
                     "when the quality watchdog reports a diverged solve; "
                     "default is report-only")
-    # elastic execution (not ported: ROADMAP.md, A9)
+    # elastic execution (elastic/)
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest valid checkpoint in the "
                     "checkpoint directory (refused, exit 5, when the run "
@@ -326,6 +330,10 @@ def main(argv=None, device=None, open_file=None) -> int:
         from sagecal_tpu_torch.apps.refine import main as refine_main
 
         return refine_main(argv[1:], device=device, open_file=open_file)
+    if argv and argv[0] == "fleet":
+        from sagecal_tpu_torch.apps.fleet import main as fleet_main
+
+        return fleet_main(argv[1:], device=device, open_file=open_file)
     if argv and argv[0] in _SUBCOMMANDS:
         return _not_ported(f"the {argv[0]!r} subcommand",
                            _SUBCOMMANDS[argv[0]])
@@ -334,6 +342,7 @@ def main(argv=None, device=None, open_file=None) -> int:
     cfg = config_from_args(args)
     if args.device_profile:
         return _not_ported("--device-profile", "A11")
+    from sagecal_tpu_torch.elastic import ResumeRefused
     from sagecal_tpu_torch.obs.quality import DivergenceAbort
 
     try:
@@ -342,6 +351,10 @@ def main(argv=None, device=None, open_file=None) -> int:
         # the run already emitted its run_aborted event
         print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
         return 3
+    except ResumeRefused as e:
+        # the resume_refused event is already in the event log
+        print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
+        return 5
     except NotImplementedError as e:
         print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
         return 2

@@ -6,9 +6,9 @@ included.  Field names follow the reference's single-letter flags (see
 kept, and ``apps/fullbatch.py`` refuses them by name.  :class:`ServeConfig`
 is the reference's too, for ``apps/serve.py``, :class:`SpatialConfig`
 for ``apps/spatial.py``, :class:`WidefieldConfig` for
-``apps/widefield.py`` and :class:`RefineConfig` for ``apps/refine.py``;
-the other config dataclasses of that module belong to the apps of
-ROADMAP.md's A9.
+``apps/widefield.py``, :class:`RefineConfig` for ``apps/refine.py`` and
+:class:`FleetConfig` for ``apps/fleet.py``; the stream and load configs
+belong to the apps of ROADMAP.md's A9b.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ class SpatialConfig:
     nstations: int = 7
     noise_sigma: float = 0.0
     seed: int = 5
-    # elastic (checkpoint after each solved band; ROADMAP.md, A9)
+    # elastic (checkpoint after each solved band)
     resume: bool = False
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
@@ -176,7 +176,7 @@ class ServeConfig:
     randomize: bool = True
     res_ratio: float = 5.0
     abort_on_divergence: bool = False
-    # elastic (per-tenant checkpoints; ROADMAP.md, A9: refused until then)
+    # elastic (per-tenant checkpoints)
     resume: bool = False
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
@@ -193,7 +193,7 @@ class ServeConfig:
     # per-tenant SLO specs (obs/slo.py): path to a slo.json; empty falls
     # back to any "slos" key inside the request manifest
     slo: str = ""
-    # cross-worker executable store (ROADMAP.md, A9: refused until then)
+    # cross-worker kernel store (serve/aot_store.py)
     aot_store: str = ""
     # cap on concurrently open TilePrefetcher streams (one per (tenant,
     # dataset, tilesz, column)); 0 = unbounded.  Above the cap the least
@@ -253,7 +253,7 @@ class RefineConfig:
     perturb: float = 1.15
     noise_sigma: float = 0.0
     seed: int = 3
-    # elastic (outer-state checkpoints; ROADMAP.md, A9)
+    # elastic (outer-state checkpoints)
     resume: bool = False
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
@@ -310,9 +310,97 @@ class WidefieldConfig:
     randomize: bool = True
     res_ratio: float = 5.0
     abort_on_divergence: bool = False
-    # elastic (checkpoints at tile boundaries; ROADMAP.md, A9)
+    # elastic (checkpoints at tile boundaries)
     resume: bool = False
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
     use_f64: bool = True
     verbose: bool = False
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """``fleet``: coordinator + N worker processes sharing
+    a filesystem work queue with atomic lease files (``fleet/``).
+    Workers claim requests by bucket affinity, leases expire so a
+    killed worker's requests requeue, and admission control consumes
+    obs/slo.py burn rates (shed-or-degrade on overload)."""
+
+    requests: str = ""          # request manifest (JSON) path
+    out_dir: str = "fleet-out"  # solutions + result manifests
+    queue_dir: str = ""         # shared queue; default <out_dir>/queue
+    aot_store: str = ""         # shared kernel store (serve/aot_store.py);
+    #                             default <out_dir>/aot-store
+    workers: int = 2            # worker processes the coordinator spawns
+    role: str = "coordinator"   # "coordinator" | "worker"
+    worker_id: str = ""         # set by the coordinator for workers
+    batch: int = 4              # lanes per bucketed batch solve
+    # lease protocol: claims expire after ttl; holders renew at
+    # renew_s (0 = ttl/3); an expired lease may be stolen by any worker
+    lease_ttl_s: float = 30.0
+    lease_renew_s: float = 0.0
+    poll_s: float = 0.2         # queue poll period when idle
+    max_idle_s: float = 10.0    # worker exits after this long idle
+    # placement: requests with nstations >= large_stations (and >1
+    # local device) solve via solvers/sharded.sharded_joint_fit instead
+    # of riding a batch lane; 0 disables the large path
+    large_stations: int = 0
+    # admission control on SLO burn (obs/slo.py): what to do when a
+    # tenant's shed_burn threshold trips — "shed" refuses the request
+    # (manifest verdict "shed", no solve), "degrade" solves with
+    # reduced iteration budgets (quality watchdog still verdicts the
+    # result), "off" restores the report-only behavior
+    overload_policy: str = "degrade"
+    degrade_emiter: int = 1
+    degrade_lbfgs: int = 4
+    # solver defaults (ServeConfig semantics; per-request overrides win)
+    max_emiter: int = 3
+    max_iter: int = 2
+    max_lbfgs: int = 10
+    lbfgs_m: int = 7
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS
+    nulow: float = 2.0
+    nuhigh: float = 30.0
+    randomize: bool = True
+    res_ratio: float = 5.0
+    abort_on_divergence: bool = False
+    resume: bool = False
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
+    use_f64: bool = True
+    # fused-kernel routing for the workers' batch solves (ServeConfig
+    # semantics: batched fused kernel when capability checks pass,
+    # ignored under use_f64)
+    use_fused_predict: bool = False
+    coh_dtype: str = "f32"
+    verbose: bool = False
+    slo: str = ""
+    max_streams: int = 8
+    # live observability (obs/timeline.py): the coordinator appends one
+    # timeline.jsonl row per watch poll and feeds the report-only
+    # autoscale recommender (obs/capacity.py) — pure observation unless
+    # elastic_workers is set
+    timeline: bool = True
+    # bounded respawn of CRASHED workers (nonzero exit with work left):
+    # per-slot replacement budget; clean exits never respawn
+    max_respawns: int = 2
+    # opt-in: act on the recommender (spawn/retire one worker per
+    # recommendation change, clamped to [min_workers, max_workers];
+    # retire = SIGTERM -> the worker's existing lease-release path).
+    # Off (default) the recommender provably changes no solve output.
+    elastic_workers: bool = False
+    min_workers: int = 1
+    max_workers: int = 0        # 0 = max(workers, min_workers)
+    # open-loop submission (the load harness): arrivals keep landing
+    # AFTER workers start, so "every item submitted so far is done" is
+    # not an exit signal — workers hold on until max_idle_s or SIGTERM
+    open_loop: bool = False
+    # shadow-solve differential auditing (ServeConfig semantics): each
+    # worker audits its own claimed requests against the torch-op/f32
+    # reference, appending to the SHARED <out_dir>/drift.jsonl (the
+    # O_APPEND single-write contract keeps concurrent workers from
+    # interleaving); the budget is per worker
+    shadow_rate: float = 0.0
+    shadow_seed: int = 0
+    shadow_budget_s: float = 120.0
+    abort_on_drift: bool = False

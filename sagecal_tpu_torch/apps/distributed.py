@@ -41,16 +41,26 @@ trajectory under ``SAGECAL_TELEMETRY=1``) and ``consensus_health``
 events, runs the consensus watchdog (``--abort-on-divergence``), writes
 a ``distributed`` run span, ``tile`` spans and the synthetic per-band
 and per-round spans of the ADMM window, and keeps the flight recorder,
-as the fullbatch app does.  ``resume`` / ``checkpoint_every`` need
-ROADMAP.md's A9.
+as the fullbatch app does.
+
+Elastic execution (``elastic/``), as in the reference: with
+``checkpoint_every`` or ``resume`` the whole cross-tile carry is
+checkpointed at tile boundaries (``p_bands``, the residual traces, the
+diffuse model ``zdiff`` when there is one; the mesh draws nothing
+random), and ``resume`` restarts after the newest checkpoint, truncating
+the Z file and every band file to it (``ResumeRefused`` when one is
+missing or short).
 
 ``multihost=True`` runs the mesh over ``torch.distributed``
 (``parallel/multihost.py``; the rank environment of ``torchrun``): as
 in the JAX package every rank builds the whole workload and solves only
 the bands of its own shards.  Each band's solution file and residual
 column are written by the rank that solves it; rank 0 writes the Z
-file, the event log and the spatial plot.  (Every JAX process writes
-every file.)  The band count padded to the shards must split evenly
+file, the event log, the spatial plot and the checkpoints (every rank
+holds the whole carry: the mesh gathers ``p`` and the diffuse model is
+a consensus quantity); every rank reads the checkpoint on ``resume`` and
+truncates the files it owns.  (Every JAX process writes every file and
+checkpoint.)  The band count padded to the shards must split evenly
 over the ranks.
 """
 
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob as _glob
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -66,6 +77,9 @@ import torch
 
 from sagecal_tpu_torch.apps.config import RunConfig
 from sagecal_tpu_torch.apps.fullbatch import _mat_of_flat, _refuse
+from sagecal_tpu_torch.elastic.checkpoint import (
+    CheckpointManager, ResumeRefused, config_fingerprint,
+)
 from sagecal_tpu_torch.core.types import (
     complex_dtype_of, identity_jones, jones_to_params, params_to_jones,
 )
@@ -404,29 +418,94 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
     configure_tracer(run_id=manifest.run_id)
     tracer = get_tracer()
 
+    # elastic execution: the whole cross-tile carry at tile boundaries
+    ckmgr = None
+    resume_state = None
+    resume_done = 0
+    if cfg.resume or cfg.checkpoint_every > 0:
+        ckmgr = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_solutions}.ckpt",
+            config_fingerprint(
+                app="distributed",
+                datasets=[os.path.abspath(p) for p in datasets],
+                sky_model=os.path.abspath(cfg.sky_model),
+                cluster_file=os.path.abspath(cfg.cluster_file),
+                nstations=N, ntime=ntime, nbands=Nf,
+                freqs=[float(f) for f in freqs],
+                nadmm=nadmm, tilesz=cfg.tilesz, solver_mode=cfg.solver_mode,
+                max_emiter=cfg.max_emiter, max_iter=cfg.max_iter,
+                npoly=cfg.npoly, poly_type=cfg.poly_type,
+                admm_rho=cfg.admm_rho, use_f64=cfg.use_f64,
+                in_column=cfg.in_column, skip_tiles=cfg.skip_tiles,
+                max_tiles=cfg.max_tiles, spatial_n0=sp.n0,
+                adaptive_rho=adaptive_rho,
+                consensus_zstep=cfg.consensus_zstep,
+                consensus_cluster_groups=cfg.consensus_cluster_groups,
+                consensus_staleness=cfg.consensus_staleness,
+                consensus_staleness_discount=(
+                    cfg.consensus_staleness_discount)),
+            "distributed", every=max(cfg.checkpoint_every, 1), elog=elog,
+            log=log)
+        found = ckmgr.resume() if cfg.resume else None
+        if found is not None:
+            rmeta, resume_state, rpath = found
+            resume_done = int(rmeta["tiles_done"])
+            # the files this process writes, cut to the checkpoint (the
+            # recomputed tile appends once)
+            own = ([(cfg.out_solutions, solio.validate_global_z)]
+                   if lead else [])
+            own += [(f"{cfg.out_solutions}.band{i}",
+                     solio.validate_solutions) for i in own_bands]
+            for path, validate in own:
+                if not os.path.exists(path):
+                    raise ResumeRefused(
+                        f"checkpoint {rpath} expects solution file "
+                        f"{path}, which does not exist")
+                v = validate(path, truncate=True, max_intervals=resume_done)
+                if v["n_intervals"] < resume_done:
+                    raise ResumeRefused(
+                        f"{path} holds {v['n_intervals']} intervals but "
+                        f"checkpoint {rpath} expects {resume_done}")
+
     # solution files: the global Z and one per band
+    mode = "a" if resume_done else "w"
     zfh = None
     if lead:
-        zfh = open(cfg.out_solutions, "w")
+        zfh = open(cfg.out_solutions, mode)
         open_files.append(zfh)
-        write_global_z_header(zfh, freq0, cfg.npoly, N, M, M * nchunk_max)
+        if not resume_done:
+            write_global_z_header(zfh, freq0, cfg.npoly, N, M,
+                                  M * nchunk_max)
     band_fhs = {}
     for i in own_bands:
-        fh = open(f"{cfg.out_solutions}.band{i}", "w")
+        fh = open(f"{cfg.out_solutions}.band{i}", mode)
         open_files.append(fh)
-        solio.write_header(fh, metas[i].freq0, metas[i].deltaf,
-                           metas[i].deltat * cfg.tilesz / 60.0, N, M,
-                           M * nchunk_max)
+        if not resume_done:
+            solio.write_header(fh, metas[i].freq0, metas[i].deltaf,
+                               metas[i].deltat * cfg.tilesz / 60.0, N, M,
+                               M * nchunk_max)
         band_fhs[i] = fh
 
     eye = jones_to_params(identity_jones(N, cdtype, device=dev))
     p_bands = eye.expand(Nf_pad, M, nchunk_max, n8).clone()
 
     traces = []
+    zdiff_carry = None
+    if resume_state is not None:
+        # warm start from the checkpointed carry; the completed tiles'
+        # traces make the return value cover the whole run
+        p_bands = torch.as_tensor(resume_state["p_bands"]).to(dev, rdt)
+        traces = [(np.asarray(d), np.asarray(p))
+                  for d, p in zip(resume_state["traces_dual"],
+                                  resume_state["traces_primal"])]
+        if "zdiff" in resume_state:
+            zdiff_carry = torch.as_tensor(resume_state["zdiff"]).to(
+                dev, cdtype)
     pairs = [(i, t0) for i, t0 in enumerate(range(0, ntime, cfg.tilesz))
              if i >= cfg.skip_tiles]
     if cfg.max_tiles:
         pairs = pairs[:cfg.max_tiles]
+    pairs = pairs[resume_done:]
     # one prefetcher a band reads its next full-size tile while this one
     # solves; the final clamped partial tile loads directly
     spec = dict(average_channels=True, min_uvcut=cfg.min_uvcut,
@@ -478,6 +557,19 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             fratios.append(torch.zeros((), dtype=rdt, device=dev))
         return datas, cdatas, fratios
 
+    def ckpt_update(pi):
+        """End-of-tile checkpoint of the cross-tile carry (rank 0)."""
+        if ckmgr is None or not lead:
+            return
+        arrs = {"p_bands": p_bands,
+                "traces_dual": np.asarray([d for d, _ in traces]),
+                "traces_primal": np.asarray([p for _, p in traces])}
+        if zdiff_carry is not None:
+            arrs["zdiff"] = zdiff_carry
+        ckmgr.update(resume_done + pi, arrs,
+                     tiles_done=resume_done + pi + 1,
+                     run_id=manifest.run_id)
+
     run_span = tracer.span("distributed", kind="run", bands=Nf, ndev=ndev,
                            nadmm=nadmm)
     run_span.__enter__()
@@ -486,7 +578,7 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
         prepared = None
         if pairs:
             with timer.phase("prepare"):
-                prepared = prepare_tile(pairs[0][1], None)
+                prepared = prepare_tile(pairs[0][1], zdiff_carry)
         for pi, (tile_no, t0) in enumerate(pairs):
             tic = time.time()
             tile_span = tracer.span("tile", kind="tile", tile=t0)
@@ -508,11 +600,11 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
                 synchronize(dev)
             admm_seconds = time.perf_counter() - t_start
             p_bands = out.p  # the next tile's warm start
+            if diffuse_idx is not None:
+                zdiff_carry = out.Zspat_diff
             if pi + 1 < len(pairs):
                 with timer.phase("prepare"):
-                    prepared = prepare_tile(
-                        pairs[pi + 1][1],
-                        out.Zspat_diff if diffuse_idx is not None else None)
+                    prepared = prepare_tile(pairs[pi + 1][1], zdiff_carry)
             band_secs, straggler = _emit_admm_attribution(
                 tracer, elog, log, t0, admm_seconds, admm_start_unix,
                 fratios, Nf, nadmm, Nf_pad // ndev,
@@ -592,8 +684,12 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, mdl,
             log(f"tile {t0}: dual {float(dres_h[-1]):.3e} primal "
                 f"{float(pres_h[-1]):.3e} ({time.time() - tic:.1f}s) "
                 f"[{timer.tile_summary()}]")
+            ckpt_update(pi)
             tile_span.__exit__(None, None, None)
         log(timer.run_summary())
+        if ckmgr is not None:
+            ckmgr.flush()
+            ckmgr.close()
         if elog is not None:
             elog.emit("run_done", n_tiles=len(traces),
                       phase_totals=dict(timer.totals))

@@ -24,13 +24,21 @@ so this app launches none of the CUDA kernels.  The host reads each
 minibatch round's dual residual and each round's per-band costs.  It
 emits the ``async_schedule``, ``fed_round``, ``band_reset``,
 ``tile_done`` and ``run_done`` events, a ``federated`` run span, ``tile``
-and ``fed.round`` spans, and keeps the flight recorder.  ``resume`` /
-``checkpoint_every`` need ROADMAP.md's A9.
+and ``fed.round`` spans, and keeps the flight recorder.
+
+Elastic execution (``elastic/``), as in the reference: the whole
+``FederatedState`` is the cross-tile carry, so checkpoints at tile
+boundaries hold its leaves (``state.<i>``, the band memories stacked
+into one ``LBFGSMemory`` so that the names and shapes are the
+reference's) and the per-tile results; ``resume`` restarts after the
+newest one, truncating every band file to it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob as _glob
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -43,6 +51,10 @@ from sagecal_tpu_torch.core.types import (
     complex_dtype_of, identity_jones, jones_to_params, params_to_jones,
 )
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.elastic.checkpoint import (
+    CheckpointManager, ResumeRefused, config_fingerprint, flatten_state,
+    unflatten_state,
+)
 from sagecal_tpu_torch.io import solutions as solio
 from sagecal_tpu_torch.io.dataset import VisDataset
 from sagecal_tpu_torch.io.skymodel import load_sky
@@ -81,6 +93,33 @@ def _reset_band(state: FederatedState, band: int, p_init) -> FederatedState:
     return FederatedState(p=p, Y=zero_band(state.Y), Z=zero_band(state.Z),
                           Zbar=zero_band(state.Zbar), X=zero_band(state.X),
                           mem=mem)
+
+
+def _stacked(state: FederatedState) -> FederatedState:
+    """``state`` with its band memories stacked into one ``LBFGSMemory``
+    with (Nf,)-leading leaves: the reference's layout, so its checkpoint
+    leaves have the reference's names and shapes."""
+    def field(name):
+        vals = [getattr(m, name) for m in state.mem]
+        if isinstance(vals[0], torch.Tensor):
+            return torch.stack(vals)
+        return torch.as_tensor(vals, dtype=torch.int32)
+
+    return state._replace(mem=LBFGSMemory(**{
+        f.name: field(f.name) for f in dataclasses.fields(LBFGSMemory)}))
+
+
+def _unstacked(state: FederatedState, like: FederatedState) -> FederatedState:
+    """Inverse of :func:`_stacked`, with ``like``'s per-band types."""
+    mems = []
+    for b, m in enumerate(like.mem):
+        kw = {}
+        for f in dataclasses.fields(LBFGSMemory):
+            v, ref = getattr(state.mem, f.name)[b], getattr(m, f.name)
+            kw[f.name] = (v if isinstance(ref, torch.Tensor)
+                          else type(ref)(v.item()))
+        mems.append(LBFGSMemory(**kw))
+    return state._replace(mem=mems)
 
 
 def run_federated(cfg: RunConfig, datasets: Optional[Sequence[str]] = None,
@@ -160,19 +199,82 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, epochs,
                                          device=dev))
     p_init = eye.expand(M, nchunk_max, n8)
 
+    # elastic execution: the FederatedState is the only cross-tile carry
+    ckmgr = None
+    resume_state = None
+    resume_done = 0  # completed tiles
+    if cfg.resume or cfg.checkpoint_every > 0:
+        ckmgr = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_solutions}.ckpt",
+            config_fingerprint(
+                app="federated",
+                datasets=[os.path.abspath(p) for p in datasets],
+                sky_model=os.path.abspath(cfg.sky_model),
+                cluster_file=os.path.abspath(cfg.cluster_file),
+                nstations=N, ntime=ntime, nbands=Nf,
+                freqs=[float(f) for f in freqs],
+                nadmm=nadmm, epochs=epochs, minibatches=minibatches,
+                tilesz=cfg.tilesz, npoly=cfg.npoly, poly_type=cfg.poly_type,
+                admm_rho=cfg.admm_rho, alpha=alpha, robust_nu=robust_nu,
+                reset_ratio=reset_ratio, max_lbfgs=cfg.max_lbfgs,
+                lbfgs_m=cfg.lbfgs_m, use_f64=cfg.use_f64,
+                in_column=cfg.in_column),
+            "federated", every=max(cfg.checkpoint_every, 1), elog=elog,
+            log=log)
+        found = ckmgr.resume() if cfg.resume else None
+        if found is not None:
+            rmeta, resume_state, rpath = found
+            resume_done = int(rmeta["tiles_done"])
+            for i in range(Nf):
+                path = f"{cfg.out_solutions}.band{i}"
+                if not os.path.exists(path):
+                    raise ResumeRefused(
+                        f"checkpoint {rpath} expects solution file {path}, "
+                        f"which does not exist")
+                v = solio.validate_solutions(path, truncate=True,
+                                             max_intervals=resume_done)
+                if v["n_intervals"] < resume_done:
+                    raise ResumeRefused(
+                        f"{path} holds {v['n_intervals']} intervals but "
+                        f"checkpoint {rpath} expects {resume_done}")
+
     band_fhs = []
     for i in range(Nf):
-        fh = open(f"{cfg.out_solutions}.band{i}", "w")
+        fh = open(f"{cfg.out_solutions}.band{i}",
+                  "a" if resume_done else "w")
         open_files.append(fh)
-        solio.write_header(fh, metas[i].freq0, metas[i].deltaf,
-                           metas[i].deltat * cfg.tilesz / 60.0, N, M,
-                           M * nchunk_max)
+        if not resume_done:
+            solio.write_header(fh, metas[i].freq0, metas[i].deltaf,
+                               metas[i].deltat * cfg.tilesz / 60.0, N, M,
+                               M * nchunk_max)
         band_fhs.append(fh)
 
     tmb = -(-cfg.tilesz // minibatches)  # timeslots a minibatch (slave:138)
     results = []
     state = init_federated_state(Nf, M, nchunk_max, n8, cfg.npoly,
                                  cfg.lbfgs_m or 7, rdt, device=dev)
+    if resume_state is not None:
+        # the fresh state is the template; restore the carry and the
+        # completed tiles' results
+        state = _unstacked(unflatten_state("state", resume_state,
+                                           _stacked(state)), state)
+        rr = resume_state["results_resets"]
+        results = [(np.asarray(resume_state[f"results_dres.{i}"]),
+                    int(rr[i])) for i in range(len(rr))]
+
+    def ckpt_update(ti):
+        """End-of-tile checkpoint: the state's leaves and the per-tile
+        (dual-res trace, resets) results."""
+        if ckmgr is None:
+            return
+        arrs = flatten_state("state", _stacked(state))
+        arrs["results_resets"] = np.asarray([r for _, r in results],
+                                            np.int64)
+        for i, (d, _) in enumerate(results):
+            arrs[f"results_dres.{i}"] = np.asarray(d)
+        ckmgr.update(resume_done + ti, arrs,
+                     tiles_done=resume_done + ti + 1,
+                     run_id=manifest.run_id)
     spec = dict(average_channels=True, min_uvcut=cfg.min_uvcut,
                 max_uvcut=cfg.max_uvcut,
                 dtype=np.float64 if cfg.use_f64 else np.float32,
@@ -185,7 +287,8 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, epochs,
                            epochs=epochs)
     run_span.__enter__()
     try:
-        for ti, t0 in enumerate(range(0, ntime, cfg.tilesz)):
+        for ti, t0 in enumerate(
+                list(range(0, ntime, cfg.tilesz))[resume_done:]):
             tic = time.time()
             tile_span = tracer.span("tile", kind="tile", tile=t0)
             tile_span.__enter__()
@@ -257,6 +360,10 @@ def _run(cfg, datasets, handles, open_files, log, nadmm, epochs,
             log(f"tile {t0}: dual {dres_trace[-1]:.3e} resets "
                 f"{resets_total} ({time.time() - tic:.1f}s)")
             results.append((np.asarray(dres_trace), resets_total))
+            ckpt_update(ti)
+        if ckmgr is not None:
+            ckmgr.flush()
+            ckmgr.close()
         if elog is not None:
             elog.emit("run_done", n_tiles=len(results))
             elog.close()

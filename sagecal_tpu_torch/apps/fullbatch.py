@@ -26,6 +26,16 @@ OS-LM subsets come from a ``torch.Generator`` per tile derived from
 ``(0, tile_no)`` where the reference folds the tile number into a JAX
 key chain.
 
+Elastic execution (``elastic/``): with ``checkpoint_every`` or
+``resume`` a ``CheckpointManager`` writes the gains ``p``, the per-tile
+``results`` and the generators' seed ``rng_seed`` at tile boundaries
+(the reference's fingerprint fields, app name and meta keys; the
+reference's ``rng_key`` has no counterpart, since each tile's generator
+depends only on the seed and the tile number).  ``resume`` restarts
+after the newest checkpoint's last tile, truncating a torn trailing
+solution interval, and refuses with ``ResumeRefused`` when the solutions
+file and the checkpoint disagree.
+
 As in the reference, a run installs the crash handlers
 (``obs/flight.py``: excepthook and SIGTERM flush the event log), starts
 the flight recorder when ``SAGECAL_FLIGHT=1`` and writes a ``fullbatch``
@@ -49,6 +59,9 @@ from sagecal_tpu_torch.core.types import (
     identity_jones, jones_to_params, params_to_jones,
 )
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.elastic.checkpoint import (
+    CheckpointManager, ResumeRefused, config_fingerprint,
+)
 from sagecal_tpu_torch.io import solutions as solio
 from sagecal_tpu_torch.io.dataset import TilePrefetcher, VisDataset
 from sagecal_tpu_torch.io.skymodel import load_sky
@@ -80,16 +93,28 @@ _FALSY = ("", "0", "false", "no", "off")
 def _refuse(cfg: RunConfig) -> None:
     """NotImplementedError for every option whose module is not ported,
     naming its ROADMAP.md item."""
-    if cfg.resume or cfg.checkpoint_every > 0:
-        raise NotImplementedError(
-            "not ported yet: resume / checkpoint_every need "
-            "elastic/checkpoint.py (ROADMAP.md, A9)")
     for var in ("SAGECAL_PROFILE_DIR", "SAGECAL_TRANSFER_AUDIT",
                 "SAGECAL_CHECKIFY"):
         if os.environ.get(var, "").strip().lower() not in _FALSY:
             raise NotImplementedError(
                 f"not ported yet: {var} (obs/ profiling, transfer audit "
                 f"and contracts, ROADMAP.md, A11)")
+
+
+def resume_solutions(path: str, done: int, ckpt_path: str) -> dict:
+    """Validate the solutions file of a resumed run against a checkpoint
+    of ``done`` completed intervals, truncating a torn or later trailing
+    interval (``solio.validate_solutions``); ``ResumeRefused`` when the
+    file is missing or holds fewer intact intervals."""
+    v = None
+    if os.path.exists(path):
+        v = solio.validate_solutions(path, truncate=True, max_intervals=done)
+    if v is None or v["n_intervals"] < done:
+        raise ResumeRefused(
+            f"checkpoint {ckpt_path} records {done} completed tiles but "
+            f"{path} holds {0 if v is None else v['n_intervals']} intact "
+            f"intervals; solution file and checkpoint disagree")
+    return v
 
 
 def _load_ignore_list(path: Optional[str], cdefs) -> list:
@@ -246,13 +271,50 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
     configure_tracer(run_id=manifest.run_id)
     tracer = get_tracer()
 
+    # elastic execution: checkpoints at tile boundaries, resume from the
+    # newest valid one
+    ckmgr = None
+    resume_done = 0  # tiles completed (and intervals on disk) at resume
     results = []
+    if cfg.simulation_mode == 0 and (cfg.resume or cfg.checkpoint_every > 0):
+        ckmgr = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_solutions}.ckpt",
+            config_fingerprint(
+                app="fullbatch", dataset=os.path.abspath(cfg.dataset),
+                sky_model=os.path.abspath(cfg.sky_model),
+                cluster_file=os.path.abspath(cfg.cluster_file),
+                nstations=N, ntime=meta.ntime, nchan=meta.nchan,
+                freq0=meta.freq0, n_clusters=M, nchunk_max=nchunk_max,
+                tilesz=cfg.tilesz, solver_mode=cfg.solver_mode,
+                max_emiter=cfg.max_emiter, max_iter=cfg.max_iter,
+                max_lbfgs=cfg.max_lbfgs, lbfgs_m=cfg.lbfgs_m,
+                nulow=cfg.nulow, nuhigh=cfg.nuhigh, randomize=cfg.randomize,
+                use_f64=cfg.use_f64, whiten=cfg.whiten,
+                in_column=cfg.in_column, skip_tiles=cfg.skip_tiles,
+                max_tiles=cfg.max_tiles, init_solutions=cfg.init_solutions),
+            "fullbatch", every=max(cfg.checkpoint_every, 1), elog=elog,
+            log=log)
+        found = ckmgr.resume() if cfg.resume else None
+        if found is not None:
+            rmeta, rarr, rpath = found
+            resume_done = int(rmeta["tiles_done"])
+            p = torch.as_tensor(rarr["p"]).to(dtype=rdt, device=dev)
+            results = [tuple(map(float, r))
+                       for r in rarr.get("results", np.zeros((0, 2)))]
+            v = resume_solutions(cfg.out_solutions, resume_done, rpath)
+            log(f"resume: {resume_done} tiles from {rpath}"
+                + (" (torn interval truncated)" if v["truncated"] else ""))
+
     sol_fh = None
     if cfg.simulation_mode == 0:
-        sol_fh = open(cfg.out_solutions, "w")
-        solio.write_header(sol_fh, meta.freq0, meta.deltaf,
-                           meta.deltat * cfg.tilesz / 60.0, N, M,
-                           M * nchunk_max)
+        if resume_done:
+            # validated (a torn interval truncated) above: append
+            sol_fh = open(cfg.out_solutions, "a")
+        else:
+            sol_fh = open(cfg.out_solutions, "w")
+            solio.write_header(sol_fh, meta.freq0, meta.deltaf,
+                               meta.deltat * cfg.tilesz / 60.0, N, M,
+                               M * nchunk_max)
 
     def _cdata(dat, t0, fdelta=None):
         if beam is None:
@@ -273,6 +335,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
              if i >= cfg.skip_tiles]
     if cfg.max_tiles:
         pairs = pairs[:cfg.max_tiles]
+    pairs = pairs[resume_done:]
     load_kw = dict(min_uvcut=cfg.min_uvcut, max_uvcut=cfg.max_uvcut,
                    dtype=np.float64 if cfg.use_f64 else np.float32,
                    column=cfg.in_column)
@@ -298,6 +361,19 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
             cdata_full_ = _cdata(full_, t0, meta.deltaf / max(meta.nchan, 1))
             cdata_ = None if cfg.simulation_mode else _cdata(data_, t0)
             return full_, data_, cdata_full_, cdata_
+
+        def _ckpt_update(pi):
+            """End-of-tile checkpoint: the tile's solution interval and
+            residuals are written, so (p, results) here is a complete
+            resume point."""
+            if ckmgr is not None:
+                ckmgr.update(
+                    resume_done + pi,
+                    {"p": p, "rng_seed": np.zeros(1, np.int64),
+                     "results": np.asarray(results,
+                                           np.float64).reshape(-1, 2)},
+                    tiles_done=resume_done + pi + 1,
+                    run_id=manifest.run_id)
 
         prepared = None
         if pairs:
@@ -387,6 +463,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 log(f"tile {t0}: influence diagnostics written "
                     f"({time.time() - tic:.1f}s)")
                 results.append((res0, res1))
+                _ckpt_update(pi)
                 tile_span.__exit__(None, None, None)
                 continue
 
@@ -403,7 +480,8 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 ds.write_tile(t0, res, column=cfg.out_column)
             # gains carry tile to tile, so iterations-to-converge per
             # tile is the warm start's measured win
-            warm_start = bool(pi > 0 or cfg.init_solutions)
+            warm_start = bool(pi > 0 or resume_done > 0
+                              or cfg.init_solutions)
             iters_tile = None
             conv_recs = sage_convergence_records(out.telemetry)
             if conv_recs:
@@ -426,6 +504,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 f"nu {mean_nu:.1f} ({time.time() - tic:.1f}s) "
                 f"[{timer.tile_summary()}]")
             results.append((res0, res1))
+            _ckpt_update(pi)
             note_activity("tile", name=f"tile{t0}", seconds=time.time() - tic)
             tile_span.__exit__(None, None, None)
     finally:
@@ -442,6 +521,8 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
         unregister_event_log(elog)
     if sol_fh:
         sol_fh.close()
+    if ckmgr is not None:
+        ckmgr.close()
     ds.close()
     # the success path only: the final "closed" heartbeat; a crash keeps
     # the recorder for the excepthook's dump

@@ -22,7 +22,12 @@ norms when they are logged, and the residual sums at the end.  Spans
 ``admm.band``), the ``admm_round``, ``consensus_health``,
 ``minibatch_done`` and ``band_residual`` events, the straggler gauges,
 the watchdog and the flight recorder follow the JAX package.
-``resume`` / ``checkpoint_every`` need ROADMAP.md's A9.
+
+Elastic execution (``elastic/``), as in the reference: checkpoints at
+(epoch, minibatch) boundaries hold ``p_bands``, in consensus mode ``Z``,
+``Y_bands`` and (async) the staleness ledger, and each band's LBFGS
+curvature memory (``mem<band>.<i>``, the reference's leaf names), so a
+resumed run is bit-identical to an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from sagecal_tpu_torch.core.types import (
     identity_jones, jones_to_params, params_to_jones,
 )
 from sagecal_tpu_torch.device import resolve_device, synchronize
+from sagecal_tpu_torch.elastic.checkpoint import (
+    CheckpointManager, config_fingerprint, flatten_state, unflatten_state,
+)
 from sagecal_tpu_torch.io import solutions as solio
 from sagecal_tpu_torch.io.dataset import VisDataset
 from sagecal_tpu_torch.io.skymodel import load_sky, read_cluster_rho
@@ -59,6 +67,7 @@ from sagecal_tpu_torch.parallel.async_consensus import (
 from sagecal_tpu_torch.solvers.batchmode import (
     bfgsfit_minibatch, bfgsfit_minibatch_consensus,
 )
+from sagecal_tpu_torch.solvers.lbfgs import LBFGSMemory
 from sagecal_tpu_torch.solvers.sage import _ROBUST_MODES, build_cluster_data
 
 
@@ -154,6 +163,63 @@ def _run(cfg, log, dev, rdt, cdtype, ds):
     configure_tracer(run_id=manifest.run_id)
     tracer = get_tracer()
 
+    # elastic execution: checkpoints at (epoch, minibatch) boundaries
+    ckmgr = None
+    resume_done = 0  # completed (epoch, minibatch) steps
+    if cfg.resume or cfg.checkpoint_every > 0:
+        import os
+
+        ckmgr = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_solutions}.ckpt",
+            config_fingerprint(
+                app="minibatch", dataset=os.path.abspath(cfg.dataset),
+                sky_model=os.path.abspath(cfg.sky_model),
+                cluster_file=os.path.abspath(cfg.cluster_file),
+                nstations=N, ntime=ntime, nchan=meta.nchan,
+                bands=cfg.bands, epochs=cfg.epochs, minibatches=nb,
+                admm_iters=cfg.admm_iters, npoly=cfg.npoly,
+                poly_type=cfg.poly_type, admm_rho=cfg.admm_rho,
+                consensus_staleness=cfg.consensus_staleness,
+                consensus_staleness_discount=(
+                    cfg.consensus_staleness_discount),
+                solver_mode=cfg.solver_mode, max_lbfgs=cfg.max_lbfgs,
+                lbfgs_m=cfg.lbfgs_m, nulow=cfg.nulow, nuhigh=cfg.nuhigh,
+                use_f64=cfg.use_f64, in_column=cfg.in_column),
+            "minibatch", every=max(cfg.checkpoint_every, 1), elog=elog,
+            log=log)
+        found = ckmgr.resume() if cfg.resume else None
+        if found is not None:
+            rmeta, rarrs, _ = found
+            resume_done = int(rmeta["steps_done"])
+            p_bands = [torch.as_tensor(a).to(dev, rdt)
+                       for a in rarrs["p_bands"]]
+            if consensus_mode:
+                Z = torch.as_tensor(rarrs["Z"]).to(dev, rdt)
+                Y_bands = [torch.as_tensor(a).to(dev, rdt)
+                           for a in rarrs["Y_bands"]]
+                if StalenessLedger.present(rarrs):
+                    ledger = StalenessLedger.from_arrays(
+                        rarrs, dtype=ledger.zterms.dtype)
+            mem_template = LBFGSMemory.init(M * nchunk_max * n8,
+                                            cfg.lbfgs_m, rdt, device=dev)
+            for bi in range(nbands):
+                if f"mem{bi}.0" in rarrs:
+                    mem_bands[bi] = unflatten_state(f"mem{bi}", rarrs,
+                                                    mem_template)
+
+    def ckpt_update(step):
+        arrs = {"p_bands": torch.stack(p_bands)}
+        if consensus_mode:
+            arrs["Z"] = Z
+            arrs["Y_bands"] = torch.stack(Y_bands)
+            if async_mode:
+                arrs.update(ledger.to_arrays())
+        for bi, mem in enumerate(mem_bands):
+            if mem is not None:
+                arrs.update(flatten_state(f"mem{bi}", mem))
+        ckmgr.update(step, arrs, steps_done=step + 1,
+                     run_id=manifest.run_id)
+
     def cdata_of(db):
         return build_cluster_data(db, clusters, nchunks, fdelta=fd,
                                   shapelets=shapelets)
@@ -168,6 +234,9 @@ def _run(cfg, log, dev, rdt, cdtype, ds):
     try:
         for epoch in range(max(cfg.epochs, 1)):
             for mb in range(nb):
+                step = epoch * nb + mb
+                if step < resume_done:
+                    continue  # completed before the resumed checkpoint
                 t0, t1 = int(tedges[mb]), int(tedges[mb + 1])
                 if t1 <= t0:
                     continue
@@ -200,9 +269,14 @@ def _run(cfg, log, dev, rdt, cdtype, ds):
                 if elog is not None:
                     elog.emit("minibatch_done", epoch=epoch, minibatch=mb,
                               t0=t0, t1=t1, seconds=time.time() - tic)
+                if ckmgr is not None:
+                    ckpt_update(step)
                 log(f"epoch {epoch} minibatch {mb}: "
                     f"({time.time() - tic:.1f}s)")
 
+        if ckmgr is not None:
+            ckmgr.flush()
+            ckmgr.close()
         # every band's residuals, minibatch by minibatch with the
         # training loop's time edges
         acc = torch.zeros((nbands, 2), dtype=torch.float64, device=dev)

@@ -18,8 +18,11 @@ and emits a ``refine_iter`` event; the run writes ``<out>.json`` and
 ``<out>.npz`` and emits ``refine_done``.  Everything runs on ``device``
 (CUDA unless ``device="cpu"``) on the torch-op predict; ``--fused``
 exits 2 with ``FusedSkyGradientError`` (the hand kernels have no
-coherency cotangent), and ``--resume`` / ``--checkpoint-every`` exit 2
-naming ROADMAP.md's A9.
+coherency cotangent).  ``--checkpoint-every`` checkpoints after outer
+iterations (``theta``, the inner warm start ``p_warm`` and the outer
+LBFGS memory ``mem.<i>``, as the reference) and ``--resume`` continues
+from the newest checkpoint (exit 5 when it belongs to another
+configuration).
 """
 
 from __future__ import annotations
@@ -101,12 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rejected: refinement needs coherency "
                     "cotangents the fused kernels cannot produce")
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--resume", action="store_true",
-                    help="not ported (ROADMAP.md, A9)")
-    ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="not ported (ROADMAP.md, A9)")
-    ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported (ROADMAP.md, A9)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("-V", "--verbose", action="store_true")
     return ap
 
@@ -129,13 +129,6 @@ def config_from_args(args) -> RefineConfig:
         resume=args.resume, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, use_f64=not args.f32,
         verbose=args.verbose)
-
-
-def _refuse(cfg: RefineConfig) -> None:
-    if cfg.resume or cfg.checkpoint_every > 0:
-        raise NotImplementedError(
-            "not ported yet: --resume / --checkpoint-every need "
-            "elastic/checkpoint.py (ROADMAP.md, A9)")
 
 
 def _build_problem(cfg: RefineConfig, spec, log, dev, open_file=None):
@@ -183,12 +176,16 @@ def run_refine_app(cfg: RefineConfig, log=print, device=None,
                    open_file=None) -> dict:
     """Run one refinement on ``device`` (CUDA unless ``device="cpu"``);
     returns the summary written to ``<out>.json``."""
+    from sagecal_tpu_torch.elastic import (
+        CheckpointManager, config_fingerprint, flatten_state,
+        unflatten_state,
+    )
     from sagecal_tpu_torch.obs.events import RunManifest, default_event_log
     from sagecal_tpu_torch.refine import (
         SkySpec, require_xla_predict, run_refine,
     )
+    from sagecal_tpu_torch.solvers.lbfgs import LBFGSMemory
 
-    _refuse(cfg)
     require_xla_predict(False)
     dev = resolve_device(device)
     spec = SkySpec(flux=parse_keys(cfg.free_flux),
@@ -203,10 +200,41 @@ def run_refine_app(cfg: RefineConfig, log=print, device=None,
         app="refine", nparams=spec.nparams, gradient=cfg.gradient,
         outer_iters=cfg.outer_iters, out_prefix=cfg.out_prefix)
     elog = default_event_log(manifest=manifest)
+    fingerprint = config_fingerprint(
+        app="refine", dataset=cfg.dataset, sky=cfg.sky_model,
+        clusters=cfg.cluster_file, synthetic=cfg.synthetic,
+        seed=cfg.seed, perturb=cfg.perturb, tilesz=cfg.tilesz,
+        spec=repr(spec), gradient=cfg.gradient,
+        inner_iters=cfg.inner_iters, cg_iters=cfg.cg_iters,
+        ridge=cfg.ridge, use_f64=cfg.use_f64)
+    every = cfg.checkpoint_every or (1 if cfg.resume else 0)
+    manager = None
+    if every > 0:
+        manager = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_prefix}.ckpt", fingerprint,
+            app="refine", every=every, elog=elog,
+            log=log if cfg.verbose else None)
+
+    start_iter = 0
+    p_start = memory = None
+    theta_start = theta0
+    if cfg.resume and manager is not None:
+        found = manager.resume()
+        if found is not None:
+            meta, arrays, path = found
+            start_iter = int(meta["tile_index"]) + 1
+            theta_start = torch.as_tensor(arrays["theta"]).to(
+                theta0.device, theta0.dtype)
+            p_start = arrays["p_warm"]
+            memory = unflatten_state("mem", arrays, LBFGSMemory.init(
+                int(theta0.shape[0]), cfg.lbfgs_m, theta0.dtype,
+                theta0.device))
+            log(f"resumed at outer iteration {start_iter} from {path}")
 
     out_dir = os.path.dirname(os.path.abspath(cfg.out_prefix))
     os.makedirs(out_dir, exist_ok=True)
-    trace_fh = open(f"{cfg.out_prefix}.trace.jsonl", "w")
+    trace_fh = open(f"{cfg.out_prefix}.trace.jsonl",
+                    "a" if start_iter > 0 else "w")
 
     def on_iteration(it, theta, mem, p_warm, entry):
         if true_flux is not None:
@@ -217,6 +245,9 @@ def run_refine_app(cfg: RefineConfig, log=print, device=None,
         if elog is not None:
             elog.emit("refine_iter", **{k: v for k, v in entry.items()
                                         if k != "theta"})
+        if manager is not None:
+            manager.update(it, {"theta": theta, "p_warm": p_warm,
+                                **flatten_state("mem", mem)})
         if cfg.verbose:
             log(f"outer {it}: cost {entry['cost']:.6e} "
                 f"gradnorm {entry['gradnorm']:.3e}")
@@ -224,14 +255,18 @@ def run_refine_app(cfg: RefineConfig, log=print, device=None,
     t0 = time.perf_counter()
     try:
         res = run_refine(
-            problem, theta0=theta0, outer_iters=cfg.outer_iters,
+            problem, theta0=theta_start, outer_iters=cfg.outer_iters,
             lbfgs_m=cfg.lbfgs_m, gradient=cfg.gradient,
             inner_iters=cfg.inner_iters, cg_iters=cfg.cg_iters,
             damping=cfg.damping, adjoint_cg_iters=cfg.adjoint_cg_iters,
             adjoint_matvec=cfg.adjoint_matvec, tol=cfg.tol,
+            p_start=p_start, memory=memory, start_iter=start_iter,
             on_iteration=on_iteration)
     finally:
         trace_fh.close()
+        if manager is not None:
+            manager.flush()
+            manager.close()
     wall = time.perf_counter() - t0
 
     theta = res.theta.detach().cpu().numpy()
@@ -268,9 +303,10 @@ def run_refine_app(cfg: RefineConfig, log=print, device=None,
 
 def main(argv=None, device=None, open_file=None) -> int:
     """The ``refine`` subcommand on ``device`` (None: the CUDA device),
-    opening a dataset with ``open_file``.  Returns the exit code: 0, or
-    2 for a usage error, ``--fused`` (``FusedSkyGradientError``) or an
-    unported option (its ROADMAP.md item named)."""
+    opening a dataset with ``open_file``.  Returns the exit code: 0; 5
+    when ``--resume`` is refused; 2 for a usage error or ``--fused``
+    (``FusedSkyGradientError``)."""
+    from sagecal_tpu_torch.elastic import ResumeRefused
     from sagecal_tpu_torch.ops.rime_kernel import FusedSkyGradientError
     from sagecal_tpu_torch.refine import require_xla_predict
 
@@ -289,9 +325,9 @@ def main(argv=None, device=None, open_file=None) -> int:
         ap.error("--dataset (or --synthetic N) is required")
     try:
         run_refine_app(cfg, device=device, open_file=open_file)
-    except NotImplementedError as e:
+    except ResumeRefused as e:
         print(f"sagecal_tpu_torch refine: {e}", file=sys.stderr)
-        return 2
+        return 5
     return 0
 
 

@@ -8,11 +8,14 @@ serves on the CUDA device; :func:`main` and :func:`run_serve` take
 :func:`run_serve` takes the datasets' opener ``open_file``
 (``io.memh5.MemFile`` on a machine without h5py).
 
+``--resume`` / ``--checkpoint-every`` / ``--checkpoint-dir`` keep
+per-tenant checkpoints (``serve/service.py``); ``--aot-store DIR`` loads
+the kernel libraries from a shared store (``serve/aot_store.py``).
+
 Exit codes: 0 success; 3 a request diverged under
-``--abort-on-divergence`` (or drift under ``--abort-on-drift``); 2 for a
-usage error or an option the port does not have yet (``--resume``,
-``--checkpoint-every``, ``--aot-store``: ROADMAP.md, A9), the message
-naming its item.
+``--abort-on-divergence`` (or drift under ``--abort-on-drift``); 5
+``--resume`` refused (a checkpoint of another configuration); 2 for a
+usage error.
 """
 
 from __future__ import annotations
@@ -80,19 +83,20 @@ def build_parser() -> argparse.ArgumentParser:
                     "(obs/shadow.DRIFT_TOLERANCES) from report-only to "
                     "a run abort (exit 3) after the drain")
     ap.add_argument("--resume", action="store_true",
-                    help="skip requests a previous run already completed "
-                    "(not ported: ROADMAP.md, A9)")
+                    help="skip requests a previous (preempted) server "
+                    "run already completed (per-tenant checkpoints)")
     ap.add_argument("--slo", default="",
                     help="per-tenant SLO specs (slo.json; obs/slo.py). "
                     "Report-only: burn-rate alerts + serve_slo_* gauges; "
                     "falls back to a 'slos' key in the request manifest")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="per-tenant checkpoints (not ported: ROADMAP.md, "
-                    "A9)")
+                    help="per-tenant checkpoints every this many served "
+                    "requests")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--aot-store", default="",
-                    help="cross-worker executable store directory (not "
-                    "ported: ROADMAP.md, A9)")
+                    help="cross-worker kernel store directory "
+                    "(serve/aot_store.py); workers joining a warm store "
+                    "build nothing")
     ap.add_argument("--max-streams", type=int, default=0,
                     help="cap on concurrently open prefetch streams; "
                     "LRU-evicted above the cap (0 = unbounded)")
@@ -153,8 +157,13 @@ def run_serve(cfg: ServeConfig, requests=None, log=print, device=None,
     # request-lifecycle tracing (SAGECAL_TRACE=1): run-level spans join
     # the event log on run_id; each request writes its own trace
     configure_tracer(run_id=manifest.run_id)
+    store = None
+    if cfg.aot_store:
+        from sagecal_tpu_torch.serve.aot_store import AOTArtifactStore
+
+        store = AOTArtifactStore(cfg.aot_store)
     service = CalibrationService(cfg, log=log, device=dev,
-                                 open_file=open_file)
+                                 open_file=open_file, aot_store=store)
     try:
         summary = service.run(requests, elog=elog)
     finally:
@@ -175,14 +184,13 @@ def main(argv=None, device=None) -> int:
     """Run the ``serve`` command line ``argv`` (default
     ``sys.argv[1:]``) on ``device`` (None: the CUDA device).  Returns the
     exit code."""
+    from sagecal_tpu_torch.elastic import ResumeRefused
     from sagecal_tpu_torch.obs.quality import DivergenceAbort
-    from sagecal_tpu_torch.serve.service import _refuse
 
     argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     try:
-        _refuse(cfg)
         requests = None
         if args.synthetic > 0:
             from sagecal_tpu_torch.serve.request import load_requests
@@ -201,9 +209,9 @@ def main(argv=None, device=None) -> int:
     except DivergenceAbort as e:
         print(f"sagecal_tpu_torch serve: {e}", file=sys.stderr)
         return 3
-    except NotImplementedError as e:
-        print(f"sagecal_tpu_torch: {e}", file=sys.stderr)
-        return 2
+    except ResumeRefused as e:
+        print(f"sagecal_tpu_torch serve: {e}", file=sys.stderr)
+        return 5
     return 0
 
 

@@ -20,9 +20,10 @@ make_multiband_skies``: the same sky and gains in every band).  Every
 step runs on ``device`` (CUDA unless ``device="cpu"``), in the run's
 precision: float32/complex64 under ``--f32``, float64/complex128
 otherwise.  Band b's OS-LM subsets come from a CPU generator seeded b
-(the JAX package draws them from ``PRNGKey(b)``).  ``--resume``,
-``--checkpoint-every`` and ``--checkpoint-dir`` need ROADMAP.md's A9
-(exit 2).
+(the JAX package draws them from ``PRNGKey(b)``).  ``--checkpoint-every``
+checkpoints after each solved band (``p.<b>`` for every band solved so
+far, as the reference) and ``--resume`` restores the solved prefix
+(exit 5 when the checkpoint belongs to another configuration).
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ from sagecal_tpu_torch.core.types import (
 )
 from sagecal_tpu_torch.data.simsky import make_multiband_skies
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.elastic.checkpoint import (
+    CheckpointManager, ResumeRefused, config_fingerprint,
+)
 from sagecal_tpu_torch.io.dataset import VisDataset
 from sagecal_tpu_torch.io.skymodel import load_sky
 from sagecal_tpu_torch.obs.events import RunManifest, default_event_log
@@ -101,12 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--noise-sigma", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--resume", action="store_true",
-                    help="not ported (ROADMAP.md, A9)")
-    ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="not ported (ROADMAP.md, A9)")
-    ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported (ROADMAP.md, A9)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("-V", "--verbose", action="store_true")
     return ap
 
@@ -165,9 +166,21 @@ def _load_bands(cfg: SpatialConfig, log, dev, open_file=None):
     return datas, clusters, freqs
 
 
-def _solve_bands(cfg: SpatialConfig, datas, clusters, elog, log, dev):
+def _solve_bands(cfg: SpatialConfig, datas, clusters, manager, elog, log,
+                 dev):
     """Per-band calibration solves -> (F, M, 8N) float64 numpy
-    solutions."""
+    solutions.  Checkpointed per band; resume restores the solved
+    prefix."""
+    solved = {}
+    start_band = 0
+    if cfg.resume and manager is not None:
+        found = manager.resume()
+        if found is not None:
+            meta, arrays, path = found
+            start_band = int(meta["tile_index"]) + 1
+            for b in range(start_band):
+                solved[b] = arrays[f"p.{b}"]
+            log(f"resumed: bands 0..{start_band - 1} restored from {path}")
     M = len(clusters)
     N = datas[0].nstations
     rdt = datas[0].u.dtype
@@ -177,13 +190,12 @@ def _solve_bands(cfg: SpatialConfig, datas, clusters, elog, log, dev):
     eye = jones_to_params(identity_jones(N, complex_dtype_of(rdt),
                                          device=dev))
     p0 = eye.expand(M, 1, 8 * N).clone()
-    solved = []
-    for b, data in enumerate(datas):
+    for b in range(start_band, len(datas)):
         t0 = time.perf_counter()
-        cdata = build_cluster_data(data, clusters, [1] * M)
-        res = sagefit(data, cdata, p0, scfg,
+        cdata = build_cluster_data(datas[b], clusters, [1] * M)
+        res = sagefit(datas[b], cdata, p0, scfg,
                       generator=torch.Generator().manual_seed(b), device=dev)
-        solved.append(res.p.double().reshape(M, -1).cpu().numpy())
+        solved[b] = res.p.double().reshape(M, -1).cpu().numpy()
         res_0, res_1 = float(res.res_0), float(res.res_1)
         if elog is not None:
             elog.emit("band_solved", band=b, res_0=res_0, res_1=res_1,
@@ -191,21 +203,15 @@ def _solve_bands(cfg: SpatialConfig, datas, clusters, elog, log, dev):
                       seconds=time.perf_counter() - t0)
         if cfg.verbose:
             log(f"band {b}: res {res_0:.4e} -> {res_1:.4e}")
-    return np.stack(solved)
-
-
-def _refuse(cfg: SpatialConfig) -> None:
-    if cfg.resume or cfg.checkpoint_every > 0 or cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "not ported yet: --resume / --checkpoint-every / "
-            "--checkpoint-dir need elastic/checkpoint.py (ROADMAP.md, A9)")
+        if manager is not None:
+            manager.update(b, {f"p.{i}": solved[i] for i in sorted(solved)})
+    return np.stack([solved[b] for b in range(len(datas))])
 
 
 def run_spatial(cfg: SpatialConfig, log=print, device=None,
                 open_file=None) -> dict:
     """Run the spatial pipeline on ``device`` (CUDA unless
     ``device="cpu"``); returns the summary written to ``<out>.json``."""
-    _refuse(cfg)
     dev = resolve_device(device)
     rdt = torch.float64 if cfg.use_f64 else torch.float32
     t_run = time.perf_counter()
@@ -220,7 +226,26 @@ def run_spatial(cfg: SpatialConfig, log=print, device=None,
         nclusters=M, npoly=cfg.npoly, spatial_n0=cfg.spatial_n0,
         spatial_basis=cfg.spatial_basis, out_prefix=cfg.out_prefix)
     elog = default_event_log(manifest=manifest)
-    J = _solve_bands(cfg, datas, clusters, elog, log, dev)
+    fingerprint = config_fingerprint(
+        app="spatial", band_pattern=cfg.band_pattern,
+        sky=cfg.sky_model, clusters=cfg.cluster_file,
+        synthetic=cfg.synthetic, nstations=cfg.nstations,
+        seed=cfg.seed, tilesz=cfg.tilesz, bands=F,
+        solver_mode=cfg.solver_mode, max_emiter=cfg.max_emiter,
+        max_iter=cfg.max_iter, use_f64=cfg.use_f64)
+    every = cfg.checkpoint_every or (1 if cfg.resume else 0)
+    manager = None
+    if every > 0:
+        manager = CheckpointManager(
+            cfg.checkpoint_dir or f"{cfg.out_prefix}.ckpt", fingerprint,
+            app="spatial", every=every, elog=elog,
+            log=log if cfg.verbose else None)
+    try:
+        J = _solve_bands(cfg, datas, clusters, manager, elog, log, dev)
+    finally:
+        if manager is not None:
+            manager.flush()
+            manager.close()
 
     # rho-scaled solutions (the master's weight*rho*J blocks); the bands
     # of one tile carry no flags here, so the band weights are 1
@@ -311,9 +336,8 @@ def run_spatial(cfg: SpatialConfig, log=print, device=None,
 
 def main(argv=None, device=None, open_file=None) -> int:
     """The ``spatial`` subcommand on ``device`` (None: the CUDA device),
-    opening datasets with ``open_file``.  Returns the exit code: 0, or 2
-    for a usage error or an unported option (its ROADMAP.md item
-    named)."""
+    opening datasets with ``open_file``.  Returns the exit code: 0, 5
+    when ``--resume`` is refused, or 2 for a usage error."""
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = build_parser()
     cfg = config_from_args(ap.parse_args(argv))
@@ -321,9 +345,9 @@ def main(argv=None, device=None, open_file=None) -> int:
         ap.error("-f PATTERN (or --synthetic N) is required")
     try:
         run_spatial(cfg, device=device, open_file=open_file)
-    except NotImplementedError as e:
+    except ResumeRefused as e:
         print(f"sagecal_tpu_torch spatial: {e}", file=sys.stderr)
-        return 2
+        return 5
     return 0
 
 

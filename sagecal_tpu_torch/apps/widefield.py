@@ -18,8 +18,10 @@ seeded ``seed + t`` (the JAX package folds t into ``PRNGKey(seed)``).
 
 Writes ``widefield.json`` (the JAX package's keys; each tile adds its
 plan, predict, check and solve seconds) and ``solutions.npz``.  Exit
-codes: 0 done; 3 divergence abort (``--abort-on-divergence``); 2 for
-``--resume`` / ``--checkpoint-every``, which need ROADMAP.md's A9.
+codes: 0 done; 3 divergence abort (``--abort-on-divergence``); 5 resume
+refused.  ``--checkpoint-every`` checkpoints at tile boundaries (every
+solved tile's gains ``g.<t>``, the warm start ``warm`` and the tiles'
+records, as the reference); ``--resume`` restores the solved prefix.
 """
 
 from __future__ import annotations
@@ -92,11 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--res-ratio", type=float, default=5.0)
     ap.add_argument("--abort-on-divergence", action="store_true")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported (ROADMAP.md, A9)")
+                    help="adopt the newest checkpoint (refused on "
+                    "fingerprint mismatch, exit 5)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="not ported (ROADMAP.md, A9)")
+                    help=">0 checkpoints every this many tiles; "
+                    "--resume implies 1 when unset")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported (ROADMAP.md, A9)")
+                    help="checkpoint directory (default: "
+                    "<out-dir>/widefield.ckpt)")
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("-V", "--verbose", action="store_true")
     return ap
@@ -124,13 +129,6 @@ def config_from_args(args) -> WidefieldConfig:
         resume=args.resume, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, use_f64=not args.f32,
         verbose=args.verbose)
-
-
-def _refuse(cfg: WidefieldConfig) -> None:
-    if cfg.resume or cfg.checkpoint_every > 0:
-        raise NotImplementedError(
-            "not ported yet: --resume / --checkpoint-every need "
-            "elastic/checkpoint.py (ROADMAP.md, A9)")
 
 
 def _slice_tile(data, t: int, tilesz: int):
@@ -205,7 +203,6 @@ def run_widefield(cfg: WidefieldConfig, log=print, device=None) -> dict:
     )
     from sagecal_tpu_torch.obs.trace import close_tracer, configure_tracer
 
-    _refuse(cfg)
     dev = resolve_device(device)
     manifest = RunManifest.collect(
         kernel_path="torch", device=dev, x64_enabled=cfg.use_f64,
@@ -233,6 +230,9 @@ def _run_tiles(cfg: WidefieldConfig, elog, dev, log) -> dict:
         complex_dtype_of, identity_jones, jones_to_params,
     )
     from sagecal_tpu_torch.data.simsky import make_sky
+    from sagecal_tpu_torch.elastic import (
+        CheckpointManager, config_fingerprint,
+    )
     from sagecal_tpu_torch.obs.quality import (
         abort_if_diverged, check_and_emit, check_hier_predict,
     )
@@ -294,83 +294,131 @@ def _run_tiles(cfg: WidefieldConfig, elog, dev, log) -> dict:
     max_rel_err = 0.0
     watchdog_ok = True
     tracer = get_tracer()
-    for t in range(cfg.ntiles):
-        t0 = time.perf_counter()
-        span = tracer.span("tile", kind="tile", tile=t)
-        span.__enter__()
-        data_t = _slice_tile(sky.data, t, cfg.tilesz)
-        timing: dict = {}
-        coh = _tile_coherencies(cfg, data_t, eff_clusters, timing)
-        rows = int(data_t.u.shape[0])
-        cdata = ClusterData(
-            coh=coh,
-            chunk_map=torch.zeros((M, rows), dtype=torch.int64, device=dev),
-            nchunk=torch.ones((M,), dtype=torch.int64, device=dev))
+    fingerprint = config_fingerprint(
+        app="widefield", nstations=cfg.nstations, ntiles=cfg.ntiles,
+        tilesz=cfg.tilesz, nchan=cfg.nchan, nsources=cfg.nsources,
+        nblobs=cfg.nblobs, nclusters=cfg.nclusters, fov=cfg.fov,
+        freq0=cfg.freq0, extent_m=cfg.extent_m, seed=cfg.seed,
+        order=cfg.order, theta=cfg.theta, exact=cfg.exact,
+        solver_mode=cfg.solver_mode, max_emiter=cfg.max_emiter,
+        max_iter=cfg.max_iter, max_lbfgs=cfg.max_lbfgs,
+        use_f64=cfg.use_f64)
+    every = cfg.checkpoint_every or (1 if cfg.resume else 0)
+    manager = None
+    if every > 0:
+        manager = CheckpointManager(
+            cfg.checkpoint_dir or os.path.join(cfg.out_dir,
+                                               "widefield.ckpt"),
+            fingerprint, app="widefield", every=every, elog=elog,
+            log=log if cfg.verbose else None)
+    start_tile = 0
+    if cfg.resume and manager is not None:
+        found = manager.resume()
+        if found is not None:
+            meta, arrays, path = found
+            start_tile = int(meta["tile_index"]) + 1
+            for i in range(start_tile):
+                gains[i] = arrays[f"g.{i}"]
+            p = torch.as_tensor(arrays["warm"]).to(dev, rdt)
+            tiles_meta = {int(k): v for k, v in
+                          json.loads(meta.get("tiles_json", "{}")).items()}
+            log(f"resumed: tiles 0..{start_tile - 1} restored from {path}")
+    # the verification state of a resumed prefix, so the summary equals
+    # an uninterrupted run's
+    for i in range(start_tile):
+        tm = tiles_meta.get(i, {})
+        if tm.get("rel_err") is not None:
+            max_rel_err = max(max_rel_err, float(tm["rel_err"]))
+        if tm.get("hier_verdict", "ok") != "ok":
+            watchdog_ok = False
+    try:
+        for t in range(start_tile, cfg.ntiles):
+            t0 = time.perf_counter()
+            span = tracer.span("tile", kind="tile", tile=t)
+            span.__enter__()
+            data_t = _slice_tile(sky.data, t, cfg.tilesz)
+            timing: dict = {}
+            coh = _tile_coherencies(cfg, data_t, eff_clusters, timing)
+            rows = int(data_t.u.shape[0])
+            cdata = ClusterData(
+                coh=coh,
+                chunk_map=torch.zeros((M, rows), dtype=torch.int64,
+                                      device=dev),
+                nchunk=torch.ones((M,), dtype=torch.int64, device=dev))
 
-        # a-posteriori check of the hierarchical prediction: the exact
-        # predict on a sampled row subset of the largest effective
-        # cluster against the same rows of its coherencies
-        rel_err = None
-        h_verdict = "ok"
-        tc = time.perf_counter()
-        if not cfg.exact and cfg.hier_nsample > 0:
-            est = sampled_error_estimate(
-                data_t.u, data_t.v, data_t.w, data_t.freqs,
-                eff_clusters[0], coh[0], nsample=cfg.hier_nsample,
-                seed=cfg.seed + t, source_chunk=cfg.source_chunk)
-            rel_err = float(est["rel_err"])
-            max_rel_err = max(max_rel_err, rel_err)
-            h_verdict, _ = check_hier_predict(
-                elog, rel_err, tol, log=log, tile=t, app="widefield",
-                order=cfg.order, theta=cfg.theta, apriori_bound=bound,
-                nsample=int(est["nsample"]))
-            watchdog_ok = watchdog_ok and (h_verdict == "ok")
-        check_s = time.perf_counter() - tc
+            # a-posteriori check of the hierarchical prediction: the exact
+            # predict on a sampled row subset of the largest effective
+            # cluster against the same rows of its coherencies
+            rel_err = None
+            h_verdict = "ok"
+            tc = time.perf_counter()
+            if not cfg.exact and cfg.hier_nsample > 0:
+                est = sampled_error_estimate(
+                    data_t.u, data_t.v, data_t.w, data_t.freqs,
+                    eff_clusters[0], coh[0], nsample=cfg.hier_nsample,
+                    seed=cfg.seed + t, source_chunk=cfg.source_chunk)
+                rel_err = float(est["rel_err"])
+                max_rel_err = max(max_rel_err, rel_err)
+                h_verdict, _ = check_hier_predict(
+                    elog, rel_err, tol, log=log, tile=t, app="widefield",
+                    order=cfg.order, theta=cfg.theta, apriori_bound=bound,
+                    nsample=int(est["nsample"]))
+                watchdog_ok = watchdog_ok and (h_verdict == "ok")
+            check_s = time.perf_counter() - tc
 
-        ts = time.perf_counter()
-        res = solve_tile(data_t, cdata, p, scfg,
-                         generator=torch.Generator().manual_seed(
-                             cfg.seed + t), device=dev)
-        res0, res1 = float(res.res_0), float(res.res_1)
-        solve_s = time.perf_counter() - ts
-        diverged = (not np.isfinite(res1) or res1 == 0.0
-                    or res1 > cfg.res_ratio * res0)
-        gains[t] = res.p.detach().double().cpu().numpy()
-        # warm-start chain: the next tile starts from this solution
-        # (identity after a diverged tile, the fullbatch guard)
-        p = pinit if diverged else res.p.detach().to(rdt)
+            ts = time.perf_counter()
+            res = solve_tile(data_t, cdata, p, scfg,
+                             generator=torch.Generator().manual_seed(
+                                 cfg.seed + t), device=dev)
+            res0, res1 = float(res.res_0), float(res.res_1)
+            solve_s = time.perf_counter() - ts
+            diverged = (not np.isfinite(res1) or res1 == 0.0
+                        or res1 > cfg.res_ratio * res0)
+            gains[t] = res.p.detach().double().cpu().numpy()
+            # warm-start chain: the next tile starts from this solution
+            # (identity after a diverged tile, the fullbatch guard)
+            p = pinit if diverged else res.p.detach().to(rdt)
 
-        q_verdict, q_reasons = "ok", []
-        if getattr(res, "quality", None) is not None:
-            q_verdict, q_reasons = check_and_emit(
-                elog, res.quality, log=log, tile=t, app="widefield")
-        if diverged:
-            if q_verdict != "diverged" and elog is not None:
-                elog.emit(
-                    "solver_diverged",
-                    reasons=[f"residual_ratio:{res0:.3e}->{res1:.3e}"],
-                    tile=t, app="widefield")
-            q_verdict = "diverged"
-            q_reasons = q_reasons + [
-                f"residual_ratio:{res0:.3e}->{res1:.3e}"]
-        span.__exit__(None, None, None)
-        if cfg.abort_on_divergence:
-            abort_if_diverged(elog, q_verdict, q_reasons, tile=t,
-                              app="widefield")
+            q_verdict, q_reasons = "ok", []
+            if getattr(res, "quality", None) is not None:
+                q_verdict, q_reasons = check_and_emit(
+                    elog, res.quality, log=log, tile=t, app="widefield")
+            if diverged:
+                if q_verdict != "diverged" and elog is not None:
+                    elog.emit(
+                        "solver_diverged",
+                        reasons=[f"residual_ratio:{res0:.3e}->{res1:.3e}"],
+                        tile=t, app="widefield")
+                q_verdict = "diverged"
+                q_reasons = q_reasons + [
+                    f"residual_ratio:{res0:.3e}->{res1:.3e}"]
+            span.__exit__(None, None, None)
+            if cfg.abort_on_divergence:
+                abort_if_diverged(elog, q_verdict, q_reasons, tile=t,
+                                  app="widefield")
 
-        tiles_meta[t] = {
-            "res_0": res0, "res_1": res1, "rel_err": rel_err,
-            "hier_verdict": h_verdict, "solve_verdict": q_verdict,
-            "seconds": time.perf_counter() - t0,
-            "plan_s": timing.get("plan_s", 0.0),
-            "predict_s": timing["predict_s"], "check_s": check_s,
-            "solve_s": solve_s}
-        if elog is not None:
-            elog.emit("widefield_tile", tile=t, **tiles_meta[t])
-        if cfg.verbose:
-            err_s = "n/a" if rel_err is None else f"{rel_err:.3e}"
-            log(f"tile {t}: res {res0:.4e} -> {res1:.4e}, "
-                f"hier_err {err_s} ({tiles_meta[t]['seconds']:.1f}s)")
+            tiles_meta[t] = {
+                "res_0": res0, "res_1": res1, "rel_err": rel_err,
+                "hier_verdict": h_verdict, "solve_verdict": q_verdict,
+                "seconds": time.perf_counter() - t0,
+                "plan_s": timing.get("plan_s", 0.0),
+                "predict_s": timing["predict_s"], "check_s": check_s,
+                "solve_s": solve_s}
+            if elog is not None:
+                elog.emit("widefield_tile", tile=t, **tiles_meta[t])
+            if cfg.verbose:
+                err_s = "n/a" if rel_err is None else f"{rel_err:.3e}"
+                log(f"tile {t}: res {res0:.4e} -> {res1:.4e}, "
+                    f"hier_err {err_s} ({tiles_meta[t]['seconds']:.1f}s)")
+            if manager is not None:
+                arrays = {f"g.{i}": gains[i] for i in sorted(gains)}
+                arrays["warm"] = p
+                manager.update(t, arrays, tiles_json=json.dumps(
+                    {str(k): v for k, v in tiles_meta.items()}))
+    finally:
+        if manager is not None:
+            manager.flush()
+            manager.close()
 
     stacked = np.stack([gains[t] for t in range(cfg.ntiles)])
     np.savez(os.path.join(cfg.out_dir, "solutions.npz"), gains=stacked,
@@ -404,8 +452,9 @@ def _run_tiles(cfg: WidefieldConfig, elog, dev, log) -> dict:
 
 def main(argv=None, device=None) -> int:
     """The ``widefield`` subcommand on ``device`` (None: the CUDA
-    device).  Returns the exit code: 0; 3 after a divergence abort; 2
-    for an unported option (its ROADMAP.md item named)."""
+    device).  Returns the exit code: 0; 3 after a divergence abort; 5
+    when ``--resume`` is refused."""
+    from sagecal_tpu_torch.elastic import ResumeRefused
     from sagecal_tpu_torch.obs.quality import DivergenceAbort
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -415,9 +464,9 @@ def main(argv=None, device=None) -> int:
     except DivergenceAbort as e:
         print(f"sagecal_tpu_torch widefield: {e}", file=sys.stderr)
         return 3
-    except NotImplementedError as e:
+    except ResumeRefused as e:
         print(f"sagecal_tpu_torch widefield: {e}", file=sys.stderr)
-        return 2
+        return 5
     return 0
 
 

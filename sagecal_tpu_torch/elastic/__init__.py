@@ -1,11 +1,17 @@
-"""Elastic execution of the port (counterpart of ``sagecal_tpu/elastic``).
-
-Ported so far: the run-identity fingerprint that keys the serve path's
-executable cache and ``ResumeRefused``.  The checkpoint manager, the
-atomic checkpoint format and ``--resume`` wait for ROADMAP.md's A9.
+"""Elastic execution of the port (counterpart of ``sagecal_tpu/elastic``):
+crash-consistent checkpoints at tile boundaries, fingerprint-checked
+``--resume`` in every app, and the fault-injection harness that proves it
+by killing real runs.
 """
 
 from sagecal_tpu_torch.elastic.checkpoint import (  # noqa: F401
+    CHECKPOINT_SCHEMA_VERSION,
+    CheckpointManager,
     ResumeRefused,
     config_fingerprint,
+    find_latest_checkpoint,
+    flatten_state,
+    read_checkpoint,
+    unflatten_state,
+    write_checkpoint,
 )

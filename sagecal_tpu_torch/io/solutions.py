@@ -1,6 +1,7 @@
 """Solution text files, byte-compatible with the reference format.
 
-Copy of the writer and reader of ``sagecal_tpu/io/solutions.py`` (that
+Copy of the writer, the reader and the resume validators of
+``sagecal_tpu/io/solutions.py`` (that
 module is stdlib + numpy, but importing ``sagecal_tpu`` pulls in JAX):
 
 - '#' comment lines;
@@ -14,6 +15,8 @@ module is stdlib + numpy, but importing ``sagecal_tpu`` pulls in JAX):
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -49,6 +52,102 @@ def append_solutions(fh, jones_cols: np.ndarray, flush: bool = True) -> None:
     fh.write(buf)
     if flush:
         fh.flush()
+
+
+def _validate_interval_file(path: str, rows_per_interval_fn,
+                            truncate: bool = False,
+                            max_intervals=None) -> dict:
+    """Shared torn-interval detector for the fixed-rows-per-interval
+    text formats (solution files: 8N rows; global-Z files: Npoly*8N).
+
+    A body row is valid iff it is newline-terminated, has the same
+    column count as the first row, its leading counter sits at the
+    expected cycle position, and every token parses as a float; the
+    first invalid row (a torn tail from a mid-write kill) invalidates
+    everything after it.  ``truncate=True`` atomically rewrites the
+    file keeping only the complete leading intervals — resume re-opens
+    it in append mode afterwards."""
+    with open(path) as f:
+        lines = f.readlines()
+    header_end = None
+    rows_per = None
+    for i, ln in enumerate(lines):
+        s = ln.strip()
+        if not s or s.startswith("#"):
+            continue
+        rows_per = rows_per_interval_fn(s.split())
+        header_end = i + 1
+        break
+    if rows_per is None or rows_per <= 0:
+        raise ValueError(f"{path}: no parseable header line")
+    body = lines[header_end:]
+    ncols = None
+    good = 0
+    for ln in body:
+        if not ln.endswith("\n"):
+            break  # torn final line (no newline = interrupted write)
+        toks = ln.split()
+        if not toks:
+            break
+        if ncols is None:
+            ncols = len(toks)
+        if len(toks) != ncols:
+            break
+        if toks[0] != str(good % rows_per):
+            break  # counter out of cycle: rows lost or interleaved
+        try:
+            for t in toks[1:]:
+                float(t)
+        except ValueError:
+            break
+        good += 1
+    n_intervals = good // rows_per
+    if max_intervals is not None and n_intervals > max_intervals:
+        # intervals past the newest checkpoint: complete but about to
+        # be recomputed by the resumed loop — drop them so the re-run
+        # tile appends exactly once
+        n_intervals = int(max_intervals)
+    torn_rows = len(body) - n_intervals * rows_per
+    result = {
+        "n_intervals": n_intervals,
+        "torn_rows": torn_rows,
+        "rows_per_interval": rows_per,
+        "truncated": False,
+    }
+    if truncate and torn_rows:
+        keep = lines[: header_end + n_intervals * rows_per]
+        tmp = f"{path}.tmp.validate"
+        with open(tmp, "w") as f:
+            f.writelines(keep)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        result["truncated"] = True
+    return result
+
+
+def validate_solutions(path: str, truncate: bool = False,
+                       max_intervals=None) -> dict:
+    """Detect (and optionally truncate) a partial trailing interval in
+    a solution file.  Returns ``{"n_intervals", "torn_rows",
+    "rows_per_interval", "truncated"}``.  Used by elastic resume to
+    re-open a crashed run's solution file append-consistently: every
+    interval is exactly 8N rows with a cycling 0..8N-1 counter, so any
+    remainder is a torn tail from a mid-write kill.  ``max_intervals``
+    additionally drops complete intervals past the resume point."""
+    return _validate_interval_file(
+        path, lambda tok: 8 * int(tok[3]), truncate=truncate,
+        max_intervals=max_intervals)
+
+
+def validate_global_z(path: str, truncate: bool = False,
+                      max_intervals=None) -> dict:
+    """:func:`validate_solutions` for the distributed app's global-Z
+    file (header ``freq(MHz) npoly stations clusters eff``; one
+    timeslot = ``npoly * 8N`` rows)."""
+    return _validate_interval_file(
+        path, lambda tok: int(tok[1]) * 8 * int(tok[2]), truncate=truncate,
+        max_intervals=max_intervals)
 
 
 def read_solutions(path: str):

@@ -8,6 +8,13 @@ flags, so an edited source or header is rebuilt and an unchanged one is
 reused.  Nothing is built when this module is imported: :func:`load`
 builds at first use, and :func:`build_all` starts one ``nvcc`` per
 source, all at once.
+
+With a kernel store attached (:func:`attach_store`, a
+``serve/aot_store.py::AOTArtifactStore`` shared by a fleet's workers),
+libraries are looked up in the store first, by the same digest plus the
+runtime's versions; a miss is built in a temporary directory and saved
+into the store, so a second worker builds nothing.  ``builds`` counts
+the ``nvcc`` runs of this process.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import contextlib
 import subprocess
 import tempfile
 
@@ -81,6 +89,10 @@ SIGNATURES = {
 }
 
 _loaded: dict = {}
+# the kernel store in use (None: BUILD_DIR) and the nvcc runs made by
+# this process
+_store = None
+builds = 0
 # compiler output (ptxas register/shared-memory report) of builds made by
 # this process, per source name
 build_logs: dict = {}
@@ -97,23 +109,37 @@ def nvcc_path() -> str:
                        "from source on a machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
+def source_digest(name: str) -> str:
+    """Digest of the flags, ``csrc/<name>.cu`` and every header beside
+    it (which it may include)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # the source and every header beside it, which it may include
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for f in [name + ".cu"] + headers:
         with open(os.path.join(CSRC, f), "rb") as fh:
             digest.update(fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
 
 
-def _start(name: str):
-    """Start nvcc for ``csrc/<name>.cu`` (None when already built)."""
-    out = _lib_path(name)
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
+
+
+def attach_store(store) -> None:
+    """Build into and load from ``store`` (an ``AOTArtifactStore``; None
+    detaches).  Libraries this process already loaded stay loaded."""
+    global _store
+    _store = store
+
+
+def _start(name: str, out: str = None):
+    """Start nvcc for ``csrc/<name>.cu`` into ``out`` (default: its
+    BUILD_DIR path; None when already built there)."""
+    out = out or _lib_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir = os.path.dirname(out)
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC, name + ".cu")]
@@ -123,8 +149,10 @@ def _start(name: str):
 
 
 def _finish(name: str, started) -> None:
+    global builds
     if started is None:
         return
+    builds += 1
     proc, tmp, out = started
     log, _ = proc.communicate()
     build_logs[name] = log
@@ -138,10 +166,33 @@ def build_all(names=None) -> dict:
     """Build every source (one nvcc each, started together); returns
     {name: library path}."""
     names = list(SIGNATURES) if names is None else list(names)
+    if _store is not None:
+        return _build_into_store(_store, names)
     started = {n: _start(n) for n in names}
     for n in names:
         _finish(n, started[n])
     return {n: _lib_path(n) for n in names}
+
+
+def _build_into_store(store, names) -> dict:
+    """Every library from ``store``; the misses built together (one nvcc
+    each) in a temporary directory under the artifacts' locks, then
+    saved into the store."""
+    digests = {n: source_digest(n) for n in names}
+    paths, started = {}, {}
+    with contextlib.ExitStack() as stack:
+        for n in sorted(names):
+            stack.enter_context(store.locked(n, digests[n]))
+        tmpdir = stack.enter_context(tempfile.TemporaryDirectory())
+        for n in names:
+            paths[n] = store.lookup(n, digests[n])
+            if paths[n] is None:
+                started[n] = _start(n, os.path.join(tmpdir, f"lib{n}.so"))
+        for n, st in started.items():
+            _finish(n, st)
+            paths[n] = store.save(n, digests[n],
+                                  os.path.join(tmpdir, f"lib{n}.so"))
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -204,6 +204,36 @@ def read_events(path: str) -> List[dict]:
     return out
 
 
+def expand_event_paths(path: str) -> List[str]:
+    """Resolve an event-log argument to the set of JSONL files it names:
+    a directory expands to its ``*.jsonl`` files (plus per-process
+    ``*.jsonl.<pid>`` siblings); a file expands to itself plus any
+    ``<file>.<pid>`` companions written by
+    ``SAGECAL_EVENT_LOG_PER_PROCESS=1`` runs."""
+    import glob as _glob
+
+    if os.path.isdir(path):
+        out = sorted(_glob.glob(os.path.join(path, "*.jsonl")))
+        out += sorted(p for p in _glob.glob(os.path.join(path, "*.jsonl.*"))
+                      if p.rsplit(".", 1)[-1].isdigit())
+        return out
+    out = [path] if os.path.exists(path) else []
+    out += sorted(p for p in _glob.glob(path + ".*")
+                  if p.rsplit(".", 1)[-1].isdigit())
+    return out
+
+
+def read_events_merged(path: str) -> List[dict]:
+    """Read + merge events from every file :func:`expand_event_paths`
+    resolves, in stable timestamp order (the ``diag``-side merge for
+    per-process suffixed logs)."""
+    events: List[dict] = []
+    for p in expand_event_paths(path):
+        events.extend(read_events(p))
+    events.sort(key=lambda e: float(e.get("ts", 0.0)))
+    return events
+
+
 def default_event_log(manifest: Optional[RunManifest] = None,
                       path: Optional[str] = None) -> Optional[EventLog]:
     """An :class:`EventLog` at ``path``, ``SAGECAL_EVENT_LOG`` or

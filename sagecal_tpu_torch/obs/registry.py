@@ -9,9 +9,9 @@ returns.  With telemetry off (``SAGECAL_TELEMETRY`` unset or falsy)
 mutators do nothing, so call sites need no guards.  ``export_state``
 gives the structured dump the serve path writes as a metrics snapshot
 at the end of a run (``obs/aggregate.py``), and a histogram's
-``quantile_bounds`` serve the drift report (``obs/drift.py``).  The
-reference's ``restore_state`` and histogram merge serve resume and the
-fleet view, and wait with them (ROADMAP.md, A9).
+``quantile_bounds`` serve the drift report (``obs/drift.py``).
+``restore_state`` and the histogram merge serve the service's resume
+(its checkpoints carry the registry) and the fleet view.
 """
 
 from __future__ import annotations
@@ -93,6 +93,37 @@ class _Histogram:
             "min": self.vmin if self.count else None,
             "max": self.vmax if self.count else None,
         }
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "_Histogram":
+        h = cls(snap["buckets"])
+        counts = list(snap["counts"])
+        if len(counts) != len(h.counts):
+            raise ValueError(
+                f"histogram snapshot has {len(counts)} buckets, "
+                f"expected {len(h.counts)}")
+        h.counts = [int(c) for c in counts]
+        h.count = int(snap["count"])
+        h.total = float(snap["sum"])
+        if h.count:
+            h.vmin = float(snap["min"])
+            h.vmax = float(snap["max"])
+        return h
+
+    def merge(self, other: "_Histogram") -> None:
+        """Fold ``other`` into this histogram in place.  Bucket layouts
+        must match exactly — merging is only defined shard-by-shard over
+        the same metric."""
+        if self.buckets != other.buckets:
+            raise ValueError(
+                f"cannot merge histograms with different buckets: "
+                f"{self.buckets} vs {other.buckets}")
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        self.vmin = min(self.vmin, other.vmin)
+        self.vmax = max(self.vmax, other.vmax)
 
     def quantile_bounds(self, q: float) -> Optional[Tuple[float, float]]:
         """Exact (lower, upper) bound on the q-quantile from the bucket
@@ -206,6 +237,71 @@ class MetricsRegistry:
                     for key, h in series.items()
                 ],
             }
+
+    def restore_state(self, state: dict) -> None:
+        """Fold an :meth:`export_state` document back into this registry
+        (used on ``--resume`` so counters stay monotonic across
+        preemptions).  Counters and histograms accumulate; gauges are
+        only restored where no fresher value exists."""
+        if not state:
+            return
+        with self._lock:
+            for ent in state.get("counters", ()):
+                key = tuple(tuple(kv) for kv in ent["labels"])
+                series = self._counters.setdefault(ent["name"], {})
+                series[key] = series.get(key, 0.0) + float(ent["value"])
+            for ent in state.get("gauges", ()):
+                key = tuple(tuple(kv) for kv in ent["labels"])
+                series = self._gauges.setdefault(ent["name"], {})
+                series.setdefault(key, float(ent["value"]))
+            for ent in state.get("histograms", ()):
+                key = tuple(tuple(kv) for kv in ent["labels"])
+                series = self._histograms.setdefault(ent["name"], {})
+                incoming = _Histogram.from_snapshot(ent)
+                if key in series:
+                    series[key].merge(incoming)
+                else:
+                    series[key] = incoming
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (scrape a long run by dumping this
+        to a file the node exporter's textfile collector watches)."""
+        lines = []
+        with self._lock:
+            for name in sorted(self._counters):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} counter")
+                for key, v in sorted(self._counters[name].items()):
+                    lines.append(f"{name}{_fmt_labels(key)} {v:g}")
+            for name in sorted(self._gauges):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} gauge")
+                for key, v in sorted(self._gauges[name].items()):
+                    lines.append(f"{name}{_fmt_labels(key)} {v:g}")
+            for name in sorted(self._histograms):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} histogram")
+                for key, h in sorted(self._histograms[name].items()):
+                    cum = 0
+                    for b, c in zip(h.buckets, h.counts):
+                        cum += c
+                        le = _fmt_labels(key + (("le", f"{b:g}"),))
+                        lines.append(f"{name}_bucket{le} {cum}")
+                    le = _fmt_labels(key + (("le", "+Inf"),))
+                    lines.append(f"{name}_bucket{le} {h.count}")
+                    lines.append(f"{name}_sum{_fmt_labels(key)} {h.total:g}")
+                    lines.append(f"{name}_count{_fmt_labels(key)} {h.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def clear(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._histograms.clear()
+            self._help.clear()
 
     def to_prometheus(self) -> str:
         """Prometheus text exposition (scrape a long run by dumping this

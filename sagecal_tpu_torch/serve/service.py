@@ -42,9 +42,14 @@ the phase chain (enqueue, schedule, pack, cache_hit or compile, execute,
 unpack, write_manifest) as children (``_emit_lifecycle``, the
 reference's); the root's id is in the result manifest.
 
-Not ported here, each refused by name (:func:`_refuse`): per-tenant
-checkpoints and ``--resume`` (``elastic/``, ROADMAP.md A9) and the
-cross-worker executable store (A9).
+Elastic state is per tenant, as in the reference: with
+``checkpoint_every`` or ``resume`` each tenant gets a
+``CheckpointManager`` under ``<checkpoint_dir>/tenants/<tenant>`` whose
+checkpoints hold the tenant's ``done`` flags (and, with telemetry on,
+the registry's state, restored on resume so counters stay monotonic);
+a resumed run skips the requests already served.  ``aot_store``: a
+``serve/aot_store.py::AOTArtifactStore`` the kernel build module loads its
+libraries from (a fleet's workers share one).
 """
 
 from __future__ import annotations
@@ -63,19 +68,6 @@ from sagecal_tpu_torch.obs.trace import get_tracer
 from sagecal_tpu_torch.serve.bucket import BucketSpec, bucket_of, pad_indices
 from sagecal_tpu_torch.serve.cache import ExecutableCache
 from sagecal_tpu_torch.serve.request import SolveRequest, write_result_manifest
-
-
-def _refuse(cfg) -> None:
-    """NotImplementedError for every serve option whose module is not
-    ported, naming its ROADMAP.md item."""
-    if cfg.resume or cfg.checkpoint_every > 0 or cfg.checkpoint_dir:
-        raise NotImplementedError(
-            "not ported yet: resume / checkpoint_every / checkpoint_dir need "
-            "elastic/checkpoint.py's CheckpointManager (ROADMAP.md, A9)")
-    if cfg.aot_store:
-        raise NotImplementedError(
-            "not ported yet: aot_store needs serve/aot_store.py, which "
-            "comes with the fleet's workers (ROADMAP.md, A9)")
 
 
 def _merge_sage_config(cfg, req: SolveRequest):
@@ -239,12 +231,18 @@ class CalibrationService:
     percentiles, executable-cache stats) used by the CLI and the
     tests."""
 
-    def __init__(self, cfg, log=print, device=None, open_file=None):
+    def __init__(self, cfg, log=print, device=None, open_file=None,
+                 aot_store=None):
         self.cfg = cfg
         self.log = log
         self.device = resolve_device(device)
         self.open_file = open_file
         self.cache = ExecutableCache()
+        self.aot_store = aot_store
+        if aot_store is not None and self.device.type == "cuda":
+            from sagecal_tpu_torch.kernels import build
+
+            build.attach_store(aot_store)
         self._sky_cache: Dict[tuple, tuple] = {}
         self._results: List[Dict[str, Any]] = []
         self._latencies: List[float] = []
@@ -544,25 +542,78 @@ class CalibrationService:
 
     def run(self, requests: List[SolveRequest], elog=None
             ) -> Dict[str, Any]:
+        from sagecal_tpu_torch.elastic.checkpoint import (
+            CheckpointManager, config_fingerprint,
+        )
         from sagecal_tpu_torch.obs.quality import DivergenceAbort
         from sagecal_tpu_torch.obs.registry import get_registry
 
-        _refuse(self.cfg)
         cfg, reg = self.cfg, get_registry()
         t_start = time.time()
         os.makedirs(cfg.out_dir, exist_ok=True)
         self._slo = self._build_slo_monitor()
-        if cfg.shadow_rate > 0.0:
+        shadow_owned = False
+        if self.shadow is None and cfg.shadow_rate > 0.0:
+            # a fleet worker injects its own persistent auditor (its
+            # budget is per worker); the standalone service owns one
             from sagecal_tpu_torch.obs.shadow import ShadowAuditor
 
             self.shadow = ShadowAuditor(
                 cfg.out_dir, rate=cfg.shadow_rate,
                 budget_s=cfg.shadow_budget_s, seed=cfg.shadow_seed,
                 device=self.device, log=self.log)
+            shadow_owned = True
 
+        # per-tenant elastic state: which requests already finished
         tenants = list(dict.fromkeys(r.tenant for r in requests))
-        queues = {t: collections.deque(r for r in requests if r.tenant == t)
-                  for t in tenants}
+        by_tenant = {t: [r for r in requests if r.tenant == t]
+                     for t in tenants}
+        ckmgrs: Dict[str, CheckpointManager] = {}
+        done_flags: Dict[str, np.ndarray] = {}
+        skipped = 0
+        resumed_metrics: List[tuple] = []  # (metrics_ts, state)
+        for t in tenants:
+            reqs = by_tenant[t]
+            flags = np.zeros(len(reqs), np.uint8)
+            if cfg.resume or cfg.checkpoint_every > 0:
+                fp = config_fingerprint(
+                    app="serve", tenant=t,
+                    requests=[(r.request_id, os.path.abspath(r.dataset),
+                               r.t0, r.tilesz, r.in_column) for r in reqs],
+                    use_f64=cfg.use_f64)
+                mgr = ckmgrs[t] = CheckpointManager(
+                    os.path.join(cfg.checkpoint_dir or os.path.join(
+                        cfg.out_dir, "serve.ckpt"), "tenants", t),
+                    fp, "serve", every=max(cfg.checkpoint_every, 1),
+                    elog=elog, log=self.log)
+                found = mgr.resume() if cfg.resume else None
+                if found is not None:
+                    rmeta, rarr, rpath = found
+                    flags = np.asarray(rarr["done"], np.uint8).copy()
+                    n = int(flags.sum())
+                    skipped += n
+                    self.log(f"resume[{t}]: {n}/{len(reqs)} requests "
+                             f"already served ({rpath})")
+                    if rmeta.get("metrics"):
+                        resumed_metrics.append(
+                            (float(rmeta.get("metrics_ts", 0.0)),
+                             rmeta["metrics"]))
+                    if elog is not None:
+                        for r, f in zip(reqs, flags):
+                            if f:
+                                elog.emit("request_skipped_resume",
+                                          request_id=r.request_id, tenant=t)
+            done_flags[t] = flags
+        if resumed_metrics and reg.enabled:
+            # every tenant checkpoint holds the whole registry: restore
+            # only the newest, so counters stay monotonic without
+            # counting twice
+            reg.restore_state(max(resumed_metrics, key=lambda x: x[0])[1])
+
+        queues = {
+            t: collections.deque(
+                r for r, f in zip(by_tenant[t], done_flags[t]) if not f)
+            for t in tenants}
         enqueued_at = {
             r.request_id: r.enqueued_at or time.time()
             for t in tenants for r in queues[t]}
@@ -586,6 +637,21 @@ class CalibrationService:
         pending: Dict[tuple, List[_Entry]] = collections.defaultdict(list)
         served = 0
 
+        def mark_done(entry: _Entry) -> None:
+            t = entry.req.tenant
+            i = next(i for i, r in enumerate(by_tenant[t])
+                     if r.request_id == entry.req.request_id)
+            done_flags[t][i] = 1
+            if t in ckmgrs:
+                # the registry's state rides the checkpoint, so a resume
+                # keeps counters instead of resetting them
+                extra = (dict(metrics=reg.export_state(),
+                              metrics_ts=time.time())
+                         if reg.enabled else {})
+                ndone = int(done_flags[t].sum())
+                ckmgrs[t].update(ndone - 1, {"done": done_flags[t]},
+                                 requests_done=ndone, tenant=t, **extra)
+
         def dispatch(bkey, padded_flush):
             nonlocal served
             bucket, fp = bkey
@@ -593,6 +659,8 @@ class CalibrationService:
             self._dispatch(bucket, fp, entries, cfg.batch, elog,
                            padded_flush)
             served += len(entries)
+            for e in entries:
+                mark_done(e)
 
         try:
             for skey, t0s in stream_t0s.items():
@@ -635,8 +703,11 @@ class CalibrationService:
             # success path every stream already closed on its sentinel;
             # on an error path pool.close() reaps the still-open ones
             pool.close()
-            if self.shadow is not None:
+            if self.shadow is not None and shadow_owned:
                 self.shadow.close()
+            for mgr in ckmgrs.values():
+                mgr.flush()
+                mgr.close()
             if reg.enabled:
                 # one cumulative snapshot per worker (obs/aggregate.py)
                 from sagecal_tpu_torch.obs.aggregate import (
@@ -654,7 +725,7 @@ class CalibrationService:
         p50 = lat[len(lat) // 2] if lat else 0.0
         summary = {
             "requests": len(requests), "served": served,
-            "skipped_resume": 0,
+            "skipped_resume": skipped,
             "tenants": len(tenants), "buckets": self.cache.stats(),
             "wall_s": wall,
             "solves_per_sec": served / wall if wall > 0 else 0.0,

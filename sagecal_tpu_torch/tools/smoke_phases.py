@@ -28,10 +28,10 @@ import time
 # skipped
 PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
           "phase_main", "phase_warm", "phase_extended", "phase_fullbatch",
-          "phase_beam", "phase_predict",
+          "phase_elastic", "phase_beam", "phase_predict",
           "phase_bisect",
           "phase_times", "serve_parity", "phase_serve", "serve_times",
-          "phase_service", "phase_distributed", "phase_minibatch",
+          "phase_service", "phase_fleet", "phase_distributed", "phase_minibatch",
           "phase_spatial", "phase_federated", "phase_spatial_app",
           "phase_sharded", "phase_multihost", "phase_widefield",
           "phase_refine")

@@ -5,10 +5,9 @@ package's ``RunConfig`` field by field for a spread of argv (the same
 flags and defaults); ``main(argv, device="cpu")`` runs a fullbatch and
 returns 0, or 3 when ``--abort-on-divergence`` stops a diverged run;
 every mode the port does not have yet exits 2 naming its ROADMAP.md
-item (``serve``, ``spatial``, ``widefield``, ``refine``, ``-f`` and
-``-N`` are dispatched; their unported options are refused too:
-tests/test_torch_serve.py, and the ``-f``/``-N``/``spatial``/
-``widefield``/``refine`` cases here).  ``widefield``, ``refine`` (and
+item (``load``, ``stream``, ``convert``, ``diag``, ``--device-profile``);
+the elastic options of every app and the ``fleet`` subcommand run to
+exit 0.  ``widefield``, ``refine`` (and
 its ``--fused`` refusal, exit 2 with ``FusedSkyGradientError``) and
 ``-f ... --multihost`` run on the CPU; their results are held against
 the JAX package in tests/test_torch_widefield.py, test_torch_refine.py
@@ -21,6 +20,8 @@ test_torch_federated_app.py.
 """
 
 import dataclasses
+import glob
+import os
 
 import numpy as np
 import pytest
@@ -126,30 +127,74 @@ def test_main_returns_3_on_abort(work, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--requests", "r.json", "--resume"], "A9"),
-    (["fleet"], "A9"), (["load"], "A9"),
-    (["stream"], "A9"), (["widefield", "--resume"], "A9"),
-    (["refine", "--synthetic", "3", "--checkpoint-every", "1"], "A9"),
+    (["load"], "A9b"), (["stream"], "A9b"),
     (["convert", "a.ms", "b.h5"], "A10"),
     (["diag", "events"], "A11"),
-    (["widefield", "--checkpoint-every", "2"], "A9"),
-    (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--resume"], "A9"),
-    (["-f", "band*.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every",
-      "1"], "A9"),
-    (["spatial", "--synthetic", "2", "--resume"], "A9"),
-    (["spatial", "--synthetic", "2", "--checkpoint-every", "1"], "A9"),
-    (["-f", "band*.h5", "-s", "sky.txt", "--resume"], "A9"),
-    (["-d", "x.h5", "-s", "sky.txt", "-N", "1", "--checkpoint-every", "1"],
-     "A9"),
     (["-d", "x.h5", "-s", "sky.txt", "--device-profile", "prof"], "A11"),
-    (["-d", "x.h5", "-s", "sky.txt", "--resume"], "A9"),
-    (["refine", "--synthetic", "3", "--resume"], "A9"),
 ])
 def test_unported_modes_exit_nonzero_naming_their_item(argv, item, capsys):
     from sagecal_tpu_torch.apps.cli import main
 
     assert main(argv, device="cpu") == 2
     assert f"ROADMAP.md, {item}" in capsys.readouterr().err
+
+
+# the modes and options that waited for A9 (elastic/, fleet/) and exited
+# 2 naming it: each now runs to exit 0 on the CPU ({d}: a directory
+# with the test sky, one dataset a.h5 and three band files; their
+# resumed bits: tests/test_torch_resume_apps.py)
+SMALL = ["-e", "1", "-g", "2", "-l", "3", "-j", "1"]
+ELASTIC = [
+    ["serve", "--requests", "{d}/requests.json", "--batch", "1",
+     "--out-dir", "{d}/out", "--resume", *SMALL],
+    ["fleet", "--requests", "{d}/requests.json", "--workers", "1",
+     "--batch", "2", "--out-dir", "{d}/fleet", "--max-idle", "5", *SMALL],
+    ["widefield", "-n", "6", "--ntiles", "2", "-S", "60", "-k", "2",
+     "--out-dir", "{d}/wf", "--resume", *SMALL],
+    ["refine", "--synthetic", "3", "--outer-iters", "1", "--inner-iters",
+     "3", "--cg-iters", "4", "-o", "{d}/rf", "--checkpoint-every", "1"],
+    ["widefield", "-n", "6", "--ntiles", "2", "-S", "60", "-k", "2",
+     "--out-dir", "{d}/wf", "--checkpoint-every", "2", *SMALL],
+    ["-f", "{d}/band*.h5", "-s", "{d}/t.sky.txt", "-p", "{d}/s.txt", "-t",
+     "2", "-N", "1", "-M", "2", "-A", "2", "-l", "3", "--resume"],
+    ["-f", "{d}/band*.h5", "-s", "{d}/t.sky.txt", "-p", "{d}/s.txt", "-t",
+     "2", "-N", "1", "-M", "2", "-A", "2", "-l", "3", "--checkpoint-every",
+     "1"],
+    ["spatial", "--synthetic", "2", "--nstations", "5", "-o", "{d}/sp",
+     "--fista-maxiter", "5", "--resume", *SMALL],
+    ["spatial", "--synthetic", "2", "--nstations", "5", "-o", "{d}/sp",
+     "--fista-maxiter", "5", "--checkpoint-every", "1", *SMALL],
+    ["-f", "{d}/band*.h5", "-s", "{d}/t.sky.txt", "-p", "{d}/s.txt", "-t",
+     "2", "-A", "2", "--resume", *SMALL],
+    ["-d", "{d}/a.h5", "-s", "{d}/t.sky.txt", "-p", "{d}/s.txt", "-N", "1",
+     "-M", "2", "-l", "3", "--checkpoint-every", "1"],
+    ["-d", "{d}/a.h5", "-s", "{d}/t.sky.txt", "-p", "{d}/s.txt", "-t", "2",
+     "--resume", *SMALL],
+    ["refine", "--synthetic", "3", "--outer-iters", "1", "--inner-iters",
+     "3", "--cg-iters", "4", "-o", "{d}/rf", "--resume"],
+]
+
+
+@pytest.fixture()
+def elastic_data(tmp_path):
+    from test_torch_resume_apps import _bands, _dataset
+
+    from sagecal_tpu_torch.serve.synthetic import make_synthetic_workload
+
+    _bands(tmp_path)
+    _dataset(str(tmp_path / "a.h5"))
+    make_synthetic_workload(str(tmp_path), 2, n_tenants=1, device="cpu")
+    return tmp_path
+
+
+@pytest.mark.parametrize("i", range(len(ELASTIC)))
+def test_elastic_and_fleet_modes_run_to_exit_0(elastic_data, i):
+    from sagecal_tpu_torch.apps.cli import main
+
+    argv = [a.format(d=elastic_data) for a in ELASTIC[i]]
+    assert main(argv, device="cpu") == 0
+    if "--checkpoint-every" in argv:
+        assert glob.glob(f"{elastic_data}/**/ckpt_t*.npz", recursive=True)
 
 
 @pytest.fixture()

@@ -258,23 +258,31 @@ def _close_json(a, b):
         assert a == b, (a, b)
 
 
-REFUSED = {
-    "resume": (dict(resume=True), "A9"),
-    "checkpoint_every": (dict(checkpoint_every=1), "A9"),
+# the elastic options, refused until the port had elastic/, now run:
+# a fresh resume (no checkpoint yet) and a checkpointed run both solve
+# every tile (their bits against an uninterrupted run:
+# tests/test_torch_resume_apps.py)
+ELASTIC = {
+    "resume": dict(resume=True),
+    "checkpoint_every": dict(checkpoint_every=1),
 }
 
 
-@pytest.mark.parametrize("name", list(REFUSED) + [
+@pytest.mark.parametrize("name", list(ELASTIC) + [
     "SAGECAL_PROFILE_DIR", "SAGECAL_TRANSFER_AUDIT", "SAGECAL_CHECKIFY"])
 def test_unported_options_refuse(work, monkeypatch, name):
+    """The A11 options refuse naming their item; the elastic ones run."""
     from sagecal_tpu_torch.apps.fullbatch import run_fullbatch
 
-    if name in REFUSED:
-        kw, item = REFUSED[name]
-    else:
-        kw, item = {}, "A11"
-        monkeypatch.setenv(name, str(work / "x") if "DIR" in name else "1")
-    _, tcfg = _cfgs(work, **dict(BASE, **kw))
-    with pytest.raises(NotImplementedError, match=item):
+    if name in ELASTIC:
+        _, tcfg = _cfgs(work, **dict(BASE, **ELASTIC[name]))
+        res = run_fullbatch(tcfg, log=lambda *a: None, device="cpu")
+        assert len(res) == 2 and all(np.isfinite(r).all() for r in res)
+        assert sorted(os.listdir(str(work / "t.sol.ckpt"))) == [
+            "ckpt_t000000.npz", "ckpt_t000001.npz"]
+        return
+    monkeypatch.setenv(name, str(work / "x") if "DIR" in name else "1")
+    _, tcfg = _cfgs(work, **BASE)
+    with pytest.raises(NotImplementedError, match="A11"):
         run_fullbatch(tcfg, log=lambda *a: None, device="cpu")
     assert not os.path.exists(work / "t.sol")

@@ -61,6 +61,11 @@ MODULES = (
     "sagecal_tpu_torch.refine.skyparams", "sagecal_tpu_torch.refine.objective",
     "sagecal_tpu_torch.refine.implicit", "sagecal_tpu_torch.refine.outer",
     "sagecal_tpu_torch.apps.widefield", "sagecal_tpu_torch.apps.refine",
+    "sagecal_tpu_torch.elastic.faultinject", "sagecal_tpu_torch.fleet",
+    "sagecal_tpu_torch.fleet.queue", "sagecal_tpu_torch.fleet.admission",
+    "sagecal_tpu_torch.fleet.worker", "sagecal_tpu_torch.fleet.coordinator",
+    "sagecal_tpu_torch.obs.timeline", "sagecal_tpu_torch.obs.capacity",
+    "sagecal_tpu_torch.serve.aot_store", "sagecal_tpu_torch.apps.fleet",
 )
 
 

@@ -46,8 +46,13 @@ repeat) on a float32 tile whose diffuse cluster was predicted again.
 The rows-sharded joint fit, the hierarchical sky predict, the widefield
 app and the refinement gradient on the card within 1e-8 relative of the
 CPU at f64 (the predict 1e-10 of its max abs), the sharded fit and the
-predict bit-identical on repeat.
+predict bit-identical on repeat.  The fullbatch app stopped after its
+first checkpoint and resumed gives an uninterrupted run's bits; a kernel
+store built twice builds nothing the second time; a fleet worker on the
+card gives the CPU's dispositions, its solutions within 5e-3.
 """
+
+import os
 
 import pytest
 import torch
@@ -1622,3 +1627,163 @@ def test_refine_gradient_on_the_card_matches_the_cpu(cuda):
     hg, gg = got["cuda"]
     assert abs(float(hg) - float(hc)) <= 1e-8 * abs(float(hc))
     assert abs(float(gg[0]) - float(gc[0])) <= 1e-7 * abs(float(gc[0]))
+
+
+# ---------------------------------------------------------------------------
+# elastic resume, the kernel store and the fleet worker on the card
+
+
+def _memfile_dataset(path, device, ntime=6):
+    """A MemFile vis.h5 of the 2-cluster test sky at 7 stations (the card's
+    machine has no h5py)."""
+    import math
+
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.io.skymodel import load_sky
+
+    d = os.path.dirname(path)
+    sky = os.path.join(d, "t.sky.txt")
+    with open(sky, "w") as f:
+        f.write("P1 0 0 0.0 51 0 0.0 2.0 0 0 0 0 0 0 0 0 0 0 150e6\n"
+                "P2 0 2 0.0 50 30 0.0 1.0 0 0 0 0 0 0 0 0 0 0 150e6\n")
+    with open(sky + ".cluster", "w") as f:
+        f.write("1 1 P1\n2 1 P2\n")
+    clusters, _, _ = load_sky(sky, sky + ".cluster", 0.0, math.radians(51.0),
+                              dtype=torch.float64, device=device)
+    simulate_dataset(path, nstations=7, ntime=ntime, nchan=2,
+                     clusters=clusters, noise_sigma=1e-4, seed=0,
+                     dec0=math.radians(51.0), open_file=MemFile,
+                     device=device)
+    f = MemFile(path, "r+")
+    f.attrs["ra0"] = 0.0
+    f.attrs["dec0"] = math.radians(51.0)
+    return sky
+
+
+def test_fullbatch_kill_and_resume_on_the_card_is_bit_identical(
+        cuda, tmp_path, monkeypatch):
+    """f32 --fused (#3/#4 and #1): stopped after its first checkpoint,
+    then resumed, the solutions file and the residual column equal an
+    uninterrupted run's bit for bit."""
+    import numpy as np
+
+    from sagecal_tpu_torch.apps.cli import main
+    from sagecal_tpu_torch.elastic.checkpoint import CheckpointManager
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+
+    runs = {}
+    for name in ("a", "b"):
+        d = tmp_path / name
+        d.mkdir()
+        sky = _memfile_dataset(str(d / "x.h5"), cuda)
+        runs[name] = ["-d", str(d / "x.h5"), "-s", sky, "-p",
+                      str(d / "sol.txt"), "-t", "2", "-e", "1", "-g", "2",
+                      "-l", "4", "--f32", "--fused"]
+    assert main(runs["a"] + ["--checkpoint-every", "1"],
+                open_file=MemFile) == 0
+    update = CheckpointManager.update
+
+    class Stop(Exception):
+        pass
+
+    def stop(self, *a, **k):
+        if update(self, *a, **k) is not None:
+            raise Stop
+
+    with monkeypatch.context() as m:
+        m.setattr(CheckpointManager, "update", stop)
+        with pytest.raises(Stop):
+            main(runs["b"] + ["--checkpoint-every", "1"], open_file=MemFile)
+    assert main(runs["b"] + ["--resume"], open_file=MemFile) == 0
+    sol = [open(tmp_path / n / "sol.txt").read() for n in "ab"]
+    col = [np.asarray(MemFile(str(tmp_path / n / "x.h5"), "r")["corrected"])
+           for n in "ab"]
+    assert sol[0] == sol[1]
+    assert np.array_equal(col[0], col[1])
+    for n in "ab":
+        remove(str(tmp_path / n / "x.h5"))
+
+
+def test_kernel_store_second_load_builds_nothing(cuda, tmp_path, monkeypatch):
+    from sagecal_tpu_torch.kernels import build
+    from sagecal_tpu_torch.serve.aot_store import AOTArtifactStore
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "_store", None)
+    counts = []
+    for _ in range(2):
+        store = AOTArtifactStore(str(tmp_path / "store"))
+        build.attach_store(store)
+        before = build.builds
+        paths = build.build_all(["kbisect_b", "kbisect_c"])
+        counts.append((build.builds - before, store.builds, store.hits))
+        build._loaded.clear()
+        assert build.load("kbisect_b").kbisect_b is not None
+    build.attach_store(None)
+    assert counts == [(2, 2, 0), (0, 0, 2)]
+    assert all(p.startswith(str(tmp_path / "store")) for p in paths.values())
+    assert store.versions["capability"] == "%d.%d" % (
+        torch.cuda.get_device_capability())
+
+
+def test_fleet_worker_on_the_card_gives_the_cpu_dispositions(cuda, tmp_path):
+    """One in-process worker over a 4-request MemFile manifest, tenant1's
+    SLO burning (policy degrade), at f32 --fused on the card and on the
+    CPU: the same disposition per request, the solutions within 5e-3."""
+    import json
+    import time
+
+    import numpy as np
+
+    from sagecal_tpu_torch.apps.config import FleetConfig
+    from sagecal_tpu_torch.fleet.coordinator import seed_queue
+    from sagecal_tpu_torch.fleet.queue import LeaseQueue
+    from sagecal_tpu_torch.fleet.worker import FleetWorker
+    from sagecal_tpu_torch.io import solutions as solio
+    from sagecal_tpu_torch.io.memh5 import MemFile
+    from sagecal_tpu_torch.obs.slo import load_slo_specs
+    from sagecal_tpu_torch.serve.request import load_requests
+    from sagecal_tpu_torch.serve.synthetic import make_synthetic_workload
+
+    path = make_synthetic_workload(str(tmp_path / "w"), 4, n_tenants=2,
+                                   open_file=MemFile, device=cuda)
+    doc = json.load(open(path))
+    # tenant0's deadline is out of reach of any solve's latency (a kernel
+    # build included): only tenant1's blown history trips admission
+    doc["slos"] = [{"tenant": t, "deadline_s": d, "availability": 0.9,
+                    "windows_s": [60.0, 300.0], "shed_burn": 2.0}
+                   for t, d in (("tenant0", 3600.0), ("tenant1", 1.0))]
+    json.dump(doc, open(path, "w"))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / dev)
+        os.makedirs(out)
+        for i in range(10):  # tenant1 far past its deadline
+            json.dump({"request_id": f"old{i}", "tenant": "tenant1",
+                       "verdict": "ok", "latency_s": 9.0,
+                       "completed_at": time.time()},
+                      open(os.path.join(out, f"old{i}.result.json"), "w"))
+        cfg = FleetConfig(requests=path, out_dir=out, batch=2, max_emiter=1,
+                          max_iter=2, max_lbfgs=4, use_f64=False,
+                          use_fused_predict=True, max_idle_s=1.0,
+                          poll_s=0.05, timeline=False)
+        q = LeaseQueue(os.path.join(out, "queue"), worker="coord")
+        seed_queue(q, load_requests(path), load_slo_specs(path),
+                   log=lambda *a: None, open_file=MemFile)
+        FleetWorker(cfg, log=lambda *a: None, device=dev,
+                    open_file=MemFile).run()
+        got[dev] = {}
+        for n in sorted(os.listdir(out)):
+            if n.endswith(".result.json") and n.startswith("req"):
+                r = json.load(open(os.path.join(out, n)))
+                got[dev][r["request_id"]] = (
+                    "degrade" if r.get("degraded") else r["verdict"],
+                    solio.read_solutions(r["solutions"])[1])
+    assert sorted(got["cuda"]) == sorted(got["cpu"]) == [
+        f"req{i:03d}" for i in range(4)]
+    for rid, (how, sol) in got["cpu"].items():
+        how_c, sol_c = got["cuda"][rid]
+        assert how_c == how
+        assert np.abs(sol_c - sol).max() <= 5e-3 * np.abs(sol).max()
+    assert {got["cuda"][r][0] for r in ("req001", "req003")} == {"degrade"}
