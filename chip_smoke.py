@@ -329,7 +329,51 @@ fleet       (run after phase 12, over its request manifest and flags
             claims, steals, kernel builds, store hits and #5/#6, #3/#4
             launches printed; the surviving worker, the second to reach
             the store, builds nothing, and one library is built
-            fleet-wide.
+            fleet-wide.  The fleet runs with SAGECAL_TELEMETRY=1, so its
+            directory holds the event log that phase audit reads (the
+            service's solves collect no traces either way);
+stream      (run after phase elastic) the stream calibrator through the
+            ``stream`` subcommand's parser and config (``-t 20 --hop 10
+            --max-windows 3 -e 2 -g 1 -l 10 --warm-emiter 1 --warm-lbfgs
+            4 --f32 --checkpoint-every 1 --lease-ttl 5``, mode 3) and
+            ``apps.stream.run_stream`` over phase 7's dataset geometry
+            (62 stations, 100 clusters, 120 timeslots) in MemFile: one
+            uninterrupted run in this process (window 0 cold, 1-2 warm,
+            each res_1 < res_0 and a manifest with ``latency_s``, the
+            steady-state latency below window 0's, #1-#6 launched 0
+            times: the stream solves on the torch-op joint cost); then
+            the same run in a process that rebuilds the dataset,
+            SIGKILLed once window 0's checkpoint lands, whose live owner
+            lease must make ``check_owner_lease`` refuse a foreign owner
+            here; after the lease's TTL a ``--resume`` process adopts the
+            chain at window 1: its solutions file and the manifests'
+            results bit-identical to the uninterrupted run's, no kernel
+            launched;
+load        (run after phase fleet) the ``load`` subcommand (``--workers
+            2 --arrival poisson --rate 1.0 --duration 10 --warmup 10
+            --f32 --lease-ttl 5``) at the load generator's own workload
+            (the two tenant shapes of ``serve/synthetic.py``), its
+            datasets in MemFile, two worker processes on the card that
+            rebuild them from the load spec, SAGECAL_TELEMETRY=1: exit
+            0 (drained), every scheduled arrival exactly one result
+            manifest, the live and after-the-fact queue views
+            reconciled, no kernel launched in the workers (the
+            torch-op route); requests/s, p50 and p95 latency printed;
+audit       (host only) ``obs/audit.py::run_audit`` and
+            ``obs/replay.py::replay`` on the fleet and load phases'
+            directories: exit 0, no violation, every enqueued request
+            served, shed or failed; the fleet's with ``tear_record``
+            injected caught as a torn record;
+tools       (last) ``tools/restore.py`` renders a sky of two points and
+            an n0 = 3 shapelet (its ``.fits.modes`` file beside it) into
+            a 96 x 96 FITS image, the shapelet on the card, within 1e-12
+            of the CPU's rendering; ``tools/buildsky.py`` extracts the
+            two points back within tests/test_tools.py's tolerances
+            (fluxes 15%, the brightest within 2 pixels); the native core
+            (``tools/_native.py``) is built by g++ into
+            ``sagecal_tpu_torch/_build/``, not the scipy path;
+            ``tools/uvwriter.py`` rewrites a MemFile dataset's UVW in the
+            lunar frame, baseline lengths kept to 1e-12.
 
 The line before the last two is one JSON object ``{"kernels": [...]}``
 (all ten kernels; the probes at the north-star width),
@@ -418,6 +462,31 @@ SVC_TILES, SVC_A, SVC_B, SVC_HYBRID = 8, 16, 3, 2
 # and its workers; phase 12's flags without the shadow audits
 ELASTIC_TIMEOUT, FLEET_TIMEOUT, FLEET_TTL, FLEET_WORKERS = 300, 420, 5.0, 2
 FLEET_FLAGS = SVC_FLAGS[:-2]
+
+# the stream calibrator at the north-star width on phase 7's dataset
+# geometry (62 stations, 100 clusters, 120 timeslots): three windows of
+# 20 timeslots at a hop of 10, a cold window of two EM passes and warm
+# windows of one, at f32 in the default mode 3; the chain checkpointed
+# every window under an owner lease of STREAM_TTL s
+STREAM_TTL = 5.0
+STREAM_FLAGS = ("-t", "20", "--hop", "10", "--max-windows", "3", "-e", "2",
+                "-g", "1", "-l", "10", "--warm-emiter", "1", "--warm-lbfgs",
+                "4", "--f32", "--checkpoint-every", "1", "--lease-ttl",
+                str(STREAM_TTL))
+STREAM_WINDOWS, STREAM_TIMEOUT = 3, 300
+# the load generator at its own workload (the two tenant shapes of
+# serve/synthetic.py's SHAPE_CLASSES): a seeded poisson schedule of ~10
+# arrivals against 2 worker processes on the card
+LOAD_FLAGS = ("--workers", "2", "--arrival", "poisson", "--rate", "1.0",
+              "--duration", "10", "--warmup", "10", "--f32", "--lease-ttl",
+              "5", "--drain-timeout", "240")
+# the offline tools: tests/test_tools.py's two points and a shapelet of
+# TOOLS_N0 orders and scale TOOLS_BETA rad (a ~0.4 Jy peak) restored into
+# a 96 x 96 FITS image of 3e-3 deg pixels
+TOOLS_SKY = ("P1 1 0 0.0 45 0 0.0 2.0 0 0 0 0 0 0 0 0 0 0 150e6\n"
+             "P2 1 0 12.0 45 6 0.0 1.0 0 0 0 0 0 0 0 0 0 0 150e6\n"
+             "S4 1 0 9.0 44 55 0.0 1.0 0 0 0 0 0 0 0 0 0 0 150e6\n")
+TOOLS_N0, TOOLS_BETA, TOOLS_NPIX = 3, 1.5e-4, 96
 
 # the multi-band consensus ADMM (graded config 4: 32 sub-bands of the
 # north-star tile, sagecal-mpi -f -A 10 -P 2 -Q 2; cut to DIST_BANDS
@@ -2888,7 +2957,6 @@ def phase_fleet(dirname: str, svc: dict):
     from sagecal_tpu_torch.io.solutions import read_solutions
     from sagecal_tpu_torch.serve.request import load_requests
 
-    here = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(dirname, "fleet")
     store = os.path.join(dirname, "fleet-store")
     cfg = config_from_args(build_parser().parse_args(
@@ -2902,16 +2970,6 @@ def phase_fleet(dirname: str, svc: dict):
     def argv_fn(cfg_, slot):
         return [sys.executable, "-c", code, dirname,
                 *worker_argv(cfg_, slot)[3:]]
-
-    class Piped(subprocess.Popen):
-        """The workers' output, kept per pid."""
-
-        def __init__(self, args, **kw):
-            super().__init__(args, cwd=here, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True, **kw)
-            buf = outs[self.pid] = []
-            threading.Thread(target=lambda: buf.extend(self.stdout),
-                             daemon=True).start()
 
     pids, killed = [], {}
 
@@ -2955,13 +3013,16 @@ def phase_fleet(dirname: str, svc: dict):
             time.sleep(0.05)
 
     real_popen = subprocess.Popen
-    subprocess.Popen = Piped
+    subprocess.Popen = captured_popen(outs)
     watcher = threading.Thread(target=assassin, daemon=True)
     watcher.start()
     t = sync_clock()
     try:
-        summary = run_coordinator(cfg, requests=load_requests(
-            svc["manifest"]), log=log, open_file=MemFile, argv_fn=argv_fn)
+        # the event log on (the audit phase reads it); the service's
+        # solves collect no traces either way
+        summary = _with_env({"SAGECAL_TELEMETRY": "1"}, lambda: run_coordinator(
+            cfg, requests=load_requests(svc["manifest"]), log=log,
+            open_file=MemFile, argv_fn=argv_fn))
     finally:
         subprocess.Popen = real_popen
     wall = sync_clock() - t
@@ -3025,9 +3086,442 @@ def phase_fleet(dirname: str, svc: dict):
         fail(f"fleet: kernel builds per reporting worker {alive_builds}, "
              f"store {[w['store'] for w in workers]}")
     remove(svc["dataset"])
-    return {"wall_s": wall, "summary": summary, "workers": workers,
+    return {"out_dir": out_dir, "wall_s": wall, "summary": summary,
+            "workers": workers,
             "killed": killed, "bitwise": bitwise, "close": close,
             "worst_rel": worst}
+
+
+def stream_argv(path: str, sky: str, clus: str, out_dir: str, extra=()):
+    """The ``stream`` subcommand's arguments over phase 7's dataset."""
+    return ["-d", path, "-s", sky, "-c", clus, "--out-dir", out_dir,
+            *STREAM_FLAGS, *extra]
+
+
+def stream_run(argv, log):
+    """``apps.stream``'s parser and config over ``argv``, then
+    ``run_stream`` on the card over the in-memory dataset; returns the
+    summary and the launches of #1-#6 in the run (counts set to 0 just
+    before it)."""
+    from sagecal_tpu_torch.apps.stream import (
+        build_parser, config_from_args, run_stream,
+    )
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    _reset_launches()
+    summary = run_stream(cfg, log=log, open_file=MemFile)
+    return summary, _read_launches()
+
+
+def stream_child(dirname: str, out_dir: str, extra_json: str) -> None:
+    """One process of phase ``stream``: phase 7's dataset rebuilt in this
+    process's MemFile registry under ``dirname``, then the stream into
+    ``out_dir`` with the extra flags; prints one JSON line of its summary
+    and launches."""
+    path, sky, clus = fullbatch_dataset(dirname, NCLUSTERS, FB_NTIME, "st")
+    summary, launches = stream_run(
+        stream_argv(path, sky, clus, out_dir, json.loads(extra_json)),
+        log=lambda m: print(f"[stream child] {m}", flush=True))
+    print("[child] " + json.dumps({"summary": summary,
+                                   "launches": launches}), flush=True)
+
+
+def result_docs(out_dir: str) -> list:
+    """The result manifests in ``out_dir``, in file-name order (a
+    stream's in window order)."""
+    docs = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".result.json"):
+            with open(os.path.join(out_dir, name)) as fh:
+                docs.append(json.load(fh))
+    return docs
+
+
+def phase_stream(dirname: str):
+    """The stream calibrator: uninterrupted, killed, adopted (module
+    doc, phase stream)."""
+    import signal
+
+    from sagecal_tpu_torch.elastic.checkpoint import (
+        ResumeRefused, check_owner_lease, find_latest_checkpoint,
+        list_checkpoints,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t_start = sync_clock()
+    path, sky, clus = fullbatch_dataset(dirname, NCLUSTERS, FB_NTIME, "st")
+    make_s = sync_clock() - t_start
+    ref_dir = os.path.join(dirname, "stream-ref")
+    t = sync_clock()
+    ref, launches = stream_run(
+        stream_argv(path, sky, clus, ref_dir),
+        log=lambda m: print(f"[stream] {m}", flush=True))
+    ref_s = sync_clock() - t
+    docs = result_docs(ref_dir)
+    print(f"[stream] uninterrupted run {ref_s:.1f} s (dataset "
+          f"{make_s:.1f} s): windows {ref['solved']}/{ref['windows']}, "
+          f"warm {[d['warm'] for d in docs]}, res_0 -> res_1 "
+          + ", ".join(f"{d['res0']:.6e} -> {d['res1']:.6e}" for d in docs)
+          + f", latencies {[round(x, 3) for x in ref['latencies_s']]} s, "
+          f"steady-state {ref['latency_to_first_solution_s']:.3f} s, first "
+          f"{ref['first_window_latency_s']:.3f} s; owner lease fenced "
+          f"(a window outlasted the TTL) {ref['lease_fenced']}; launches "
+          f"of #1-#6 {launches}", flush=True)
+    if ref["solved"] != STREAM_WINDOWS or len(docs) != STREAM_WINDOWS:
+        fail(f"stream: {ref['solved']} windows solved, {len(docs)} "
+             f"manifests")
+    if [d["warm"] for d in docs] != [False] + [True] * (STREAM_WINDOWS - 1):
+        fail(f"stream: warm flags {[d['warm'] for d in docs]}")
+    for d in docs:
+        if not (np.isfinite(d["res1"]) and d["res1"] < d["res0"]):
+            fail(f"stream window {d['window']}: res_1 {d['res1']} not below "
+                 f"res_0 {d['res0']}")
+        if not d.get("latency_s", 0.0) > 0.0:
+            fail(f"stream window {d['window']}: no latency_s")
+    if not ref["latency_to_first_solution_s"] < ref["first_window_latency_s"]:
+        fail("stream: the steady-state latency is not below window 0's")
+    if any(launches.values()):
+        fail(f"stream: kernels launched on the torch-op route: {launches}")
+    with open(ref["solutions"]) as fh:
+        ref_sol = fh.read()
+
+    # a second process, SIGKILLed once window 0's checkpoint lands
+    out = os.path.join(dirname, "stream-kill")
+    ckpt = os.path.join(out, "stream.ckpt")
+    code = "import sys, chip_smoke; chip_smoke.stream_child(*sys.argv[1:])"
+    t = sync_clock()
+    proc = subprocess.Popen([sys.executable, "-c", code, dirname, out, "[]"],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    deadline = time.time() + STREAM_TIMEOUT
+    while proc.poll() is None and time.time() < deadline and \
+            not list_checkpoints(ckpt):
+        time.sleep(0.05)
+    if proc.poll() is not None or not list_checkpoints(ckpt):
+        proc.kill()
+        print(proc.communicate()[0][-4000:], flush=True)
+        fail("stream: the run to kill wrote no checkpoint")
+    os.kill(proc.pid, signal.SIGKILL)
+    proc.communicate(timeout=60)
+    kill_s = sync_clock() - t
+    meta, _, cpath = find_latest_checkpoint(ckpt)
+    try:
+        check_owner_lease(meta, "chip-smoke-foreign")
+        refused = ""
+    except ResumeRefused as e:
+        refused = str(e)
+    left = float(meta["lease_expires_at"]) - time.time()
+    with open(os.path.join(out, os.path.basename(ref["solutions"]))) as fh:
+        killed_sol = fh.read()
+    print(f"[stream] run SIGKILLed after window 0's checkpoint "
+          f"({os.path.basename(cpath)}, windows_done {meta['windows_done']}, "
+          f"owner {meta['owner']}) {kill_s:.1f} s after its start, exit "
+          f"{proc.returncode}; a foreign owner with {left:.2f} s of the lease "
+          f"left: {'refused' if refused else 'ADOPTED'} ({refused})",
+          flush=True)
+    if proc.returncode != -signal.SIGKILL or meta["windows_done"] != 1:
+        fail(f"stream: the killed run exited {proc.returncode} at "
+             f"windows_done {meta['windows_done']}")
+    if not refused or left <= 0.0:
+        fail("stream: a live foreign lease did not refuse the chain")
+    if not ref_sol.startswith(killed_sol) or killed_sol == ref_sol:
+        fail("stream: the killed run's solutions file is not a prefix of the "
+             "uninterrupted run's")
+
+    # after the TTL, another process adopts the chain
+    time.sleep(max(float(meta["lease_expires_at"]) - time.time(), 0.0) + 0.2)
+    t = sync_clock()
+    r = subprocess.run([sys.executable, "-c", code, dirname, out,
+                        json.dumps(["--resume"])], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=STREAM_TIMEOUT)
+    adopt_s = sync_clock() - t
+    got = [json.loads(line[8:]) for line in r.stdout.splitlines()
+           if line.startswith("[child] ")]
+    if r.returncode != 0 or not got:
+        print((r.stdout + r.stderr)[-4000:], flush=True)
+        fail(f"stream: the adopting run exited {r.returncode}")
+    adopted = got[0]["summary"]
+    with open(adopted["solutions"]) as fh:
+        same_sol = fh.read() == ref_sol
+    keys = ("request_id", "window", "t0", "warm", "verdict", "res0", "res1")
+    same_docs = [{k: d[k] for k in keys} for d in result_docs(out)] == \
+        [{k: d[k] for k in keys} for d in docs]
+    print(f"[stream] adopting run {adopt_s:.1f} s with process start and the "
+          f"dataset: resumed from window {adopted['resumed_from']}, solved "
+          f"{adopted['solved']}/{adopted['windows']}, latencies "
+          f"{[round(x, 3) for x in adopted['latencies_s']]} s, launches "
+          f"{got[0]['launches']}; solutions file bit-identical to the "
+          f"uninterrupted run's: {same_sol}; window manifests' results "
+          f"bit-identical: {same_docs}", flush=True)
+    if adopted["resumed_from"] != 1 or adopted["solved"] != STREAM_WINDOWS:
+        fail(f"stream: the adopter resumed from {adopted['resumed_from']}")
+    if not (same_sol and same_docs):
+        fail("stream: the adopted chain differs from the uninterrupted run")
+    if any(got[0]["launches"].values()):
+        fail(f"stream: the adopter launched kernels: {got[0]['launches']}")
+    from sagecal_tpu_torch.io.memh5 import remove
+
+    remove(path)
+    out_doc = {"dataset_s": make_s, "ref_s": ref_s, "summary": ref,
+               "launches": launches, "killed_s": kill_s, "adopt_s": adopt_s,
+               "adopted": adopted, "lease_left_s": left,
+               "seconds": sync_clock() - t_start}
+    print(f"[stream] phase wall time {out_doc['seconds']:.1f} s", flush=True)
+    return out_doc
+
+
+def captured_popen(outs: dict):
+    """A ``subprocess.Popen`` whose processes start from this script's
+    directory and whose output is kept in ``outs[pid]``, read by a
+    thread (the fleet and load phases' workers)."""
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    class Piped(subprocess.Popen):
+        def __init__(self, args, **kw):
+            super().__init__(args, cwd=here, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, **kw)
+            buf = outs[self.pid] = []
+            threading.Thread(target=lambda: buf.extend(self.stdout),
+                             daemon=True).start()
+
+    return Piped
+
+
+def load_worker(workdir: str, spec_json: str, *argv) -> None:
+    """One worker process of phase ``load``: the tenants' datasets
+    rebuilt in this process's MemFile registry from the load spec
+    (``fleet/loadgen.py::tenant_datasets``), then
+    ``apps.fleet.run_worker`` with the fleet's argv on the card; prints
+    one JSON line of its kernel launches (also when the coordinator's
+    SIGTERM ends it)."""
+    from sagecal_tpu_torch.apps.fleet import (
+        build_parser, config_from_args, run_worker,
+    )
+    from sagecal_tpu_torch.fleet.loadgen import LoadSpec, tenant_datasets
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    doc = json.loads(spec_json)
+    spec = LoadSpec(**{k: tuple(v) if isinstance(v, list) else v
+                       for k, v in doc.items()})
+    tenant_datasets(workdir, spec, open_file=MemFile)
+    _reset_launches()
+    try:
+        run_worker(config_from_args(build_parser().parse_args(argv)),
+                   open_file=MemFile)
+    finally:
+        print("[worker] " + json.dumps({"launches": _read_launches()}),
+              flush=True)
+
+
+def phase_load(dirname: str):
+    """The load generator against a live fleet on the card (module doc,
+    phase load)."""
+    import dataclasses
+
+    from sagecal_tpu_torch.apps.fleet import worker_argv
+    from sagecal_tpu_torch.apps.load import (
+        build_parser, main as load_main, spec_from_args,
+    )
+    from sagecal_tpu_torch.io.memh5 import MemFile
+
+    out = os.path.join(dirname, "load")
+    argv = ["--out-dir", out, *LOAD_FLAGS]
+    spec = spec_from_args(build_parser().parse_args(argv))
+    workdir = os.path.join(out, "workload")
+    code = "import sys, chip_smoke; chip_smoke.load_worker(*sys.argv[1:])"
+
+    def argv_fn(cfg_, slot):
+        return [sys.executable, "-c", code, workdir,
+                json.dumps(dataclasses.asdict(spec)),
+                *worker_argv(cfg_, slot)[3:]]
+
+    outs = {}
+    real_popen = subprocess.Popen
+    subprocess.Popen = captured_popen(outs)
+    t = sync_clock()
+    try:
+        rc = _with_env({"SAGECAL_TELEMETRY": "1"}, lambda: load_main(
+            argv, open_file=MemFile, argv_fn=argv_fn,
+            log=lambda m: print(f"[load] {m}", flush=True)))
+    finally:
+        subprocess.Popen = real_popen
+    wall = sync_clock() - t
+    with open(os.path.join(out, "load_report.json")) as fh:
+        report = json.load(fh)
+    with open(os.path.join(out, "load_steps.json")) as fh:
+        steps = json.load(fh)
+    submitted = [a["request_id"] for a in steps["submitted"]]
+    docs = result_docs(out)
+    ids = [d["request_id"] for d in docs]
+    served = [d for d in docs if d.get("verdict") not in ("shed", "error")]
+    lat = sorted(d["latency_s"] for d in served)
+    p50 = float(np.percentile(lat, 50)) if lat else float("nan")
+    p95 = float(np.percentile(lat, 95)) if lat else float("nan")
+    rps = len(served) / report["wall_s"] if report["wall_s"] > 0 else 0.0
+    workers = []
+    for lines in outs.values():
+        rows = [json.loads(x[9:]) for x in lines if x.startswith("[worker] ")]
+        workers.extend(rows[-1:])
+    print(f"[load] exit {rc} in {wall:.1f} s with process start: "
+          f"{len(submitted)} arrivals, {len(docs)} result manifests "
+          f"({report['served']} served, {report['shed']} shed, "
+          f"{report['errors']} errors); {rps:.4f} requests/s over the "
+          f"schedule and the drain ({report['wall_s']:.1f} s), p50 latency "
+          f"{p50:.3f} s, p95 {p95:.3f} s; saturation throughput "
+          f"{report['saturation_throughput_solves_per_sec']} solves/s; "
+          f"Little's law ok {report['littles_law']['ok']}, live vs "
+          f"after-the-fact depth reconciled {report['reconcile']['ok']}; "
+          f"workers {workers}", flush=True)
+    if rc != 0 or not report["drained"]:
+        fail(f"load: exit {rc}, drained {report['drained']}")
+    if not submitted or sorted(ids) != sorted(submitted):
+        fail(f"load: {len(docs)} manifests for {len(submitted)} arrivals")
+    if not report["reconcile"]["ok"]:
+        fail(f"load: the live and after-the-fact views disagree: "
+             f"{report['reconcile']}")
+    if len(workers) != 2 or any(any(w["launches"].values()) for w in workers):
+        fail(f"load: worker launches {workers}")
+    return {"out_dir": out, "wall_s": wall, "rc": rc, "report": report,
+            "requests_per_s": rps, "p50_latency_s": p50,
+            "p95_latency_s": p95, "arrivals": len(submitted),
+            "workers": workers}
+
+
+def phase_audit(dirs: dict):
+    """``run_audit`` and ``replay`` of the fleet and load phases' run
+    directories, and one injection caught (module doc, phase audit)."""
+    from sagecal_tpu_torch.obs.audit import format_audit, run_audit
+    from sagecal_tpu_torch.obs.replay import format_replay, load_run, replay
+
+    out = {}
+    t0 = time.perf_counter()
+    for name, d in dirs.items():
+        t = time.perf_counter()
+        rep = run_audit(d, inject="")
+        state = replay(load_run(d))
+        secs = time.perf_counter() - t
+        text = format_audit(rep)
+        print("\n".join(f"[audit] {name}: {line}" for line in
+                        (format_replay(state).splitlines()[:2]
+                         + text.splitlines()[-12:])), flush=True)
+        c = state.counts
+        out[name] = {"exit": rep.exit_code(), "violations": len(rep.violations),
+                     "counts": c, "seconds": secs}
+        if rep.exit_code() != 0 or rep.violations:
+            fail(f"audit {name}: exit {rep.exit_code()}, violations "
+                 f"{[v.render() for v in rep.violations]}")
+        if c["enqueued"] != c["served"] + c["shed"] + c["failed"] or \
+                c["pending"]:
+            fail(f"audit {name}: replayed counts {c}")
+    name, d = next(iter(dirs.items()))
+    rep = run_audit(d, inject="tear_record")
+    print(f"[audit] {name} with tear_record injected: exit "
+          f"{rep.exit_code()}, kinds {rep.kinds()}", flush=True)
+    if rep.exit_code() != 1 or "torn_record" not in rep.kinds():
+        fail("audit: the injected torn record was not caught")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tools_sky(dirname: str) -> str:
+    """TOOLS_SKY and its shapelet's ``S4.fits.modes`` (a seeded mode
+    vector) in ``dirname``."""
+    sky = os.path.join(dirname, "tools.sky")
+    with open(sky, "w") as fh:
+        fh.write(TOOLS_SKY)
+    modes = 3e-5 * np.random.default_rng(5).standard_normal(TOOLS_N0 ** 2)
+    modes[0] = 8e-5
+    with open(os.path.join(dirname, "S4.fits.modes"), "w") as fh:
+        fh.write(f"# ra dec\n1 0 9.0 44 55 0\n{TOOLS_N0} {TOOLS_BETA}\n")
+        fh.writelines(f"{k} {float(v)!r}\n" for k, v in enumerate(modes))
+    return sky
+
+
+def phase_tools(dirname: str):
+    """The offline tools (module doc, phase tools)."""
+    from sagecal_tpu_torch.io.dataset import simulate_dataset
+    from sagecal_tpu_torch.io.fits import FitsWCS, write_fits_image
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.tools import _native
+    from sagecal_tpu_torch.tools.buildsky import buildsky
+    from sagecal_tpu_torch.tools.restore import restore
+    from sagecal_tpu_torch.tools.uvwriter import rewrite_uvw
+
+    t_start = time.perf_counter()
+    n = TOOLS_NPIX
+    wcs = FitsWCS(crval1=15.0, crval2=45.0, crpix1=n / 2, crpix2=n / 2,
+                  cdelt1=-3e-3, cdelt2=3e-3)
+    blank = os.path.join(dirname, "blank.fits")
+    write_fits_image(blank, (0.005 * np.random.default_rng(8).standard_normal(
+        (n, n))).astype(np.float32), wcs, extra={"CRVAL3": 150e6})
+    sky = tools_sky(dirname)
+    t = sync_clock()
+    img = restore(sky, blank, os.path.join(dirname, "card.fits"))
+    restore_s = sync_clock() - t
+    cpu = restore(sky, blank, os.path.join(dirname, "cpu.fits"), device="cpu")
+    rel = float(np.abs(img - cpu).max() / np.abs(cpu).max())
+    t = time.perf_counter()
+    srcs = buildsky(os.path.join(dirname, "card.fits"),
+                    os.path.join(dirname, "rec.sky.txt"), threshold_sigma=5.0,
+                    maxP=2, log=lambda *a: None)
+    buildsky_s = time.perf_counter() - t
+    fluxes = sorted((s["flux"] for s in srcs), reverse=True)
+    bright = max(srcs, key=lambda s: s["flux"])
+    ra0, dec0 = math.radians(wcs.crval1), math.radians(wcs.crval2)
+    pix = 2 * math.radians(3e-3)
+    off = (abs((bright["ra"] - ra0) * math.cos(dec0)), abs(bright["dec"] - dec0))
+    backend, lib = _native.backend(), _native.library_path()
+    print(f"[tools] restore: {n} x {n} pixels, point, point and an n0 "
+          f"{TOOLS_N0} shapelet rendered on the card in {restore_s:.3f} s, "
+          f"{rel:.2e} of the CPU's image; buildsky: {len(srcs)} sources in "
+          f"{buildsky_s:.3f} s, fluxes {[round(f, 4) for f in fluxes]}, the "
+          f"brightest {off[0] / pix * 2:.2f}, {off[1] / pix * 2:.2f} pixels "
+          f"off the centre; native core: {backend} "
+          f"({os.path.relpath(lib, os.path.dirname(_native._PKG))}, g++ runs "
+          f"in this process {_native.builds})",
+          flush=True)
+    if not rel <= 1e-12:
+        fail(f"tools: the card's restore is {rel} off the CPU's")
+    if len(fluxes) < 2 or abs(fluxes[0] - 2.0) > 0.3 or \
+            abs(fluxes[1] - 1.0) > 0.15 or max(off) >= pix:
+        fail(f"tools: buildsky recovered {srcs}")
+    if backend != "native" or not os.path.exists(lib) or \
+            os.path.dirname(lib) != _native.BUILD_DIR:
+        fail(f"tools: the native core is not built ({backend}, {lib})")
+    path = os.path.join(dirname, "uvw.h5")
+    simulate_dataset(path, nstations=NSTATIONS, ntime=4, nchan=1,
+                     open_file=MemFile)
+    before = {k: np.asarray(MemFile(path, "r")[k]) for k in "uvw"}
+    xyz = np.random.default_rng(0).standard_normal((NSTATIONS, 3)) * 500.0
+    pos = os.path.join(dirname, "pos.txt")
+    np.savetxt(pos, xyz)
+    t = time.perf_counter()
+    rewrite_uvw(path, pos, "moon", log=lambda *a: None, open_file=MemFile)
+    uvw_s = time.perf_counter() - t
+    f = MemFile(path, "r")
+    after = np.stack([np.asarray(f[k]) for k in "uvw"], -1)
+    ap, aq = np.asarray(f["ant_p"]), np.asarray(f["ant_q"])
+    length = np.linalg.norm(xyz[ap] - xyz[aq], axis=1)
+    len_rel = float(np.abs(np.linalg.norm(after, axis=-1) - length).max()
+                    / length.max())
+    moved = float(np.abs(after[..., 0] - before["u"]).max())
+    remove(path)
+    print(f"[tools] uvwriter: {after.shape[0]} x {after.shape[1]} baselines "
+          f"rewritten in the lunar frame through MemFile in {uvw_s:.3f} s, "
+          f"baseline lengths kept to {len_rel:.1e}, u moved by {moved:.1f} m",
+          flush=True)
+    if not (len_rel <= 1e-12 and moved > 1.0):
+        fail(f"tools: uvwriter lengths {len_rel}, moved {moved}")
+    return {"restore_s": restore_s, "restore_rel_cpu": rel,
+            "buildsky_s": buildsky_s, "sources": len(srcs),
+            "fluxes": fluxes, "native": backend,
+            "native_builds": _native.builds, "uvwriter_s": uvw_s,
+            "seconds": time.perf_counter() - t_start}
 
 
 def serve_times():
@@ -4310,6 +4804,8 @@ def main():
         elastic_out = phase_elastic(d, fb_ref)
     del fb_ref
     with tempfile.TemporaryDirectory() as d:
+        stream_out = phase_stream(d)
+    with tempfile.TemporaryDirectory() as d:
         beam_out = phase_beam(d)
     for out in (ext_out, beam_out):
         for k, v in out["parity"]["worst"].items():
@@ -4368,6 +4864,9 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         svc_out = phase_service(d)
         fleet_out = phase_fleet(d, svc_out)
+        load_out = phase_load(d)
+        audit_out = phase_audit({"fleet": fleet_out["out_dir"],
+                                 "load": load_out["out_dir"]})
     with tempfile.TemporaryDirectory() as d:
         dist_out = phase_distributed(d)
         mh_out = phase_multihost(d)
@@ -4385,6 +4884,8 @@ def main():
         wf_out = phase_widefield(d)
     with tempfile.TemporaryDirectory() as d:
         rf_out = phase_refine(d)
+    with tempfile.TemporaryDirectory() as d:
+        tools_out = phase_tools(d)
     worst["fused_predict_fwd"] = max(worst["fused_predict_fwd"],
                                      spat_out["parity"]["model_max_abs_err"])
     for k, v in svc_out["parity"]["worst"].items():
@@ -4446,6 +4947,21 @@ def main():
           f"fleet: {fleet_out['wall_s']:.1f} s, {fs['solves_per_sec']:.4f} "
           f"requests/s, p50 {fs['p50_latency_s']:.3f} s, p95 "
           f"{fs['p95_latency_s']:.3f} s", flush=True)
+    ss = stream_out["summary"]
+    print(f"[times] ({card}) stream: uninterrupted run "
+          f"{stream_out['ref_s']:.1f} s, window latencies "
+          f"{[round(x, 3) for x in ss['latencies_s']]} s (steady-state "
+          f"{ss['latency_to_first_solution_s']:.3f} s), killed run "
+          f"{stream_out['killed_s']:.1f} s, adopting run "
+          f"{stream_out['adopt_s']:.1f} s with process start, phase "
+          f"{stream_out['seconds']:.1f} s; load: {load_out['wall_s']:.1f} s, "
+          f"{load_out['arrivals']} arrivals, "
+          f"{load_out['requests_per_s']:.4f} requests/s, p50 "
+          f"{load_out['p50_latency_s']:.3f} s, p95 "
+          f"{load_out['p95_latency_s']:.3f} s; audit "
+          f"{audit_out['seconds']:.2f} s (host); tools "
+          f"{tools_out['seconds']:.2f} s (restore on the card "
+          f"{tools_out['restore_s']:.3f} s)", flush=True)
 
     # the probes' entries: their north-star-width times and the kbisect
     # run's launches
@@ -4491,6 +5007,8 @@ def main():
                        "sharded": shard_out, "multihost": mh_out,
                        "widefield": wf_out, "refine": rf_out,
                        "elastic": elastic_out, "fleet": fleet_out,
+                       "stream": stream_out, "load": load_out,
+                       "audit": audit_out, "tools": tools_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,

@@ -14,15 +14,20 @@ calibration service (``apps/serve.py``), ``... cli spatial -f
 widefield ...`` the wide-field app (``apps/widefield.py``) and ``...
 cli refine ...`` sky-model refinement (``apps/refine.py``), ``... cli
 fleet ...`` a coordinator and its worker processes over a lease queue
-(``apps/fleet.py``); ``-f ...
+(``apps/fleet.py``), ``... cli stream ...`` sliding-window streaming
+calibration (``apps/stream.py``), ``... cli load ...`` the seeded load
+generator against a live fleet (``apps/load.py``) and ``... cli convert
+<ms> <h5> [spw]`` a MeasurementSet into a ``vis.h5`` (``io/dataset.py``;
+it needs python-casacore); ``-f ...
 --multihost`` runs the multi-band mode over ``torch.distributed`` ranks
 (``parallel/multihost.py``).  :func:`main` takes ``device`` for
 Python callers (``device="cpu"`` in the tests); the command line always
 means the card.  Exit codes: 0 done, 3 when ``--abort-on-divergence``
 stopped a diverged run, 5 when ``--resume`` found a checkpoint of
 another configuration (or a solutions file that disagrees with it), 2
-for a usage error or a mode the port does not have yet; the message
-names its ROADMAP.md item.
+for a usage error or a mode the port does not have yet (the message
+names its ROADMAP.md item), 4 when ``fleet`` or ``load`` left requests
+undrained.
 """
 
 from __future__ import annotations
@@ -34,10 +39,7 @@ from sagecal_tpu_torch.apps.config import RunConfig
 
 # subcommands of the reference CLI not ported yet and the ROADMAP.md
 # item that ports each one
-_SUBCOMMANDS = {
-    "diag": "A11", "load": "A9b", "stream": "A9b",
-    "convert": "A10",
-}
+_SUBCOMMANDS = {"diag": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -334,6 +336,23 @@ def main(argv=None, device=None, open_file=None) -> int:
         from sagecal_tpu_torch.apps.fleet import main as fleet_main
 
         return fleet_main(argv[1:], device=device, open_file=open_file)
+    if argv and argv[0] == "load":
+        from sagecal_tpu_torch.apps.load import main as load_main
+
+        return load_main(argv[1:], device=device, open_file=open_file)
+    if argv and argv[0] == "stream":
+        from sagecal_tpu_torch.apps.stream import main as stream_main
+
+        return stream_main(argv[1:], device=device, open_file=open_file)
+    if argv and argv[0] == "convert":
+        # convert <ms> <h5> [spw] — multi-SPW MSs convert one window
+        # per .h5 band file; needs python-casacore
+        from sagecal_tpu_torch.io.dataset import ms_to_h5
+
+        ms_to_h5(argv[1], argv[2],
+                 spw=int(argv[3]) if len(argv) > 3 else 0,
+                 open_file=open_file)
+        return 0
     if argv and argv[0] in _SUBCOMMANDS:
         return _not_ported(f"the {argv[0]!r} subcommand",
                            _SUBCOMMANDS[argv[0]])

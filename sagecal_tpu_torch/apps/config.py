@@ -7,8 +7,8 @@ kept, and ``apps/fullbatch.py`` refuses them by name.  :class:`ServeConfig`
 is the reference's too, for ``apps/serve.py``, :class:`SpatialConfig`
 for ``apps/spatial.py``, :class:`WidefieldConfig` for
 ``apps/widefield.py``, :class:`RefineConfig` for ``apps/refine.py`` and
-:class:`FleetConfig` for ``apps/fleet.py``; the stream and load configs
-belong to the apps of ROADMAP.md's A9b.
+:class:`FleetConfig` for ``apps/fleet.py`` and ``apps/load.py``, and
+:class:`StreamConfig` for ``apps/stream.py``.
 """
 
 from __future__ import annotations
@@ -404,3 +404,51 @@ class FleetConfig:
     shadow_seed: int = 0
     shadow_budget_s: float = 120.0
     abort_on_drift: bool = False
+
+
+@dataclasses.dataclass
+class StreamConfig:
+    """The ``stream`` app's configuration: streaming/online calibration.  The
+    dataset is consumed as a time stream; each sliding window of
+    ``window`` time samples (advanced by ``hop``) is solved with a
+    warm start from the previous window's gains via the elastic
+    warm-start chain, minimizing latency-to-first-solution."""
+
+    dataset: str = ""           # vis.h5 consumed as a time stream
+    sky_model: str = ""
+    cluster_file: str = ""
+    out_dir: str = "stream-out"
+    window: int = 2             # time samples per sliding window
+    hop: int = 1                # samples the window advances per solve
+    max_windows: int = 0        # 0 = run to the end of the stream
+    warm_start: bool = True     # p0 <- previous window's solution
+    # iteration budget for warm-started windows (the chain means a
+    # near-converged start; full budgets only for the cold window 0)
+    warm_emiter: int = 1
+    warm_lbfgs: int = 0         # 0 = inherit max_lbfgs
+    in_column: str = "vis"
+    # solver (RunConfig semantics)
+    max_emiter: int = 3
+    max_iter: int = 2
+    max_lbfgs: int = 10
+    lbfgs_m: int = 7
+    solver_mode: int = SM_OSLM_OSRLM_RLBFGS
+    nulow: float = 2.0
+    nuhigh: float = 30.0
+    randomize: bool = True
+    res_ratio: float = 5.0
+    # elastic: lease-aware stream checkpoints — the checkpoint carries
+    # an owner lease so a second stream process refuses to adopt a
+    # LIVE peer's chain and only resumes one whose lease expired
+    resume: bool = False
+    checkpoint_every: int = 1
+    checkpoint_dir: Optional[str] = None
+    lease_ttl_s: float = 30.0
+    use_f64: bool = True
+    verbose: bool = False
+    # synthetic mode (tests/bench): simulate a make_sky fixture stream
+    synthetic: int = 0          # >0: nstations of the synthetic array
+    ntime: int = 6
+    nchan: int = 2
+    noise_sigma: float = 0.0
+    seed: int = 7

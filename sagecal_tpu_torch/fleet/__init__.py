@@ -9,9 +9,12 @@ serve workers draining one shared request queue.
 - :mod:`~sagecal_tpu_torch.fleet.worker` — the claim-admit-solve-complete
   loop over the calibration service;
 - :mod:`~sagecal_tpu_torch.fleet.coordinator` — seeds the queue, spawns
-  and watches the workers, reports the merged fleet view.
-
-The stream calibrator and the load generator wait for ROADMAP.md's A9b.
+  and watches the workers, reports the merged fleet view;
+- :mod:`~sagecal_tpu_torch.fleet.stream` — the stream calibrator:
+  sliding-window solves with a warm-start chain and owner-lease
+  checkpoints;
+- :mod:`~sagecal_tpu_torch.fleet.loadgen` — the seeded open-loop load
+  generator against a live fleet.
 """
 
 from sagecal_tpu_torch.fleet.queue import (  # noqa: F401

@@ -24,7 +24,8 @@ freq0, deltaf, deltat, ra0, dec0, nstations, time_jd0; an optional
 longitude, latitude (N,), elem_x, elem_y, elem_z, elem_mask (N, Kmax);
 attributes b_ra0, b_dec0, bf_type, beam_f0) read by
 :meth:`VisDataset.load_beam`.  The MeasurementSet bridges
-``ms_to_h5``/``h5_to_ms`` wait for A10.
+:func:`ms_to_h5`/:func:`h5_to_ms` need ``python-casacore``; without it
+they raise the reference's RuntimeError (:func:`have_casacore`).
 """
 
 from __future__ import annotations
@@ -463,3 +464,255 @@ def simulate_dataset(path: str, nstations: int = 8, ntime: int = 8,
         flag=np.zeros((ntime, nbase, nchan), bool), freqs=freqs,
         nstations=nstations, deltaf=chan_bw * nchan, dec0=dec0,
         time_jd0=2460000.5, beam=beam, open_file=open_file)
+
+
+# --------------------------------------------------------------------------
+# optional casacore bridge (gated: python-casacore is not in this image)
+# --------------------------------------------------------------------------
+
+def have_casacore() -> bool:
+    try:
+        import casacore.tables  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def _ms_spw_rows(t, ms_path: str, spw: int):
+    """Boolean row mask selecting spectral window ``spw`` of the main
+    table, via DATA_DESC_ID -> DATA_DESCRIPTION/SPECTRAL_WINDOW_ID (the
+    casacore indirection; the reference assumes one SPW per MS and reads
+    CHAN_FREQ row 0, data.cpp:185-188 — multi-SPW MSs there are split
+    into per-band files for sagecal-mpi).  An MS without DATA_DESC_ID
+    is treated as single-SPW."""
+    from casacore.tables import table
+
+    if "DATA_DESC_ID" not in t.colnames():
+        n = t.nrows()
+        return np.ones((n,), bool)
+    ddid = np.asarray(t.getcol("DATA_DESC_ID"))
+    try:
+        dd = table(f"{ms_path}/DATA_DESCRIPTION")
+    except Exception:
+        # no DATA_DESCRIPTION subtable: DATA_DESC_ID indexes SPWs
+        # directly.  (Read errors INSIDE the subtable propagate below —
+        # silently reinterpreting ids there would select wrong rows.)
+        row_spw = ddid
+    else:
+        spw_of_dd = np.asarray(dd.getcol("SPECTRAL_WINDOW_ID"))
+        row_spw = spw_of_dd[ddid]
+    return row_spw == spw
+
+
+def _corr_to_jones(data, ncorr):
+    """(rows, nchan, ncorr) -> (rows, nchan, 4) in [XX, XY, YX, YY]
+    order: ncorr==2 is dual-pol XX/YY with zero cross-hands (the
+    reference's n_corr==2 path fills only slots 0-1 and 6-7,
+    data.cpp:684-695); ncorr==1 is XX only."""
+    if ncorr == 4:
+        return data
+    out = np.zeros(data.shape[:-1] + (4,), data.dtype)
+    out[..., 0] = data[..., 0]
+    if ncorr == 2:
+        out[..., 3] = data[..., 1]
+    elif ncorr != 1:
+        raise ValueError(f"unsupported correlation count {ncorr}")
+    return out
+
+
+def ms_to_h5(ms_path: str, h5_path: str, data_column: str = "DATA",
+             spw: int = 0, open_file=None) -> None:
+    """Convert a CASA MeasurementSet to the vis.h5 container (requires
+    python-casacore; mirrors Data::readAuxData + loadData,
+    src/MS/data.cpp).
+
+    ``spw``: spectral window to extract (multi-SPW MSs carry several
+    windows behind DATA_DESC_ID; the reference expects pre-split
+    per-band MSs and always reads window 0).  Correlation counts 4
+    (full), 2 (XX/YY) and 1 (XX) are accepted as in the reference's
+    loadData; WEIGHT_SPECTRUM (or WEIGHT) is carried into an optional
+    ``weight`` column, (ntime, nbase, nchan), averaged over
+    correlations — the solvers' robust weighting is internal (as in the
+    reference, which reads no MS weights), but the column survives the
+    round trip for downstream use.  ``open_file``: the ``vis.h5``
+    opener (module doc)."""
+    if not have_casacore():
+        raise RuntimeError(
+            "python-casacore is not installed; convert the MS on a host "
+            "that has it, then ship the .h5"
+        )
+    from casacore.tables import table
+
+    t = table(ms_path)
+    ant = table(f"{ms_path}/ANTENNA")
+    spwt = table(f"{ms_path}/SPECTRAL_WINDOW")
+    fld = table(f"{ms_path}/FIELD")
+    nstations = ant.nrows()
+    if not (0 <= spw < spwt.nrows()):
+        raise ValueError(
+            f"{ms_path}: spectral window {spw} out of range "
+            f"(SPECTRAL_WINDOW has {spwt.nrows()} rows)"
+        )
+    # per-window getcell, NOT getcol: with heterogeneous windows
+    # (different NUM_CHAN) casacore cannot return CHAN_FREQ as one
+    # rectangular array
+    freqs = np.asarray(spwt.getcell("CHAN_FREQ", spw))
+    ra0, dec0 = np.asarray(fld.getcol("PHASE_DIR"))[0, 0]
+    if data_column not in t.colnames():
+        raise KeyError(
+            f"{ms_path} has no column {data_column!r} "
+            f"(available: {sorted(t.colnames())})"
+        )
+    # select rows FIRST (scalar columns only), then read array columns
+    # through the selection: a full-table getcol on DATA/FLAG raises a
+    # conformance error when other windows have different channel counts
+    a1 = t.getcol("ANTENNA1")
+    a2 = t.getcol("ANTENNA2")
+    sel = (a1 != a2) & _ms_spw_rows(t, ms_path, spw)
+    tsel = t.selectrows(np.flatnonzero(sel))
+    times = tsel.getcol("TIME")
+    utimes = np.unique(times)
+    ntime = utimes.shape[0]
+    uvw = tsel.getcol("UVW")
+    data = np.asarray(tsel.getcol(data_column))
+    ncorr = data.shape[-1]
+    data = _corr_to_jones(data, ncorr)
+    if "FLAG" in t.colnames():
+        flag = np.asarray(tsel.getcol("FLAG")).any(-1)
+    else:
+        flag = np.zeros(data.shape[:-1][:2], bool)
+    a1, a2 = a1[sel], a2[sel]
+    nbase = nstations * (nstations - 1) // 2
+    nchan = freqs.shape[0]
+    if data.shape[1] != nchan:
+        raise ValueError(
+            f"{ms_path}: {data_column} has {data.shape[1]} channels but "
+            f"SPECTRAL_WINDOW row {spw} has {nchan}"
+        )
+    # order rows as (time, baseline)
+    order = np.lexsort((a2, a1, times))
+    if order.shape[0] != ntime * nbase:
+        raise ValueError(
+            f"{ms_path}: {order.shape[0]} cross rows in SPW {spw} != "
+            f"{ntime} times x {nbase} baselines — irregular MS layouts "
+            "(missing baselines) are not supported; fill with flagged "
+            "rows first"
+        )
+    shape = (ntime, nbase)
+    vis = data[order].reshape(ntime, nbase, nchan, 2, 2)
+    # bandwidth from CHAN_WIDTH when present (readAuxDataFirstPart,
+    # data.cpp:214-216), else the channel span; abs() because
+    # lower-sideband windows store negative widths
+    if "CHAN_WIDTH" in spwt.colnames():
+        deltaf = float(
+            nchan * abs(np.asarray(spwt.getcell("CHAN_WIDTH", spw))[0])
+        )
+    else:
+        deltaf = float(abs(freqs[-1] - freqs[0])) if nchan > 1 else 180e3
+    create_dataset(
+        h5_path,
+        u=uvw[order, 0].reshape(shape),
+        v=uvw[order, 1].reshape(shape),
+        w=uvw[order, 2].reshape(shape),
+        ant_p=a1[order][:nbase], ant_q=a2[order][:nbase],
+        vis=vis,
+        flag=flag[order].reshape(ntime, nbase, nchan),
+        freqs=freqs,
+        nstations=nstations,
+        deltaf=deltaf,
+        deltat=float(np.median(np.diff(utimes))) if ntime > 1 else 1.0,
+        ra0=float(ra0), dec0=float(dec0), open_file=open_file,
+    )
+    # per-visibility weights: WEIGHT_SPECTRUM (rows, nchan, ncorr) or
+    # WEIGHT (rows, ncorr) broadcast over channels — read through the
+    # row selection for the same conformance reason as DATA
+    wcol = None
+    if "WEIGHT_SPECTRUM" in t.colnames():
+        wcol = np.asarray(tsel.getcol("WEIGHT_SPECTRUM")).mean(-1)
+    elif "WEIGHT" in t.colnames():
+        w2 = np.asarray(tsel.getcol("WEIGHT")).mean(-1)
+        wcol = np.broadcast_to(w2[:, None], (w2.shape[0], nchan))
+    if wcol is not None:
+        with _opener(open_file)(h5_path, "r+") as f:
+            f.create_dataset(
+                "weight", data=wcol[order].reshape(ntime, nbase, nchan)
+            )
+
+
+def h5_to_ms(
+    h5_path: str,
+    ms_path: str,
+    column: str = "corrected",
+    ms_column: str = "CORRECTED_DATA",
+    spw: int = 0,
+    open_file=None,
+) -> None:
+    """Write a vis.h5 data column back into a CASA MeasurementSet
+    (requires python-casacore; the ``Data::writeData`` direction,
+    src/MS/data.h:124 / data.cpp).
+
+    ``column``: h5 dataset to export ('vis', 'corrected', 'model',
+    'influence'); ``ms_column``: target MS column, created from the
+    DATA column's description if absent.  Rows are matched by the same
+    (time, baseline) lexsort ordering :func:`ms_to_h5` uses;
+    autocorrelation rows in the MS are left untouched.  ``open_file``:
+    the ``vis.h5`` opener (module doc).
+    """
+    if not have_casacore():
+        raise RuntimeError(
+            "python-casacore is not installed; write back on a host "
+            "that has it"
+        )
+    from casacore.tables import table, makecoldesc
+
+    with _opener(open_file)(h5_path, "r") as f:
+        if column not in f:
+            raise KeyError(f"{h5_path} has no column {column!r}")
+        vals = np.asarray(f[column])  # (ntime, nbase, nchan, 2, 2)
+    ntime, nbase, nchan = vals.shape[:3]
+    flat = vals.reshape(ntime * nbase, nchan, 4)
+
+    t = table(ms_path, readonly=False)
+    a1 = t.getcol("ANTENNA1")
+    a2 = t.getcol("ANTENNA2")
+    cross = (a1 != a2) & _ms_spw_rows(t, ms_path, spw)
+    times = t.getcol("TIME")[cross]
+    order = np.lexsort((a2[cross], a1[cross], times))
+    if order.shape[0] != ntime * nbase:
+        raise ValueError(
+            f"{ms_path}: {order.shape[0]} cross rows in SPW {spw} != "
+            f"{ntime}x{nbase} in {h5_path}"
+        )
+    created = ms_column not in t.colnames()
+    if created:
+        t.addcols(makecoldesc(ms_column, t.getcoldesc("DATA")))
+        # seed the untouched rows (autocorrelations, other windows)
+        # from DATA so the new column is fully defined — per
+        # DATA_DESC group, since one full-table getcol would fail on
+        # heterogeneous windows
+        other = ~cross
+        groups = (np.asarray(t.getcol("DATA_DESC_ID"))
+                  if "DATA_DESC_ID" in t.colnames()
+                  else np.zeros(other.shape, np.int32))
+        for g in np.unique(groups[other]):
+            tg = t.selectrows(np.flatnonzero(other & (groups == g)))
+            tg.putcol(ms_column, tg.getcol("DATA"))
+    # read/write ONLY the selected rows: a full-table getcol/putcol
+    # raises a conformance error when other windows differ in shape
+    tsel = t.selectrows(np.flatnonzero(cross))
+    out = np.asarray(tsel.getcol("DATA" if created else ms_column),
+                     np.complex128)
+    ncorr = out.shape[-1]
+    # component axis is [XX, XY, YX, YY]; map by correlation count
+    if ncorr == 4:
+        sel = [0, 1, 2, 3]
+    elif ncorr == 2:
+        sel = [0, 3]  # dual-pol XX, YY
+    elif ncorr == 1:
+        sel = [0]
+    else:
+        raise ValueError(f"{ms_path}: unsupported correlation count {ncorr}")
+    out[order] = flat.reshape(ntime * nbase, nchan, 4)[:, :, sel]
+    tsel.putcol(ms_column, out)
+    t.close()

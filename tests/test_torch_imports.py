@@ -66,6 +66,14 @@ MODULES = (
     "sagecal_tpu_torch.fleet.worker", "sagecal_tpu_torch.fleet.coordinator",
     "sagecal_tpu_torch.obs.timeline", "sagecal_tpu_torch.obs.capacity",
     "sagecal_tpu_torch.serve.aot_store", "sagecal_tpu_torch.apps.fleet",
+    "sagecal_tpu_torch.fleet.stream", "sagecal_tpu_torch.apps.stream",
+    "sagecal_tpu_torch.fleet.loadgen", "sagecal_tpu_torch.apps.load",
+    "sagecal_tpu_torch.obs.ledger", "sagecal_tpu_torch.obs.replay",
+    "sagecal_tpu_torch.obs.audit", "sagecal_tpu_torch.analysis",
+    "sagecal_tpu_torch.analysis.fsmodel",
+    "sagecal_tpu_torch.analysis.protocol_check", "sagecal_tpu_torch.io.fits",
+    "sagecal_tpu_torch.tools._native", "sagecal_tpu_torch.tools.buildsky",
+    "sagecal_tpu_torch.tools.restore", "sagecal_tpu_torch.tools.uvwriter",
 )
 
 

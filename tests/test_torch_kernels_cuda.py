@@ -1787,3 +1787,51 @@ def test_fleet_worker_on_the_card_gives_the_cpu_dispositions(cuda, tmp_path):
         assert how_c == how
         assert np.abs(sol_c - sol).max() <= 5e-3 * np.abs(sol).max()
     assert {got["cuda"][r][0] for r in ("req001", "req003")} == {"degrade"}
+
+
+def test_stream_on_the_card_takes_the_torch_op_route(cuda, tmp_path):
+    """The stream calibrator at f32 on the card over a MemFile stream:
+    every window solved on the torch-op joint cost (``StreamConfig`` has
+    no fused switch; ``choose_batched_path`` names the route "xla"),
+    none of #1-#6 launched, and window results within 5e-3 of the CPU's
+    (mode 1, no OS-LM randomization)."""
+    import json
+
+    from sagecal_tpu_torch.apps.config import StreamConfig
+    from sagecal_tpu_torch.fleet.stream import (
+        StreamCalibrator, make_synthetic_stream,
+    )
+    from sagecal_tpu_torch.io.memh5 import MemFile, remove
+    from sagecal_tpu_torch.ops import rime_kernel as rk
+    from sagecal_tpu_torch.solvers.batched import choose_batched_path
+
+    ds, sky, clus = make_synthetic_stream(str(tmp_path / "fix"),
+                                          open_file=MemFile, device=cuda)
+    kernels = [getattr(rk, k) for k in (
+        "fused_predict_fwd_cuda", "fused_predict_bwd_cuda",
+        "fused_cost_fwd_cuda", "fused_cost_bwd_cuda",
+        "fused_cost_batch_fwd_cuda", "fused_cost_batch_bwd_cuda")]
+    docs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = StreamConfig(dataset=ds, sky_model=sky, cluster_file=clus,
+                           out_dir=str(tmp_path / dev), solver_mode=1,
+                           randomize=False, use_f64=False,
+                           checkpoint_every=1, max_windows=3)
+        cal = StreamCalibrator(cfg, log=lambda *a: None, device=dev,
+                               open_file=MemFile)
+        cold, warm = cal._sage_configs()
+        assert not cold.use_fused_predict and not warm.use_fused_predict
+        for k in kernels:
+            k.launches = 0
+        summary = cal.run()
+        assert [k.launches for k in kernels] == [0] * 6
+        assert summary["solved"] == 3 and summary["warm"] == 2
+        docs[dev] = [json.load(open(os.path.join(cfg.out_dir, n)))
+                     for n in sorted(os.listdir(cfg.out_dir))
+                     if n.endswith(".result.json")]
+    assert choose_batched_path(None, None, None, cold)[0] == "xla"
+    for c, g in zip(docs["cpu"], docs["cuda"]):
+        assert (c["warm"], c["verdict"]) == (g["warm"], g["verdict"])
+        assert g["res1"] < g["res0"]
+        assert abs(g["res1"] - c["res1"]) <= 5e-3 * abs(c["res1"])
+    remove(ds)
