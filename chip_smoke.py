@@ -13,6 +13,15 @@ each printing lines of its own; any failure exits non-zero:
 2. build    ``nvcc`` builds every kernel source of
             ``sagecal_tpu_torch/csrc`` (one process per source, started
             together) and prints the ptxas register/shared-memory report;
+lint        (host only, no kernel) the static-analysis gate in two
+            subprocesses started together: ``python -m
+            sagecal_tpu_torch.analysis sagecal_tpu_torch/ --baseline
+            sagecal_tpu_torch/analysis/lint_baseline.json`` and ``diag
+            lint``, each exit 0 with no gate finding and the same
+            findings; ``analysis/cuda.py`` finds every ``__global__`` the
+            budget model (``analysis/kernelmodel.py``) reads in
+            ``csrc/``; the report-only findings by rule and the JL002
+            host-read sites per ``solvers/`` module printed;
 3. parity   the fused kernels against their plain PyTorch versions at
             the north-star tile (62 stations, 100 clusters, 60 timeslots
             x 2 channels = 113,460 rows), nc 1 and 2, f32 and bf16
@@ -622,6 +631,74 @@ def phase_build():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(paths)} source(s) built in {secs:.1f} s", flush=True)
+
+
+LINT_BASELINE = os.path.join("sagecal_tpu_torch", "analysis",
+                             "lint_baseline.json")
+
+
+def phase_lint() -> dict:
+    """Phase lint (module doc): the lint gate through both entry points,
+    and the kernel reader against the budget model."""
+    from sagecal_tpu_torch.analysis import cuda, kernelmodel
+
+    t0 = time.perf_counter()
+    cmds = {
+        "module": [sys.executable, "-m", "sagecal_tpu_torch.analysis",
+                   "sagecal_tpu_torch/", "--baseline", LINT_BASELINE,
+                   "--format", "json"],
+        "diag": [sys.executable, "-m", "sagecal_tpu_torch.obs.diag", "lint",
+                 "--format", "json"]}
+    procs = {k: subprocess.Popen(v, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, v in cmds.items()}
+    docs = {}
+    for k, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"lint: {' '.join(cmds[k][1:4])} exit {proc.returncode}: "
+                 f"{err.strip()[-400:]}")
+        docs[k] = json.loads(out)
+    mod, diag = docs["module"], docs["diag"]
+    key = lambda doc: [(f["rule"], f["line"], f["message"])
+                       for f in doc["findings"]]
+    if mod["summary"]["total"] or key(mod) != key(diag):
+        fail(f"lint: gate findings {mod['summary']['total']}, the two entry "
+             f"points agree {key(mod) == key(diag)}")
+    by_rule, solver_sites = {}, {}
+    for f in mod["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+        if f["rule"] == "JL002" and "/solvers/" in f["path"]:
+            name = os.path.basename(f["path"])
+            solver_sites[name] = solver_sites.get(name, 0) + 1
+    csrc = kernelmodel.default_csrc()
+    missing = {}
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith(".cu"):
+            path = os.path.join(csrc, name)
+            gone = set(kernelmodel.parse_source(path).kernels) - set(
+                cuda.global_names(path))
+            if gone:
+                missing[name] = sorted(gone)
+    kernels = sum(len(kernelmodel.parse_source(os.path.join(csrc, n)).kernels)
+                  for n in os.listdir(csrc) if n.endswith(".cu"))
+    secs = time.perf_counter() - t0
+    stats = mod["stats"]
+    print(f"[lint] gate findings 0 through both entry points; "
+          f"{stats['files']} files ({stats['cuda_sources']} kernel "
+          f"sources), {stats['device_roots']} device roots, "
+          f"{stats['device_reachable']} device-reachable functions, "
+          f"analysis {stats['elapsed_seconds']} s", flush=True)
+    print(f"[lint] report-only findings by rule "
+          f"{dict(sorted(by_rule.items()))}; JL002 host-read sites under "
+          f"solvers/ {sum(solver_sites.values())}: "
+          f"{dict(sorted(solver_sites.items()))}", flush=True)
+    print(f"[lint] cuda.py read every modelled __global__ ({kernels}): "
+          f"{not missing}; phase {secs:.1f} s", flush=True)
+    if missing:
+        fail(f"lint: cuda.py missed modelled kernels {missing}")
+    return {"seconds": secs, "report_only": by_rule,
+            "jl002_solvers": solver_sites, "stats": stats}
 
 
 def timed_plan(prob, where: str, case: str):
@@ -5211,6 +5288,7 @@ def main():
 
     name, count, card = phase_device()
     phase_build()
+    lint_out = phase_lint()
     worst, plan_s = phase_parity()
     with tempfile.TemporaryDirectory() as d:
         data, cdata, p0, coh_s = main_tile(d)
@@ -5433,7 +5511,7 @@ def main():
                        "elastic": elastic_out, "fleet": fleet_out,
                        "stream": stream_out, "load": load_out,
                        "audit": audit_out, "tools": tools_out,
-                       "obs": obs_out,
+                       "obs": obs_out, "lint": lint_out,
                        "times": times, "kernels": kernels,
                        "coherencies_s": coh_s, "plan_s": plan_s,
                        "serve_plan_s": serve_plan_s,

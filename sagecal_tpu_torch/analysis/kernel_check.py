@@ -26,12 +26,16 @@ kind                    meaning
                         memory other than the model's
 ``trace``               (crosscheck) a traced launch's shared memory or
                         registers other than the model's
+``lint``                a gate finding of the lint's kernel rules: JL013
+                        (an ``autograd.Function`` backward that drops a
+                        gradient) or JL014 (a float atomic or narrow
+                        arithmetic in ``csrc/``, TF32, an atomic
+                        accumulation on the solve path)
 ======================  =================================================
 
 The reference's ``_check_table`` (the banked ``KERNEL_VMEM_TABLE.json``)
-and ``_check_lint`` (jaxlint's kernel rules) have no counterpart: the
-port has no VMEM table (``choose_batched_path`` dropped that bound) and
-no JAX source to lint.
+has no counterpart: the port has no VMEM table (``choose_batched_path``
+dropped that bound).
 
 ``--crosscheck`` needs the card: it builds each source fresh into a
 temporary directory with ``-Xptxas -v`` and reads ptxas's report per
@@ -482,6 +486,24 @@ def _check_crosscheck(model: km.KernelModel,
     return out
 
 
+def _check_lint(csrc: Optional[str] = None,
+                fused_cost: Optional[str] = None) -> List[Dict[str, Any]]:
+    """JL013 and JL014 over the package and its kernel sources (plus the
+    ``csrc``/``fused_cost`` overrides): each gate finding is a ``lint``
+    violation (the reference's ``_check_lint``)."""
+    from sagecal_tpu_torch.analysis.engine import analyze_paths
+    from sagecal_tpu_torch.analysis.rules.jl013 import BackwardCompleteness
+    from sagecal_tpu_torch.analysis.rules.jl014 import KernelNumerics
+
+    package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [package] + [p for p in (csrc, fused_cost) if p]
+    findings, _stats, _graph = analyze_paths(
+        paths, rules=[BackwardCompleteness(), KernelNumerics()])
+    return [_violation("lint", f"{f.path}:{f.line}: {f.rule} {f.message}",
+                       rule=f.rule, symbol=f.symbol)
+            for f in findings if not f.report_only]
+
+
 def run_kernel_check(csrc: Optional[str] = None,
                      fused_cost: Optional[str] = None,
                      crosscheck: bool = False) -> Dict[str, Any]:
@@ -494,8 +516,11 @@ def run_kernel_check(csrc: Optional[str] = None,
     except (km.ModelExtractionError, OSError, KeyError) as exc:
         violations.append(_violation(
             "model-extraction", f"cannot build the model: {exc}"))
+    lint = _check_lint(csrc, fused_cost)
+    violations.extend(lint)
     summary: Dict[str, Any] = {"csrc": csrc or km.default_csrc(),
-                               "crosscheck": crosscheck}
+                               "crosscheck": crosscheck,
+                               "lint_findings": len(lint)}
     if model is not None:
         violations.extend(_check_model_contracts(model))
         if crosscheck:
@@ -518,7 +543,8 @@ def run_kernel_check(csrc: Optional[str] = None,
 
 def render_text(result: Dict[str, Any]) -> str:
     s = result["summary"]
-    lines = [f"kernelcheck: csrc={s['csrc']} crosscheck={s['crosscheck']}"]
+    lines = [f"kernelcheck: csrc={s['csrc']} crosscheck={s['crosscheck']}",
+             f"  lint JL013/JL014: {s['lint_findings']} gate finding(s)"]
     if "staged_threshold" in s:
         lines.append("  staged threshold nc*npad <= %(f32)d (f32), "
                      "%(bf16)d (bf16)" % s["staged_threshold"])

@@ -28,8 +28,13 @@ same input files, except where stated:
   compute in exact f32).  Exit 1 when the trace holds no device event.
 - ``kernelcheck [--json] [--crosscheck]`` — the Hopper budget checker
   (``analysis/kernel_check.py``).
-- ``lint`` exits 2: jaxlint lints JAX source, which the port does not
-  have (ROADMAP.md, "Not queued").
+- ``lint [paths...] [--format json|text] [--baseline FILE] [--rules
+  IDS]`` — the static-analysis gate (:mod:`sagecal_tpu_torch.analysis`):
+  the JL rules re-aimed at the port's hazards, over the given paths
+  (default: the installed ``sagecal_tpu_torch`` and its ``csrc/``,
+  against ``analysis/lint_baseline.json``).  Exit 1 on new gate
+  findings, 2 on a usage error (``--rules JL003`` names a rule with no
+  counterpart).
 
 Runs standalone (``python -m sagecal_tpu_torch.obs.diag ...``) or as the
 ``diag`` subcommand of the port's CLI (``apps/cli.py``).
@@ -858,14 +863,11 @@ def _cmd_flight(args) -> int:
     return 0
 
 
-_LINT_NOT_PORTED = (
-    "diag lint: jaxlint lints JAX source, and the port has none; it is "
-    "not ported (ROADMAP.md, \"Not queued\")")
-
-
 def _cmd_lint(args) -> int:
-    print(_LINT_NOT_PORTED, file=sys.stderr)
-    return 2
+    # the lint package is import-light by design (stdlib ast only)
+    from sagecal_tpu_torch.analysis.cli import main as lint_main
+
+    return lint_main(args.lint_args)
 
 
 def _cmd_kernelcheck(args) -> int:
@@ -1184,8 +1186,13 @@ def build_parser() -> argparse.ArgumentParser:
     dp.set_defaults(fn=_cmd_flight)
 
     lp = sub.add_parser(
-        "lint", help="jaxlint (not ported: the port has no JAX source)")
-    lp.add_argument("lint_args", nargs=argparse.REMAINDER)
+        "lint",
+        help="static-analysis gate: the JL rules over the port's Python "
+             "and csrc/ (exit 1 on new gate findings)",
+    )
+    lp.add_argument("lint_args", nargs=argparse.REMAINDER,
+                    help="arguments forwarded to the linter (paths, "
+                         "--format, --baseline, --rules, --list-rules)")
     lp.set_defaults(fn=_cmd_lint)
 
     kcp = sub.add_parser(
@@ -1225,8 +1232,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     # `diag lint --format json ...` dies in the TOP-level parser), so
     # the pass-through subcommands forward by hand
     if argv and argv[0] == "lint":
-        print(_LINT_NOT_PORTED, file=sys.stderr)
-        return 2
+        from sagecal_tpu_torch.analysis.cli import main as lint_main
+        return lint_main(argv[1:])
     if argv and argv[0] == "kernelcheck":
         from sagecal_tpu_torch.analysis.kernel_check import main as kc_main
         return kc_main(argv[1:])

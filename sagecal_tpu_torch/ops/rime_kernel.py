@@ -521,6 +521,16 @@ fused_cost_fwd_cuda.launches = 0
 fused_cost_bwd_cuda.launches = 0
 
 
+# The fused objectives give gain-table gradients only.  Autograd asking
+# their backward for any other input's (coherencies, visibilities, mask,
+# nu) raises: a None there would be a silent zero on the card, where the
+# CPU's plain version gives the true gradient.
+_DATA_GRADIENT_REFUSED = (
+    "the fused objective gives gain-table gradients only (no coherency, "
+    "visibility, mask or nu gradient); differentiate "
+    "solvers.sage.predict_full_model for sky-model gradients")
+
+
 class _FusedCost(torch.autograd.Function):
     """The fused objective on CUDA: forward and backward kernels."""
 
@@ -536,6 +546,8 @@ class _FusedCost(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
+        if any(ctx.needs_input_grad[2:]):
+            raise FusedSkyGradientError(_DATA_GRADIENT_REFUSED)
         saved = ctx.saved_tensors
         dre, dim = fused_cost_bwd_cuda(*saved[:8], ctx.robust, saved[8],
                                        ctx.nc, ctx.plan)
@@ -967,6 +979,8 @@ class _FusedCostBatch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
+        if any(ctx.needs_input_grad[2:]):
+            raise FusedSkyGradientError(_DATA_GRADIENT_REFUSED)
         saved = ctx.saved_tensors
         dre, dim = fused_cost_batch_bwd_cuda(*saved, ctx.robust, ctx.plan)
         # the kernel gives d cost_b / d tables; the per-lane upstream

@@ -203,7 +203,10 @@ def slot_staleness_ages(active_slot: int, nslots: int) -> torch.Tensor:
 
 def staleness_weights(ages, staleness: Optional[int] = None,
                       discount: float = 1.0,
-                      dtype=torch.float64) -> torch.Tensor:
+                      # JL004: a default for host-side callers; the mesh
+                      # passes its data's dtype
+                      dtype=torch.float64,  # torchlint: disable=JL004 — see above
+                      ) -> torch.Tensor:
     """Per-contribution Z-solve weights: ``discount**age`` within the
     bound, 0 beyond ``staleness`` rounds (None: unbounded).  Applied to
     both the numerator term and that band's rho in the denominator, this

@@ -132,7 +132,10 @@ def spatial_basis_modes(ll, mm, n0: int, beta: Optional[float] = None,
     return phi, float(beta)
 
 
-def basis_blocks(modes, dtype=torch.complex128, device=None) -> torch.Tensor:
+# JL004 (here and in build_spatial_basis): the JAX package's widest complex
+# dtype is the default; the apps pass their data's complex dtype
+def basis_blocks(modes, dtype=torch.complex128,  # torchlint: disable=JL004 — see above
+                 device=None) -> torch.Tensor:
     """Mode matrix (M, G) -> per-cluster blocks Phi_k = kron(phi_k, I_2),
     (M, 2G, 2) of ``dtype`` on ``device`` (CUDA unless ``device="cpu"``),
     rows ordered (g, i) (sagecal_master.cpp:408-414)."""
@@ -144,7 +147,8 @@ def basis_blocks(modes, dtype=torch.complex128, device=None) -> torch.Tensor:
 
 
 def build_spatial_basis(ll, mm, n0: int, beta: Optional[float] = None,
-                        basis: str = "shapelet", dtype=torch.complex128,
+                        basis: str = "shapelet",
+                        dtype=torch.complex128,  # torchlint: disable=JL004 — see basis_blocks
                         device=None) -> torch.Tensor:
     """Per-cluster basis blocks Phi (M, 2G, 2), G = n0*n0, at the cluster
     centroids (the master's basis setup, sagecal_master.cpp:293-423)."""

@@ -26,7 +26,8 @@ import time
 
 # the phases chip_smoke.main calls, in order; a name a checkout lacks is
 # skipped
-PHASES = ("phase_device", "phase_build", "phase_parity", "main_tile",
+PHASES = ("phase_device", "phase_build", "phase_lint", "phase_parity",
+          "main_tile",
           "phase_main", "phase_warm", "phase_extended", "phase_fullbatch",
           "phase_elastic", "phase_stream", "phase_beam", "phase_predict",
           "phase_bisect",

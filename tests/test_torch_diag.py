@@ -14,8 +14,8 @@ names torch's CUDA state on its device line; ``roofline`` reads Kineto's
 format and attributes to the kernel table's rows
 (tests/test_torch_devprof.py), and exits 1 on a file that is no trace,
 where the reference raises; ``kernelcheck`` proves Hopper budgets
-(tests/test_torch_kernelmodel.py); ``lint`` exits 2, since jaxlint lints
-JAX source and the port has none.
+(tests/test_torch_kernelmodel.py); ``lint`` runs the port's own rules
+over the port (tests/test_torch_lint.py), not jaxlint over JAX source.
 """
 
 import json
@@ -314,8 +314,10 @@ def test_roofline_lint_and_kernelcheck_stated_differences(files, capsys,
 
     # a file that is not a trace: exit 1 (the reference raises on it)
     assert main(["roofline", os.path.join(DIAG["p"], "ev.jsonl")]) == 1
-    assert cli(["diag", "lint"], device="cpu") == 2
+    assert cli(["diag", "lint"], device="cpu") == 0
     assert cli(["diag", "lint", "--format", "json", "x.py"],
                device="cpu") == 2
-    assert "not ported" in capsys.readouterr().err
+    assert "no such path: x.py" in capsys.readouterr().err
+    assert cli(["diag", "lint", "--rules", "JL003"], device="cpu") == 2
+    assert "no counterpart" in capsys.readouterr().err
     assert cli(["diag", "kernelcheck"], device="cpu") == 0

@@ -16,6 +16,16 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "sagecal_tpu_torch")
 
+# the lint gate: stdlib only (test_lint_modules_are_stdlib_only)
+LINT_MODULES = (
+    "sagecal_tpu_torch.analysis.engine",
+    "sagecal_tpu_torch.analysis.callgraph",
+    "sagecal_tpu_torch.analysis.baseline", "sagecal_tpu_torch.analysis.cuda",
+    "sagecal_tpu_torch.analysis.cli", "sagecal_tpu_torch.analysis.__main__",
+    "sagecal_tpu_torch.analysis.rules",
+) + tuple(f"sagecal_tpu_torch.analysis.rules.jl{n:03d}" for n in (
+    1, 2, 4, 5, 6, 8, 9, 10, 12, 13, 14, 16, 900))
+
 MODULES = (
     "sagecal_tpu_torch.solvers.sage", "sagecal_tpu_torch.ops.rime_kernel",
     "sagecal_tpu_torch.io.skymodel", "sagecal_tpu_torch.io.solutions",
@@ -80,7 +90,7 @@ MODULES = (
     "sagecal_tpu_torch.analysis.kernelmodel",
     "sagecal_tpu_torch.analysis.kernel_check",
     "sagecal_tpu_torch.kernels.work",
-)
+) + LINT_MODULES
 
 
 def _port_sources():
@@ -97,6 +107,23 @@ def test_import_leaves_jax_out_of_sys_modules(module):
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'sagecal_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module", LINT_MODULES)
+def test_lint_modules_are_stdlib_only(module):
+    """The lint gate runs on any host: importing it imports no torch (nor
+    numpy) either."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'sagecal_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

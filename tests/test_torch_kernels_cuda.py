@@ -13,7 +13,9 @@ only, so it runs on a machine without JAX; from the repo root::
 Tolerances: cost relative error <= 1e-5 and gradient error <= 1e-5 of
 the gradient's norm — both versions compute in f32 and differ only in
 summation order (cluster sum per row, block tree, then block sum in the
-kernels; torch's reductions in the plain version).  The backward must be
+kernels; torch's reductions in the plain version).  A coherency or
+visibility gradient through the fused objectives raises
+FusedSkyGradientError.  The backward must be
 bit-identical on repeat: it uses no floating-point atomics.  A batched
 lane whose mask is zero (a ragged bucket's pad) must give exactly zero
 cost and cotangent.  The predict: model error <= 1e-5 of its max abs.
@@ -247,6 +249,34 @@ def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
         fused_cost_packed(prob.tab_re, prob.tab_im, prob.coh_ri,
                           prob.ant_p.cpu(), prob.ant_q, prob.vis_ri,
                           prob.mask_p)
+
+
+def test_fused_costs_refuse_data_gradients_on_cuda(cuda):
+    """A coherency or visibility gradient through #4/#6 raises
+    FusedSkyGradientError (it was a silent zero); the gain-table
+    gradient of the same call still flows."""
+    from sagecal_tpu_torch.kernels.parity import (
+        random_cost_problem, random_cost_problem_batch,
+    )
+    from sagecal_tpu_torch.ops.rime_kernel import (
+        FusedSkyGradientError, fused_cost_packed, fused_cost_packed_batch,
+    )
+
+    prob = random_cost_problem(**SMALL, device=cuda)
+    batch = random_cost_problem_batch(**BATCH_MID, device=cuda)
+    for fn, p in ((fused_cost_packed, prob), (fused_cost_packed_batch, batch)):
+        for slot in ("coh_ri", "vis_ri"):
+            args = {k: getattr(p, k) for k in ("tab_re", "tab_im", "coh_ri",
+                                               "ant_p", "ant_q", "vis_ri",
+                                               "mask_p")}
+            args["tab_re"] = args["tab_re"].clone().requires_grad_(True)
+            args[slot] = args[slot].clone().requires_grad_(True)
+            cost = fn(**args).sum()
+            with pytest.raises(FusedSkyGradientError):
+                torch.autograd.grad(cost, args[slot])
+            args[slot] = args[slot].detach()
+            (g,) = torch.autograd.grad(fn(**args).sum(), args["tab_re"])
+            assert torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 # ------------------------------------------- batched objective (#5, #6)
