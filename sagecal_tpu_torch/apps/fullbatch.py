@@ -38,9 +38,20 @@ file and the checkpoint disagree.
 
 As in the reference, a run installs the crash handlers
 (``obs/flight.py``: excepthook and SIGTERM flush the event log), starts
-the flight recorder when ``SAGECAL_FLIGHT=1`` and writes a ``fullbatch``
-run span with one ``tile`` span a tile when ``SAGECAL_TRACE=1``
-(``obs/trace.py``; the span JSONL and ``*.trace.json``).  The
+the flight recorder when ``SAGECAL_FLIGHT=1`` and records a
+``fullbatch`` run span when ``SAGECAL_TRACE=1`` (``obs/trace.py``; the
+span JSONL and ``*.trace.json``, written as the run ends) or, kept in
+memory with no file, when the run starts under a ``torch.profiler``
+capture: one ``tile`` span a tile, under it the phases
+``app.prefetch_wait`` (the reader's tile and its copies to the device),
+``coherencies`` (both views), ``solve`` (``solvers/sage.py``'s
+``sage.em``, ``sage.em.cluster``, ``sage.lbfgs``, ``lbfgs.iter``,
+``sage.finalize``), ``app.readback``, ``app.solutions``, ``residual``
+and ``app.write``, and a ``read:<site>`` span at each device-to-host
+read (``obs/trace.py::host_read``).  The next tile's reader wait and
+coherencies run inside this tile's span, the first tile's inside the
+run's; ``tile_done`` events carry the phases' seconds and the solve's
+``sage.em`` and ``sage.lbfgs``.  The
 performance observability is the reference's too: ``SAGECAL_PROFILE_DIR``
 captures a ``torch.profiler`` trace of the run
 (``utils/profiling.py::trace``), ``SAGECAL_TRANSFER_AUDIT=1`` counts its
@@ -80,7 +91,7 @@ from sagecal_tpu_torch.obs.quality import abort_if_diverged, check_and_emit
 from sagecal_tpu_torch.obs.records import sage_convergence_records
 from sagecal_tpu_torch.obs.registry import get_registry, telemetry_enabled
 from sagecal_tpu_torch.obs.trace import (
-    close_tracer, configure_tracer, get_tracer,
+    close_tracer, configure_tracer, get_tracer, host_read,
 )
 from sagecal_tpu_torch.ops.residual import (
     calculate_residuals, simulate_visibilities,
@@ -175,7 +186,9 @@ def _beam_setup(cfg: RunConfig, ds: VisDataset, dev):
 def _mat_of_flat(x: torch.Tensor) -> np.ndarray:
     """Flat (F, 4, rows) -> host (rows, F, 2, 2), the on-disk layout."""
     F, _, rows = x.shape
-    return x.permute(2, 0, 1).reshape(rows, F, 2, 2).cpu().numpy()
+    x = x.permute(2, 0, 1).reshape(rows, F, 2, 2)
+    with host_read("fullbatch.residual"):
+        return x.cpu().numpy()
 
 
 def _params_of(jones_np, M: int, nchunk_max: int, N: int, cdtype, dev):
@@ -266,8 +279,6 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
     if elog is not None:
         register_event_log(elog)
     get_flight_recorder(run_id=manifest.run_id)
-    configure_tracer(run_id=manifest.run_id)
-    tracer = get_tracer()
 
     # elastic execution: checkpoints at tile boundaries, resume from the
     # newest valid one
@@ -333,6 +344,11 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
     trace_dir = trace_cm.__enter__()
     if trace_dir:
         log(f"profiling: torch.profiler trace -> {trace_dir}")
+    # spans: SAGECAL_TRACE=1, or in memory under a running torch.profiler
+    # capture (obs/trace.py), read once a run
+    configure_tracer(run_id=manifest.run_id,
+                     capture=torch._C._autograd._profiler_enabled())
+    tracer = get_tracer()
     start_memory_history()
     audit = TransferAudit()
     audit.__enter__()
@@ -354,19 +370,23 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
     # the run's root span, entered by hand: the finally below exits it
     run_span = tracer.span("fullbatch", kind="run", tiles=len(pairs))
     run_span.__enter__()
+    tile_span, err = None, None
     try:
         prefetch = iter(prefetch_cm.__enter__())
 
         def _prepare(t0):
             """The next tile on the device with its coherencies."""
-            t0_chk, tiles = next(prefetch)
-            if t0_chk != t0:
-                raise RuntimeError(f"prefetch order mismatch: got tile "
-                                   f"{t0_chk}, expected {t0}")
-            full_ = tiles[0].to(dev)
-            data_ = None if cfg.simulation_mode else tiles[1].to(dev)
-            cdata_full_ = _cdata(full_, t0, meta.deltaf / max(meta.nchan, 1))
-            cdata_ = None if cfg.simulation_mode else _cdata(data_, t0)
+            with timer.phase("app.prefetch_wait"):
+                t0_chk, tiles = next(prefetch)
+                if t0_chk != t0:
+                    raise RuntimeError(f"prefetch order mismatch: got tile "
+                                       f"{t0_chk}, expected {t0}")
+                full_ = tiles[0].to(dev)
+                data_ = None if cfg.simulation_mode else tiles[1].to(dev)
+            with timer.phase("coherencies"):
+                cdata_full_ = _cdata(full_, t0,
+                                     meta.deltaf / max(meta.nchan, 1))
+                cdata_ = None if cfg.simulation_mode else _cdata(data_, t0)
             return full_, data_, cdata_full_, cdata_
 
         def _ckpt_update(pi):
@@ -384,8 +404,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
 
         prepared = None
         if pairs:
-            with timer.phase("load+coh"):
-                prepared = _prepare(pairs[0][1])
+            prepared = _prepare(pairs[0][1])
         for pi, (tile_no, t0) in enumerate(pairs):
             tic = time.time()
             tile_span = tracer.span("tile", kind="tile", tile=t0)
@@ -405,8 +424,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                     rho=cfg.correction_rho,
                     phase_only=cfg.phase_only_correction)
                 if pi + 1 < len(pairs):
-                    with timer.phase("load+coh"):
-                        prepared = _prepare(pairs[pi + 1][1])
+                    prepared = _prepare(pairs[pi + 1][1])
                 ds.write_tile(t0, _mat_of_flat(out_vis), column="model")
                 if elog is not None:
                     elog.emit("tile_simulated", tile=t0,
@@ -426,12 +444,12 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                                  derive_lane_generators(0, [tile_no])[0],
                                  device=dev)
             if pi + 1 < len(pairs):
-                with timer.phase("load+coh"):
-                    prepared = _prepare(pairs[pi + 1][1])
-            with timer.phase("solve-wait"):  # one read: res_0, res_1, nu
-                res0, res1, mean_nu = torch.stack(
-                    [out.res_0, out.res_1,
-                     out.mean_nu.to(out.res_0.dtype)]).tolist()
+                prepared = _prepare(pairs[pi + 1][1])
+            with timer.phase("app.readback"):  # one read: res_0, res_1, nu
+                both = torch.stack([out.res_0, out.res_1,
+                                    out.mean_nu.to(out.res_0.dtype)])
+                with host_read("fullbatch.readback"):
+                    res0, res1, mean_nu = both.tolist()
             # divergence guard: reset to the initial gains
             diverged = (not np.isfinite(res1) or res1 == 0.0
                         or res1 > cfg.res_ratio * res0)
@@ -455,8 +473,11 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                 abort_if_diverged(elog, q_verdict, q_reasons, tile=t0,
                                   app="fullbatch")
 
-            jsol = params_to_jones(p).reshape(M * nchunk_max, N, 2, 2)
-            solio.append_solutions(sol_fh, jsol.cpu().numpy())
+            with timer.phase("app.solutions"):
+                jsol = params_to_jones(p).reshape(M * nchunk_max, N, 2, 2)
+                with host_read("fullbatch.solutions"):
+                    jsol = jsol.cpu().numpy()
+                solio.append_solutions(sol_fh, jsol)
 
             if cfg.influence:
                 # the influence eigenvalues replace the residuals
@@ -483,7 +504,7 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
                         full, cdata_full, p, ccid_index=ccid_index,
                         rho=cfg.correction_rho,
                         phase_only=cfg.phase_only_correction))
-            with timer.phase("write"):
+            with timer.phase("app.write"):
                 ds.write_tile(t0, res, column=cfg.out_column)
             # gains carry tile to tile, so iterations-to-converge per
             # tile is the warm start's measured win
@@ -502,11 +523,15 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
             if elog is not None:
                 for rec in conv_recs:
                     elog.emit("cluster_convergence", tile=t0, **rec)
+                # the solve's own EM and joint-LBFGS seconds beside the
+                # app's phases
+                phases = timer.tile_timings()
+                phases.update({f"sage.{k}": v
+                               for k, v in out.phase_seconds.items()})
                 elog.emit("tile_done", tile=t0, res0=res0, res1=res1,
                           mean_nu=mean_nu, diverged=bool(diverged),
                           seconds=time.time() - tic, warm_start=warm_start,
-                          iterations=iters_tile,
-                          phase_seconds=timer.tile_timings())
+                          iterations=iters_tile, phase_seconds=phases)
             log(f"tile {t0}: residual {res0:.6f} -> {res1:.6f} "
                 f"nu {mean_nu:.1f} ({time.time() - tic:.1f}s) "
                 f"[{timer.tile_summary()}]")
@@ -514,17 +539,22 @@ def run_fullbatch(cfg: RunConfig, log=print, device=None,
             _ckpt_update(pi)
             note_activity("tile", name=f"tile{t0}", seconds=time.time() - tic)
             tile_span.__exit__(None, None, None)
-    except ContractViolation as e:
-        abort_on_contract(elog, e)
-        elog = None
+    except BaseException as e:
+        err = type(e)
+        if isinstance(e, ContractViolation):
+            abort_on_contract(elog, e)
+            elog = None
         raise
     finally:
         # reap the reader thread and its handle even when a tile raises;
-        # a crashed run still writes a loadable trace
+        # a crashed run still writes a loadable trace, its open tile and
+        # run spans marked with the error
         prefetch_cm.__exit__(None, None, None)
         audit.__exit__(None, None, None)
         trace_cm.__exit__(None, None, None)
-        run_span.__exit__(None, None, None)
+        if tile_span is not None:
+            tile_span.__exit__(err, None, None)  # once: ended spans stay
+        run_span.__exit__(err, None, None)
         close_tracer()  # writes the Chrome trace beside the span JSONL
     log(timer.run_summary())
     if elog is not None:

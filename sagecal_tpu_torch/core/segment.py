@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from sagecal_tpu_torch.obs.trace import host_read
+
 
 class SegmentPlan:
     """Sums of per-item values by destination, in a fixed order.
@@ -33,7 +35,10 @@ class SegmentPlan:
         dest = dest.reshape(-1).long()
         n = dest.numel()
         counts = torch.bincount(dest, minlength=ndest)
-        width = max(int(counts.max()), 1) if ndest else 1
+        width = 1
+        if ndest:
+            with host_read("segment.width"):
+                width = max(int(counts.max()), 1)
         order = torch.argsort(dest, stable=True)
         sdest = dest[order]
         starts = torch.cumsum(counts, 0) - counts

@@ -41,7 +41,12 @@ attribute device time to the kernel table's rows (counterpart of
   Each row's ``launches`` counts the wrapper calls it saw.  Total device
   time is the union of the tracks' busy intervals; ``idle_share`` is
   one less the union over the span from the first device event to the
-  last, and the reference's dispatch-gap statistics are kept.
+  last, and the reference's dispatch-gap statistics are kept.  Given the
+  run's span records (``obs/trace.py``, whose stamps are Kineto's
+  Unix-epoch clock; an export's ``baseTimeNanoseconds`` is added back to
+  its relative ``ts``), each dispatch gap's seconds go to the innermost
+  program span open over it (:func:`idle_by_span`, a sweep: a span's
+  self time): which host activity held the card idle.
 
 ``torch`` is imported inside the capture functions only: ``diag
 roofline`` parses traces on any host.
@@ -53,6 +58,7 @@ import contextlib
 import functools
 import glob
 import gzip
+import heapq
 import json
 import os
 import re
@@ -561,7 +567,43 @@ def _merged_windows(ivals: List[Tuple[float, float]],
     return [(s, e) for s, e in out]
 
 
-def attribute_trace(path: str, gap_threshold_us: float = 1000.0) -> dict:
+def idle_by_span(gaps_us: List[Tuple[float, float]],
+                 spans: List[dict]) -> Dict[str, float]:
+    """Seconds of the idle intervals ``gaps_us`` ((start, end), Unix-epoch
+    us) under each program span name, each instant billed to the
+    innermost span open over it (the latest started), ``(none)`` where
+    none is.  ``spans``: span records (``ts`` and ``dur`` in seconds)."""
+    ivals = sorted((float(s.get("ts", 0.0)) * 1e6,
+                    (float(s.get("ts", 0.0)) + max(float(s.get("dur", 0.0)),
+                                                   0.0)) * 1e6,
+                    str(s.get("name", "?"))) for s in spans)
+    cuts = sorted({t for g in gaps_us for t in g}
+                  | {t for s, e, _ in ivals for t in (s, e)})
+    out: Dict[str, float] = {}
+    open_: Dict[int, Tuple[float, str]] = {}  # index -> (start, name)
+    ends: List[Tuple[float, int]] = []  # heap of (end, index)
+    nxt = 0
+    gaps = sorted(gaps_us)
+    gi = 0
+    for a, b in zip(cuts, cuts[1:]):
+        while nxt < len(ivals) and ivals[nxt][0] <= a:
+            s, e, name = ivals[nxt]
+            open_[nxt] = (s, name)
+            heapq.heappush(ends, (e, nxt))
+            nxt += 1
+        while ends and ends[0][0] <= a:
+            open_.pop(heapq.heappop(ends)[1], None)
+        while gi < len(gaps) and gaps[gi][1] <= a:
+            gi += 1
+        if gi >= len(gaps) or gaps[gi][0] > a:
+            continue
+        name = max(open_.values())[1] if open_ else "(none)"
+        out[name] = out.get(name, 0.0) + (b - a) * 1e-6
+    return out
+
+
+def attribute_trace(path: str, gap_threshold_us: float = 1000.0,
+                    program_spans: Optional[List[dict]] = None) -> dict:
     """Attribute one trace's device time to the families (module doc).
 
     Returns ``{"trace_path", "gpu", "n_op_events", "total_device_us",
@@ -574,9 +616,12 @@ def attribute_trace(path: str, gap_threshold_us: float = 1000.0) -> dict:
     sequence}}``.  ``total_device_us`` is the union of each track's busy
     intervals summed over tracks; family times are self durations, so
     they sum to it; ``coverage`` is the share of it in families other
-    than ``other``."""
+    than ``other``.  With the run's ``program_spans`` (``obs/trace.py``'s
+    records), ``dispatch`` adds ``gaps_by_span``: the gaps' seconds by
+    the innermost program span open over them (:func:`idle_by_span`)."""
     doc = _read_doc(path)
     events = doc.get("traceEvents", [])
+    base_us = float(doc.get("baseTimeNanoseconds") or 0) * 1e-3
     gpu = bool(doc.get("deviceProperties")) or any(
         e.get("cat") in _DEVICE_CATS + _GPU_HINT_CATS for e in events)
     ops = device_op_events(events, gpu)
@@ -654,6 +699,14 @@ def attribute_trace(path: str, gap_threshold_us: float = 1000.0) -> dict:
             "idle_share": (1.0 - union_all / span_us) if span_us > 0
             else 0.0,
         }
+        if program_spans is not None:
+            gap_ivals = [(windows[i][1] + base_us, windows[i + 1][0] + base_us)
+                         for i in range(len(windows) - 1)
+                         if windows[i + 1][0] > windows[i][1]]
+            dispatch["gaps_by_span"] = {
+                k: round(v, 6) for k, v in sorted(
+                    idle_by_span(gap_ivals, program_spans).items(),
+                    key=lambda kv: -kv[1])}
     attributed = sum(f["time_us"] for k, f in families.items()
                      if k != "other")
     return {

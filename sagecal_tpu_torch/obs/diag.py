@@ -17,15 +17,17 @@ same input files, except where stated:
   ``SAGECAL_BENCH_HISTORY`` names the history; the port reads none from
   the working directory by default), ``load``, ``drift``, ``trace``,
   ``flight``, ``protocol``, ``audit``, ``replay`` — as the reference.
-- ``roofline TRACE [--events LOG] [--device-kind K]`` — a device
-  profile (``obs/devprof.py``, Kineto's format) attributed to the kernel
-  table's rows #1-#10, ``torch-op``, ``memcpy/memset`` and ``other``,
-  joined with the per-launch work ledger of the event log's
+- ``roofline TRACE [--events LOG] [--device-kind K] [--spans FILE]`` —
+  a device profile (``obs/devprof.py``, Kineto's format) attributed to
+  the kernel table's rows #1-#10, ``torch-op``, ``memcpy/memset`` and
+  ``other``, joined with the per-launch work ledger of the event log's
   ``kernel_work`` events: per row its device ms, launches, ms a launch,
   bound a launch, bound over ms and share of device time, then the
   ``torch-op`` share and the device's idle share
   (``obs/roofline.py``).  The peak column is f32 (the port's kernels
-  compute in exact f32).  Exit 1 when the trace holds no device event.
+  compute in exact f32).  ``--spans``: the run's span file, and the
+  dispatch gaps' seconds by the innermost program span open over them.
+  Exit 1 when the trace holds no device event.
 - ``kernelcheck [--json] [--crosscheck]`` — the Hopper budget checker
   (``analysis/kernel_check.py``).
 - ``lint [paths...] [--format json|text] [--baseline FILE] [--rules
@@ -325,15 +327,20 @@ def _trace_device_kind(path: str) -> Optional[str]:
 def roofline_report(path: str, events: Optional[str] = None,
                     device_kind: Optional[str] = None,
                     gap_threshold_us: float = 1000.0,
-                    dtype: str = "f32") -> Tuple[dict, dict]:
+                    dtype: str = "f32",
+                    spans: Optional[str] = None) -> Tuple[dict, dict]:
     """``diag roofline``'s report of one trace file: (report, the
-    trace's attribution)."""
+    trace's attribution); ``spans`` the run's span file."""
     from sagecal_tpu_torch.obs.devprof import (
         attribute_trace, ledger_from_events,
     )
     from sagecal_tpu_torch.obs.roofline import build_report
 
-    attribution = attribute_trace(path, gap_threshold_us=gap_threshold_us)
+    from sagecal_tpu_torch.obs.trace import read_spans
+
+    attribution = attribute_trace(
+        path, gap_threshold_us=gap_threshold_us,
+        program_spans=read_spans(spans) if spans else None)
     ledger = ledger_from_events(events) if events else {}
     kind = device_kind or _trace_device_kind(path) or (
         "cpu" if not attribution["gpu"] else None)
@@ -359,7 +366,7 @@ def _cmd_roofline(args) -> int:
     try:
         report, attribution = roofline_report(
             path, args.events, args.device_kind, args.gap_threshold_us,
-            args.dtype)
+            args.dtype, args.spans)
     except (OSError, ValueError) as e:
         print(f"{path}: {e}", file=sys.stderr)
         return 1
@@ -1006,6 +1013,10 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--gap-threshold-us", type=float, default=1000.0,
                     help="host gap (us) splitting device busy windows "
                          "for the dispatch analysis (default 1000)")
+    rp.add_argument("--spans", default=None,
+                    help="the run's span JSONL (SAGECAL_TRACE=1): each "
+                         "dispatch gap's seconds by the innermost program "
+                         "span open over it")
     rp.add_argument("--json", action="store_true",
                     help="print the full report as JSON")
     rp.set_defaults(fn=_cmd_roofline)

@@ -23,7 +23,8 @@ state is *inside* the process.  A
   ``sys.excepthook`` and a SIGTERM handler that write a flight dump,
   run every registered crash flusher (the elastic checkpoint manager
   registers one, so a preempted run persists its last completed tile),
-  reap active tile-prefetch threads, flush every registered JSONL
+  reap active tile-prefetch threads, close the process tracer (its
+  spans not yet written go to the span file), flush every registered JSONL
   event log with a ``run_aborted`` event carrying the dump path, then
   defer to the previous handler.
 
@@ -466,6 +467,13 @@ def _run_crash_flushers() -> None:
     if ds_mod is not None:
         try:
             ds_mod.cancel_active_prefetchers()
+        except Exception:
+            pass
+    # the process tracer's spans not yet written go to its span file
+    tr_mod = sys.modules.get("sagecal_tpu_torch.obs.trace")
+    if tr_mod is not None:
+        try:
+            tr_mod.close_tracer()
         except Exception:
             pass
 

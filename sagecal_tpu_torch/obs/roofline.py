@@ -266,4 +266,9 @@ def format_report(report: dict) -> str:
             f"{d.get('gap_max_us', 0.0) / 1e3:.1f} ms) across "
             f"{d.get('n_windows', 0)} device windows; busy fraction "
             f"{d.get('amortization', 0.0) * 100:.1f}%")
+        by = d.get("gaps_by_span")
+        if by is not None:
+            lines.append("dispatch gaps by the innermost program span "
+                         "open over them (s):")
+            lines.extend(f"  {name:<32}{s:>12.6f}" for name, s in by.items())
     return "\n".join(lines)

@@ -1,14 +1,24 @@
-"""Execution tracing: hierarchical spans and the Chrome-trace export
-(counterpart of ``sagecal_tpu/obs/trace.py``, copied).
+"""Execution tracing: hierarchical spans, host-read counts and the
+Chrome-trace export (counterpart of ``sagecal_tpu/obs/trace.py``).
 
 Host-side half of the causal-timing story (the metrics registry answers
 "how much", spans answer "where and in what order").  A :class:`Tracer`
 keeps a thread-local span stack so nested ``with tracer.span(...)``
-blocks form a tree (trace id / span id / parent id), times each span
-with ``time.monotonic()``, and appends one JSON line per finished span
-to a JSONL file (``SAGECAL_TRACE_LOG``, default
-``sagecal_trace.jsonl``).  ``close()`` additionally emits a Chrome
-trace event file (``trace.json``) loadable in Perfetto / chrome://tracing.
+blocks form a tree (trace id / span id / parent id) and stamps each
+span's start and end with one clock, :func:`clock_ns`
+(``time.time_ns()``): the clock ``torch.profiler`` stamps its events
+with, so a span lies over a profile's device operations without a
+second time base.  Finished spans and the per-site host-read counts
+(:func:`host_read`) are kept in memory, the run's record
+(:meth:`Tracer.record`, and after :func:`close_tracer`
+:func:`last_record`).  A tracer with a path appends them, one JSON line
+a span, to the JSONL file (``SAGECAL_TRACE_LOG``, default
+``sagecal_trace.jsonl``) :data:`FLUSH_SPANS` at a time and at
+``close()``, and keeps in memory only those not yet written, so a
+long-lived process holds a bounded record and a crash loses at most one
+batch (the flight recorder's crash handlers close the tracer);
+``close()`` also writes a Chrome trace event file (``*.trace.json``)
+loadable in Perfetto / chrome://tracing.
 
 Span records share the event-log vocabulary: the tracer's ``trace_id``
 is set to the run manifest's ``run_id`` by the apps, so spans join
@@ -26,18 +36,26 @@ and skew gauges.  Modes with a genuine host-side per-band loop
 Discipline mirrors the rest of :mod:`sagecal_tpu_torch.obs`:
 
 - zero-cost when disabled — :func:`get_tracer` hands out a shared
-  :class:`NullTracer` whose ``span()`` returns a reusable no-op context
-  manager, so instrumented call sites never branch;
+  :class:`NullTracer` whose ``span()`` and ``read()`` return a reusable
+  no-op context manager, so instrumented call sites never branch;
 - host-side only — a span times host wall clock; it holds no device
   synchronize, so a span around asynchronous CUDA work ends when the
-  work is queued unless the code inside synchronizes;
+  work is queued unless the code inside synchronizes.  A host read
+  (``with host_read("lm.done"): bool(done.all())``) is such a span,
+  ``read:<site>``: its duration is the host's wait for the card to
+  drain up to the read;
 - import-light — this module imports neither torch nor numpy.
 
-Enable with ``SAGECAL_TRACE=1``.
+Recording is on with ``SAGECAL_TRACE=1`` (spans written to files), or
+for an app run that starts while a ``torch.profiler`` capture is active
+(``configure_tracer(capture=True)``: the record is kept in memory and
+no file is written); ``set_trace(False)`` forces it off,
+``set_trace(True)`` on with files.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -54,6 +72,8 @@ _TRUTHY = ("1", "true", "yes", "on")
 
 DEFAULT_TRACE_LOG = "sagecal_trace.jsonl"
 DEFAULT_STRAGGLER_RATIO = 1.5
+# finished spans a tracer with a path holds before it appends them
+FLUSH_SPANS = 1024
 
 
 def _env_enabled() -> bool:
@@ -64,8 +84,8 @@ _enabled: Optional[bool] = None  # None -> defer to the env var
 
 
 def trace_enabled() -> bool:
-    """Master tracing switch: ``set_trace`` override if set, otherwise
-    the ``SAGECAL_TRACE`` env var."""
+    """Master tracing switch (spans written to files): ``set_trace``
+    override if set, otherwise the ``SAGECAL_TRACE`` env var."""
     if _enabled is not None:
         return _enabled
     return _env_enabled()
@@ -73,9 +93,15 @@ def trace_enabled() -> bool:
 
 def set_trace(on: Optional[bool]) -> None:
     """Force tracing on/off for this process (``None`` restores env-var
-    control)."""
+    control, and recording under a profiler capture)."""
     global _enabled
     _enabled = on
+
+
+def clock_ns() -> int:
+    """The one stamp of every span, phase and solve clock: Unix-epoch
+    nanoseconds, ``torch.profiler``'s event clock."""
+    return time.time_ns()
 
 
 def _jsonable(x):
@@ -96,15 +122,26 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def start(self, t_ns: Optional[int] = None) -> "_NullSpan":
+        return self
+
+    def stop(self, t_ns: Optional[int] = None, error=None) -> None:
+        pass
+
+    def set(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """Live span handle; written to the tracer's JSONL on ``__exit__``."""
+    """Live span handle, recorded by its tracer on exit, once.
+    ``start`` / ``stop`` enter and exit it at given :func:`clock_ns`
+    stamps (a solve's synchronized clock), ``with`` at the current time;
+    ``set`` adds attributes until it stops."""
 
-    __slots__ = ("tracer", "name", "attrs", "span_id", "parent_id",
-                 "_t0_mono", "_t0_unix")
+    __slots__ = ("tracer", "name", "attrs", "span_id", "parent_id", "_t0")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self.tracer = tracer
@@ -112,21 +149,31 @@ class _Span:
         self.attrs = attrs
         self.span_id = ""
         self.parent_id = None
-        self._t0_mono = 0.0
-        self._t0_unix = 0.0
+        self._t0 = 0
 
     def __enter__(self) -> "_Span":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.stop(error=exc_type)
+        return False
+
+    def start(self, t_ns: Optional[int] = None) -> "_Span":
         tr = self.tracer
         stack = tr._stack()
         self.parent_id = stack[-1] if stack else None
         self.span_id = tr._new_span_id()
         stack.append(self.span_id)
-        self._t0_unix = time.time()
-        self._t0_mono = time.monotonic()
+        self._t0 = clock_ns() if t_ns is None else t_ns
         return self
 
-    def __exit__(self, exc_type, exc, tb) -> bool:
-        dur = time.monotonic() - self._t0_mono
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def stop(self, t_ns: Optional[int] = None, error=None) -> None:
+        if self._t0 is None:  # stopped already: recorded once
+            return
+        t1 = clock_ns() if t_ns is None else t_ns
         tr = self.tracer
         stack = tr._stack()
         if stack and stack[-1] == self.span_id:
@@ -134,35 +181,50 @@ class _Span:
         elif self.span_id in stack:  # unbalanced exit: drop down to us
             del stack[stack.index(self.span_id):]
         attrs = self.attrs
-        if exc_type is not None:
+        if error is not None:
             attrs = dict(attrs)
-            attrs["error"] = exc_type.__name__
-        tr._write_span(self.name, self.span_id, self.parent_id,
-                       self._t0_unix, dur, attrs)
-        return False
+            attrs["error"] = error.__name__
+        t0, self._t0 = self._t0, None
+        tr._finish(self.name, self.span_id, self.parent_id, t0 * 1e-9,
+                   (t1 - t0) * 1e-9, attrs)
+
+
+@dataclasses.dataclass
+class TraceRecord:
+    """One run's record: its finished spans (the span file's records, in
+    the order they finished) and its host reads counted by site."""
+
+    spans: List[dict]
+    counts: Dict[str, int]
 
 
 class Tracer:
-    """Process tracer: thread-local span stacks, one JSONL line per
-    finished span (single ``os.write`` on an ``O_APPEND`` fd, so
-    multi-process writers interleave whole lines), Chrome-trace export
-    on :meth:`close`."""
+    """Process tracer: thread-local span stacks, finished spans and
+    host-read counts kept in memory (:meth:`record`).  With a ``path``
+    it appends the finished spans, one JSONL line each, every
+    :data:`FLUSH_SPANS` spans and at :meth:`close` (one ``os.write`` a
+    batch on an ``O_APPEND`` fd, so multi-process writers interleave
+    whole batches), remembering where each batch went so that
+    :meth:`record` reads its own spans back; :meth:`close` also writes
+    the Chrome trace.  ``path`` None: a record in memory only, no
+    file."""
 
     enabled = True
 
-    def __init__(self, path: str, trace_id: Optional[str] = None,
+    def __init__(self, path: Optional[str] = None,
+                 trace_id: Optional[str] = None,
                  chrome_path: Optional[str] = None):
         self.path = path
-        d = os.path.dirname(os.path.abspath(path))
-        os.makedirs(d, exist_ok=True)
-        self._fd: Optional[int] = os.open(
-            path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644)
+        if path is not None:
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
         if trace_id is None:
             import uuid
 
             trace_id = uuid.uuid4().hex[:12]
         self.trace_id = trace_id
-        self.chrome_path = chrome_path or default_chrome_path(path)
+        self.chrome_path = chrome_path or (
+            None if path is None else default_chrome_path(path))
         self._local = threading.local()
         self._ids = itertools.count(1)
         self._pid = os.getpid()
@@ -171,6 +233,10 @@ class Tracer:
 
         self._writer = writer_identity()
         self._seq = itertools.count(0)
+        self._done: List[tuple] = []  # finished spans not yet written
+        self._written: List[Tuple[int, int]] = []  # (offset, bytes) in path
+        self.counts: Dict[str, int] = {}
+        self._closed = False
 
     def _stack(self) -> List[str]:
         stack = getattr(self._local, "stack", None)
@@ -197,6 +263,12 @@ class Tracer:
         record's ``attrs`` object."""
         return _Span(self, name, attrs)
 
+    def read(self, site: str) -> _Span:
+        """A ``read:<site>`` span around one device-to-host read (module
+        doc), counted under ``site``."""
+        self.counts[site] = self.counts.get(site, 0) + 1
+        return _Span(self, "read:" + site, {})
+
     def add_span(self, name: str, seconds: float, *,
                  parent_id: Optional[str] = None,
                  start_unix: Optional[float] = None,
@@ -213,17 +285,33 @@ class Tracer:
         if span_id is None:
             span_id = self._new_span_id()
         if start_unix is None:
-            start_unix = time.time() - seconds
+            start_unix = clock_ns() * 1e-9 - seconds
         if parent_id is None:
             parent_id = self.current_span_id()
-        self._write_span(name, span_id, parent_id, start_unix,
-                         float(seconds), attrs, trace_id=trace_id)
+        self._finish(name, span_id, parent_id, start_unix, float(seconds),
+                     attrs, trace_id=trace_id)
         return span_id
 
-    def _write_span(self, name: str, span_id: str,
-                    parent_id: Optional[str], ts: float, dur: float,
-                    attrs: Dict[str, Any],
-                    trace_id: Optional[str] = None) -> None:
+    def _finish(self, name: str, span_id: str, parent_id: Optional[str],
+                ts: float, dur: float, attrs: Dict[str, Any],
+                trace_id: Optional[str] = None) -> None:
+        th = threading.current_thread()
+        # the v2 audit stamps: a monotonic reading and a per-writer
+        # sequence number taken as the span finishes
+        with self._lock:
+            self._done.append((name, span_id, parent_id, ts, dur, attrs,
+                               trace_id, th.ident, th.name, time.monotonic(),
+                               next(self._seq)))
+            full = self.path is not None and len(self._done) >= FLUSH_SPANS
+        if full:
+            self.flush()
+        from sagecal_tpu_torch.obs.flight import note_activity
+
+        note_activity("span", name=name, dur=dur)
+
+    def _as_record(self, done: tuple) -> dict:
+        (name, span_id, parent_id, ts, dur, attrs, trace_id, tid, thread,
+         mono, seq) = done
         rec = {
             "kind": "span",
             "schema_version": SPAN_SCHEMA_VERSION,
@@ -234,39 +322,81 @@ class Tracer:
             "ts": ts,
             "dur": dur,
             "pid": self._pid,
-            "tid": threading.get_ident(),
-            "thread": threading.current_thread().name,
+            "tid": tid,
+            "thread": thread,
         }
         if attrs:
             rec["attrs"] = {str(k): _jsonable(v) for k, v in attrs.items()}
         # v2 audit stamps, appended after the v1 layout: writer
-        # identity + per-writer sequence + a monotonic reading taken at
-        # write time (same-writer ordering under wall-clock steps)
+        # identity + per-writer sequence + a monotonic reading
+        # (same-writer ordering under wall-clock steps)
         rec["writer"] = self._writer
-        rec["mono"] = time.monotonic()
-        rec["seq"] = next(self._seq)
-        line = (json.dumps(rec) + "\n").encode("utf-8")
-        fd = self._fd
-        if fd is None:
+        rec["mono"] = mono
+        rec["seq"] = seq
+        return rec
+
+    def record(self) -> TraceRecord:
+        """The spans finished so far (those already written read back
+        from :attr:`path`) and the host-read counts."""
+        with self._lock:
+            written, done = list(self._written), list(self._done)
+        return TraceRecord(self._read_back(written)
+                           + [self._as_record(d) for d in done],
+                           dict(self.counts))
+
+    def _read_back(self, written: List[Tuple[int, int]]) -> List[dict]:
+        if not written:
+            return []
+        try:
+            with open(self.path, "rb") as f:
+                chunks = []
+                for offset, n in written:
+                    f.seek(offset)
+                    chunks.append(f.read(n))
+        except OSError:
+            return []
+        return [json.loads(line) for line in b"".join(chunks).splitlines()
+                if line]
+
+    def flush(self) -> None:
+        """Append the spans finished since the last flush to
+        :attr:`path` and drop them from memory; nothing without a
+        path."""
+        if self.path is None:
+            return
+        with self._lock:
+            done, self._done = self._done, []
+        if not done:
+            return
+        data = "".join(json.dumps(self._as_record(d)) + "\n"
+                       for d in done).encode("utf-8")
+        try:
+            fd = os.open(self.path, os.O_APPEND | os.O_CREAT | os.O_WRONLY,
+                         0o644)
+        except OSError:
             return
         try:
-            os.write(fd, line)  # one write per line: atomic under O_APPEND
+            while data:
+                n = os.write(fd, data)
+                end = os.lseek(fd, 0, os.SEEK_CUR)
+                with self._lock:
+                    self._written.append((end - n, n))
+                data = data[n:]
         except OSError:
             pass
-        from sagecal_tpu_torch.obs.flight import note_activity
-
-        note_activity("span", name=name, dur=dur)
+        finally:
+            os.close(fd)
 
     def close(self) -> None:
-        """Close the JSONL fd and (re)write the Chrome trace file from
-        every span recorded so far at :attr:`path`."""
+        """Append the spans not yet written to :attr:`path` and
+        (re)write the Chrome trace file from every span in it; no file
+        without a path.  Idempotent."""
         with self._lock:
-            fd, self._fd = self._fd, None
-        if fd is not None:
-            try:
-                os.close(fd)
-            except OSError:
-                pass
+            if self._closed or self.path is None:
+                self._closed = True
+                return
+            self._closed = True
+        self.flush()
         try:
             spans = read_spans(self.path)
             if spans:
@@ -276,13 +406,16 @@ class Tracer:
 
 
 class NullTracer:
-    """No-op tracer handed out when tracing is disabled: ``span()``
-    returns a shared allocation-free context manager, everything else
-    returns immediately.  Shared singleton."""
+    """No-op tracer handed out when tracing is disabled: ``span()`` and
+    ``read()`` return a shared allocation-free context manager,
+    everything else returns immediately.  Shared singleton."""
 
     enabled = False
 
     def span(self, name: str, **attrs) -> _NullSpan:
+        return _NULL_SPAN
+
+    def read(self, site: str) -> _NullSpan:
         return _NULL_SPAN
 
     def add_span(self, name, seconds, *, parent_id=None, start_unix=None,
@@ -302,6 +435,7 @@ class NullTracer:
 _NULL = NullTracer()
 _TRACER: Optional[Tracer] = None
 _TRACER_LOCK = threading.Lock()
+_LAST: Optional[TraceRecord] = None
 
 
 def default_trace_path() -> str:
@@ -314,17 +448,25 @@ def default_chrome_path(trace_path: str) -> str:
 
 
 def configure_tracer(run_id: Optional[str] = None,
-                     path: Optional[str] = None) -> Optional[Tracer]:
+                     path: Optional[str] = None,
+                     capture: bool = False) -> Optional[Tracer]:
     """App entry point: install the process tracer (correlated with the
-    run manifest's ``run_id``) when tracing is enabled.  Returns None
-    when disabled.  The first configuration wins; later calls return
-    the existing tracer."""
-    global _TRACER
-    if not trace_enabled():
-        return None
+    run manifest's ``run_id``) when tracing is enabled, or in memory only
+    when ``capture`` (a ``torch.profiler`` capture is active as the run
+    starts) and ``set_trace`` has not forced tracing off.  Returns None
+    when neither.  The first configuration wins; later calls return the
+    existing tracer.  A run that installs none leaves no
+    :func:`last_record`."""
+    global _TRACER, _LAST
+    files = trace_enabled()
     with _TRACER_LOCK:
         if _TRACER is None:
-            _TRACER = Tracer(path or default_trace_path(), trace_id=run_id)
+            _LAST = None
+            if files:
+                _TRACER = Tracer(path or default_trace_path(),
+                                 trace_id=run_id)
+            elif capture and _enabled is None:
+                _TRACER = Tracer(None, trace_id=run_id)
         return _TRACER
 
 
@@ -339,14 +481,32 @@ def get_tracer() -> Any:
     return configure_tracer() or _NULL
 
 
+def host_read(site: str):
+    """The span around one blocking device-to-host read at ``site``
+    (``<module>.<what>``): ``read:<site>``, counted, while recording;
+    the shared no-op otherwise."""
+    tr = _TRACER
+    if tr is None:
+        tr = get_tracer()
+    return tr.read(site)
+
+
 def close_tracer() -> None:
-    """Flush + close the process tracer (writes the Chrome trace file);
-    the next :func:`configure_tracer` starts fresh."""
-    global _TRACER
+    """Flush + close the process tracer (writes its files, when it has
+    any) and keep its record for :func:`last_record`; the next
+    :func:`configure_tracer` starts fresh."""
+    global _TRACER, _LAST
     with _TRACER_LOCK:
         tr, _TRACER = _TRACER, None
     if tr is not None:
+        _LAST = tr.record()
         tr.close()
+
+
+def last_record() -> Optional[TraceRecord]:
+    """The record of the last run that recorded and closed its tracer;
+    None after a run that recorded nothing."""
+    return _LAST
 
 
 # ---------------------------------------------------------------------------

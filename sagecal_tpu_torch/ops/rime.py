@@ -34,6 +34,7 @@ import torch
 
 from sagecal_tpu_torch.core.types import complex_dtype_of
 from sagecal_tpu_torch.device import resolve_device
+from sagecal_tpu_torch.obs.trace import host_read
 from sagecal_tpu_torch.ops.special import bessel_j0, bessel_j1, sinc_abs
 
 ST_POINT = 0
@@ -232,7 +233,8 @@ def resolve_source_flags(src: SourceBatch,
                          shapelets: Optional[ShapeletTable] = None) -> tuple:
     """``(has_extended, has_shapelet)`` of a source batch, read from the
     host once; a shapelet member without a table raises ValueError."""
-    stype = src.stype.cpu()
+    with host_read("rime.source_flags"):
+        stype = src.stype.cpu()
     has_extended = bool((stype != ST_POINT).any())
     has_shapelet = bool((stype == ST_SHAPELET).any())
     if has_shapelet and shapelets is None:

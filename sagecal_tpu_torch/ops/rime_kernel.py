@@ -71,6 +71,7 @@ from sagecal_tpu_torch.obs.contracts import check_indices, checkify_enabled
 from sagecal_tpu_torch.obs.devprof import launch_annotation
 from sagecal_tpu_torch.obs.perf import note_launch
 from sagecal_tpu_torch.obs.registry import telemetry_enabled
+from sagecal_tpu_torch.obs.trace import host_read
 
 # ------------------------------------------------------------- packing
 
@@ -334,12 +335,16 @@ def _distinct_rows(x):
     gen = torch.Generator().manual_seed(0)
     w = torch.randint(1, 1 << 20, (x.shape[1],), generator=gen).to(x.device)
     _, index = torch.unique((x * w).sum(1), return_inverse=True)
-    first = torch.full((int(index.max()) + 1,), x.shape[0],
-                       dtype=torch.long, device=x.device)
+    with host_read("rime_kernel.distinct_count"):
+        count = int(index.max()) + 1
+    first = torch.full((count,), x.shape[0], dtype=torch.long,
+                       device=x.device)
     first.scatter_reduce_(0, index, torch.arange(x.shape[0], device=x.device),
                           "amin")
     rows = x[first]
-    if torch.equal(rows[index], x):
+    with host_read("rime_kernel.distinct_equal"):
+        same = torch.equal(rows[index], x)
+    if same:
         return rows, index
     return torch.unique(x, dim=0, return_inverse=True)
 
@@ -392,11 +397,16 @@ class BwdPlan:
     def __init__(self, ant_p, ant_q, cmap, nc: int, npad: int):
         ap, aq = ant_p.reshape(-1).long(), ant_q.reshape(-1).long()
         dev, rowsp = ap.device, ap.numel()
-        if bool(((ap < 0) | (ap >= npad) | (aq < 0) | (aq >= npad)).any()):
+        with host_read("rime_kernel.station_check"):
+            bad = bool(((ap < 0) | (ap >= npad) | (aq < 0)
+                        | (aq >= npad)).any())
+        if bad:
             raise ValueError(f"station index outside [0, {npad})")
         if nc > 1:
             maps, of_cluster = _distinct_rows(cmap.long())
-            if bool(((maps < 0) | (maps >= nc)).any()):
+            with host_read("rime_kernel.chunk_check"):
+                bad = bool(((maps < 0) | (maps >= nc)).any())
+            if bad:
                 raise ValueError(f"chunk index outside [0, {nc})")
         else:
             maps = torch.zeros((1, rowsp), dtype=torch.long, device=dev)

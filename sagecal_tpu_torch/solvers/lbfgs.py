@@ -33,6 +33,7 @@ import torch
 
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.obs.records import IterTrace, init_trace, write_trace
+from sagecal_tpu_torch.obs.trace import get_tracer, host_read
 from sagecal_tpu_torch.utils.precision import true_f32
 
 CLM_STOP_THRESH = 1e-9
@@ -133,7 +134,9 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
 
     def cost_value(x):
         with torch.no_grad():
-            return float(cost_fn(x))
+            c = cost_fn(x)
+        with host_read("lbfgs.f_halving"):
+            return float(c)
 
     x = p0.detach()
     f, g = vg_fn(x)
@@ -147,66 +150,81 @@ def lbfgs_fit(cost_fn: Callable, grad_fn: Optional[Callable], p0, itmax: int = 5
         ravg = memory.running_avg + g_min_rold / niter1
         memory.running_avg_sq = memory.running_avg_sq + g_min_rold * (g - ravg)
         memory.running_avg = ravg
-        alphabar = float(10.0 / (
-            1.0 + memory.running_avg_sq.abs().sum()
-            / (max(memory.niter, 1) * torch.clamp(gradnrm, min=1e-30))))
+        with host_read("lbfgs.alphabar"):
+            alphabar = float(10.0 / (
+                1.0 + memory.running_avg_sq.abs().sum()
+                / (max(memory.niter, 1) * torch.clamp(gradnrm, min=1e-30))))
 
     eps = torch.finfo(p0.dtype).eps
-    gn0 = float(gradnrm)
+    with host_read("lbfgs.gradnorm0"):
+        gn0 = float(gradnrm)
     done = not (gn0 == gn0 and abs(gn0) != float("inf") and gn0 > CLM_STOP_THRESH)
     trace = (init_trace(itmax, (), p0.dtype, p0.device) if collect_trace
              else None)
     ck = 0
+    tracer = get_tracer()
     while ck < itmax and not done:
-        pk = _two_loop_direction(g, memory)
-        a0 = alphabar
-        f_t, g_t = vg_fn(x + a0 * pk)
-        fold = float(f)
-        product = ARMIJO_C * float(torch.dot(pk, g))
-        if not _armijo_bad(float(f_t), fold, a0, product):
-            alphak, f1, g1 = a0, f_t, g_t
-            ls_evals = 1
-        else:
-            alphak, fnew, ci = a0, float(f_t), 0
-            while ci < 15 and _armijo_bad(fnew, fold, alphak, product):
-                alphak = alphak * 0.5
-                fnew = cost_value(x + alphak * pk)
-                ci += 1
-            f1, g1 = vg_fn(x + alphak * pk)
-            # the first trial, each halving and the value-and-gradient
-            ls_evals = 2 + ci
-        step_ok = (alphak == alphak and abs(alphak) != float("inf")
-                   and abs(alphak) >= CLM_EPSILON)
-        x1 = x + alphak * pk
-        gradnrm1 = torch.linalg.norm(g1)
-        gn1 = float(gradnrm1)
-        grad_ok = gn1 == gn1 and abs(gn1) != float("inf") and gn1 > CLM_STOP_THRESH
+        with tracer.span("lbfgs.iter"):
+            pk = _two_loop_direction(g, memory)
+            a0 = alphabar
+            f_t, g_t = vg_fn(x + a0 * pk)
+            with host_read("lbfgs.fold"):
+                fold = float(f)
+            with host_read("lbfgs.product"):
+                product = ARMIJO_C * float(torch.dot(pk, g))
+            with host_read("lbfgs.f_trial"):
+                f_trial = float(f_t)
+            if not _armijo_bad(f_trial, fold, a0, product):
+                alphak, f1, g1 = a0, f_t, g_t
+                ls_evals = 1
+            else:
+                alphak, fnew, ci = a0, f_trial, 0
+                while ci < 15 and _armijo_bad(fnew, fold, alphak, product):
+                    alphak = alphak * 0.5
+                    fnew = cost_value(x + alphak * pk)
+                    ci += 1
+                f1, g1 = vg_fn(x + alphak * pk)
+                # the first trial, each halving and the value-and-gradient
+                ls_evals = 2 + ci
+            step_ok = (alphak == alphak and abs(alphak) != float("inf")
+                       and abs(alphak) >= CLM_EPSILON)
+            x1 = x + alphak * pk
+            gradnrm1 = torch.linalg.norm(g1)
+            with host_read("lbfgs.gradnorm"):
+                gn1 = float(gradnrm1)
+            grad_ok = (gn1 == gn1 and abs(gn1) != float("inf")
+                       and gn1 > CLM_STOP_THRESH)
 
-        store = step_ok and not (batch_changed and ck == 0)
-        sk = x1 - x
-        yk = g1 - g
-        if gn1 > 1e-3:
-            yk = yk + 1e-6 * sk
-        ys = float(torch.dot(yk, sk))
-        curv_ok = ys > eps * float(torch.linalg.norm(yk)) * float(torch.linalg.norm(sk))
-        if store and curv_ok:
-            slot = memory.vacant
-            memory.s = memory.s.clone()
-            memory.y = memory.y.clone()
-            memory.rho = memory.rho.clone()
-            memory.s[slot] = sk
-            memory.y[slot] = yk
-            memory.rho[slot] = 1.0 / max(ys, 1e-38)
-            memory.vacant = (slot + 1) % memory.s.shape[0]
-            memory.nfilled = min(memory.nfilled + 1, memory.s.shape[0])
-        memory.niter += 1
-        if step_ok:
-            x, f, g, gradnrm = x1, f1, g1, gradnrm1
-        if trace is not None:
-            write_trace(trace, ck, cost=f, grad_norm=gradnrm, step=alphak,
-                        ls_evals=ls_evals)
-        done = (not step_ok) or (not grad_ok)
-        ck += 1
+            store = step_ok and not (batch_changed and ck == 0)
+            sk = x1 - x
+            yk = g1 - g
+            if gn1 > 1e-3:
+                yk = yk + 1e-6 * sk
+            with host_read("lbfgs.curvature"):
+                ys = float(torch.dot(yk, sk))
+            with host_read("lbfgs.norm_y"):
+                norm_y = float(torch.linalg.norm(yk))
+            with host_read("lbfgs.norm_s"):
+                norm_s = float(torch.linalg.norm(sk))
+            curv_ok = ys > eps * norm_y * norm_s
+            if store and curv_ok:
+                slot = memory.vacant
+                memory.s = memory.s.clone()
+                memory.y = memory.y.clone()
+                memory.rho = memory.rho.clone()
+                memory.s[slot] = sk
+                memory.y[slot] = yk
+                memory.rho[slot] = 1.0 / max(ys, 1e-38)
+                memory.vacant = (slot + 1) % memory.s.shape[0]
+                memory.nfilled = min(memory.nfilled + 1, memory.s.shape[0])
+            memory.niter += 1
+            if step_ok:
+                x, f, g, gradnrm = x1, f1, g1, gradnrm1
+            if trace is not None:
+                write_trace(trace, ck, cost=f, grad_norm=gradnrm, step=alphak,
+                            ls_evals=ls_evals)
+            done = (not step_ok) or (not grad_ok)
+            ck += 1
     return LBFGSResult(p=x, memory=memory, cost=f, gradnorm=gradnrm,
                        iterations=ck, trace=trace)
 

@@ -43,6 +43,7 @@ import torch
 from sagecal_tpu_torch.core.segment import SegmentPlan
 from sagecal_tpu_torch.core.types import corrupt_flat, params_to_jones, reals_of_flat
 from sagecal_tpu_torch.obs.records import IterTrace, init_trace, write_trace
+from sagecal_tpu_torch.obs.trace import host_read
 from sagecal_tpu_torch.ops.quality import SolveQuality, residual_quality
 from sagecal_tpu_torch.utils.precision import true_f32
 
@@ -191,7 +192,9 @@ def _solve_spd(A, b):
     L, info = torch.linalg.cholesky_ex(A + 1e-9 * eye)
     x = torch.cholesky_solve(b[..., None], L)[..., 0]
     ok = (info == 0) & torch.isfinite(x).all(dim=-1)
-    x2 = torch.linalg.solve(A + 1e-5 * eye, b)
+    # linalg.solve checks its factorization on the host: a device read
+    with host_read("lm.solve_check"):
+        x2 = torch.linalg.solve(A + 1e-5 * eye, b)
     return torch.where(ok[:, None], x, x2)
 
 
@@ -261,7 +264,11 @@ def lm_solve(vis, coh, mask, ant_p, ant_q, chunk_map, p0,
     trace = (init_trace(config.itmax, (nchunk,), p0.dtype, p0.device)
              if collect_trace else None)
     it = 0
-    while it < it_bound and not bool(done.all()):
+    while it < it_bound:
+        with host_read("lm.done"):  # the stopping test, read on the host
+            stop = bool(done.all())
+        if stop:
+            break
         JTJ, JTe, _ = _assemble_normal_eq(p, *args)
         damp = mu
         if with_admm:

@@ -17,6 +17,7 @@ import torch
 from torch.special import digamma
 
 from sagecal_tpu_torch.obs.records import stack_traces, with_nu
+from sagecal_tpu_torch.obs.trace import host_read
 from sagecal_tpu_torch.ops.quality import weight_stats
 from sagecal_tpu_torch.solvers.lm import (
     LMConfig, NormalEqPlan, _plan_for, _residual_flat, lm_solve,
@@ -49,7 +50,9 @@ def update_w_and_nu(ed, nu0, nulow: float = 2.0, nuhigh: float = 30.0,
     grid = _nu_grid(nulow, nuhigh, Nd, ed)
     score = (digamma(grid * 0.5 + 0.5) - torch.log((grid + 1.0) * 0.5)
              - digamma(grid * 0.5) + torch.log(grid * 0.5) - sumq + 1.0)
-    nu = grid[torch.argmin(score.abs())]
+    best = torch.argmin(score.abs())
+    with host_read("robust.nu_index"):  # a tensor index is read on the host
+        nu = grid[best]
     return torch.sqrt(w), nu
 
 
@@ -62,7 +65,9 @@ def update_nu_aecm(logsumw, nu_old, p: int = 8, nulow: float = 2.0,
     dgm = digamma((nu_old + p) * 0.5) - torch.log((nu_old + p) * 0.5)
     grid = _nu_grid(nulow, nuhigh, Nd, nu_old)
     score = -digamma(grid * 0.5) + torch.log(grid * 0.5) + logsumw + dgm + 1.0
-    return grid[torch.argmin(score.abs())]
+    best = torch.argmin(score.abs())
+    with host_read("robust.nu_index"):  # a tensor index is read on the host
+        return grid[best]
 
 
 @true_f32

@@ -54,6 +54,7 @@ import torch
 from sagecal_tpu_torch.core.types import (
     corrupt_flat, jones_to_params, params_to_jones,
 )
+from sagecal_tpu_torch.obs.trace import host_read as trace_read
 from sagecal_tpu_torch.obs.records import (
     init_trace, stack_traces, with_nu, write_trace,
 )
@@ -88,9 +89,11 @@ class RTRResult(NamedTuple):
 
 def host_read(flag: torch.Tensor) -> bool:
     """One loop decision read back to the host, counted in
-    ``host_read.count``."""
+    ``host_read.count`` and, while the tracer records, as its
+    ``rtr.decision`` site (``obs/trace.py::host_read``)."""
     host_read.count += 1
-    return bool(flag)
+    with trace_read("rtr.decision"):
+        return bool(flag)
 
 
 host_read.count = 0

@@ -41,9 +41,9 @@ complex tile to :func:`sagefit` as it is.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -55,6 +55,7 @@ from sagecal_tpu_torch.core.types import (
 )
 from sagecal_tpu_torch.device import resolve_device
 from sagecal_tpu_torch.obs.records import stack_traces
+from sagecal_tpu_torch.obs.trace import clock_ns, get_tracer, host_read
 from sagecal_tpu_torch.ops.quality import (
     SolveQuality, chi2_scatter, gain_health, row_chi2, stack_quality,
 )
@@ -186,7 +187,10 @@ def build_cluster_data(data: VisData, clusters: Sequence[SourceBatch],
     if fdelta is None:
         fdelta = data.deltaf
     if shapelets is not None:
-        shap = [bool((c.stype == ST_SHAPELET).any()) for c in clusters]
+        shap = []
+        for c in clusters:
+            with host_read("sage.source_types"):
+                shap.append(bool((c.stype == ST_SHAPELET).any()))
         if any(shap):
             plain_idx = [i for i, f in enumerate(shap) if not f]
             plain = build_cluster_data(
@@ -202,7 +206,11 @@ def build_cluster_data(data: VisData, clusters: Sequence[SourceBatch],
     sizes = [int(c.ll.shape[0]) for c in clusters]
     smax, total = max(sizes), sum(sizes)
     if smax * len(clusters) <= 4 * total and len(clusters) > 1:
-        stypes = torch.cat([c.stype.cpu() for c in clusters])
+        host = []
+        for c in clusters:
+            with host_read("sage.source_types"):
+                host.append(c.stype.cpu())
+        stypes = torch.cat(host)
         if bool((stypes == ST_SHAPELET).any()):
             raise ValueError(_NO_TABLE)
         has_ext = bool((stypes != ST_POINT).any())
@@ -370,7 +378,9 @@ def _fused_cost_prologue(vis, ant_p, ant_q, n8, coh_dtype):
             "compute in f32); use the torch-op path for f64")
     if coh_dtype not in ("f32", "bf16"):
         raise ValueError(f"coh_dtype must be 'f32' or 'bf16', got {coh_dtype!r}")
-    if int(torch.maximum(ant_p.max(), ant_q.max())) >= n8 // 8:
+    with host_read("sage.station_max"):
+        top = int(torch.maximum(ant_p.max(), ant_q.max()))
+    if top >= n8 // 8:
         raise ValueError("station index out of range of the gain tables")
     return torch.bfloat16 if coh_dtype == "bf16" else torch.float32
 
@@ -484,13 +494,16 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
 
     def plan_of(cmap_k):
         for cmap, plan in plans:
-            if torch.equal(cmap, cmap_k):
+            with host_read("sage.plan_equal"):
+                same = torch.equal(cmap, cmap_k)
+            if same:
                 return plan
         plan = NormalEqPlan(data.ant_p, data.ant_q, cmap_k, p0.shape[1],
                             p0.shape[2] // 8)
         plans.append((cmap_k, plan))
         return plan
 
+    tracer = get_tracer()
     p = p0
     nerr = torch.zeros((M,), dtype=p0.dtype, device=p0.device)
     weighted = False
@@ -504,9 +517,10 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
         # quality of the final pass only: earlier iterates are discarded
         want_q = config.collect_quality and last_em
         flags = dict(collect_trace=collect, collect_quality=want_q)
-        nerr_host = nerr.tolist()
+        with host_read("sage.nerr"):
+            nerr_host = nerr.tolist()
 
-        def solve_one(xeff, coh_k, cmap_k, p_k, k):
+        def solve_cluster(xeff, coh_k, cmap_k, p_k, k):
             args = (xeff, coh_k, data.mask, data.ant_p, data.ant_q, cmap_k, p_k)
             plan = plan_of(cmap_k)
             nu_k = torch.as_tensor(config.nulow, dtype=p0.dtype,
@@ -539,6 +553,12 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
             else:
                 res = lm_solve(*args, lmcfg, itmax_dynamic=itermax, plan=plan,
                                **flags)
+            return res, nu_k
+
+        def solve_one(xeff, coh_k, cmap_k, p_k, k):
+            with tracer.span("sage.em.cluster", k=k) as span:
+                res, nu_k = solve_cluster(xeff, coh_k, cmap_k, p_k, k)
+                span.set(iterations=getattr(res, "iterations", None))
             return res.p, (nerr_of(res), nu_k, res.trace, res.quality)
 
         p, aux = em_residual_scan(data, cdata, p, list(range(M)), solve_one)
@@ -557,11 +577,27 @@ def _em_phase(data: VisData, cdata: ClusterData, p0, config: SageConfig,
             [plan for _, plan in plans])
 
 
-def _clock(device) -> float:
-    """Host seconds after the device has finished its queued work."""
+@contextlib.contextmanager
+def _synced_span(tracer, name: str, device, stamps: List[int]):
+    """Span ``name`` from the last of ``stamps`` to a :func:`_clock`
+    stamp taken as the block ends, appended to ``stamps``; a block that
+    raises ends its span, marked with the error, where it stopped."""
+    span = tracer.span(name).start(stamps[-1])
+    try:
+        yield
+    except BaseException as e:
+        span.stop(error=type(e))
+        raise
+    stamps.append(_clock(device))
+    span.stop(stamps[-1])
+
+
+def _clock(device) -> int:
+    """The span clock (``obs/trace.py::clock_ns``, ns) after the device
+    has finished its queued work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter()
+    return clock_ns()
 
 
 def _finalize(data, cdata, p, res_0, mean_nu, config: SageConfig,
@@ -616,40 +652,47 @@ def sagefit(data: VisData, cdata: ClusterData, p0, config: SageConfig = SageConf
     nchunk_max, n8 = p0.shape[1], p0.shape[2]
     robust = config.solver_mode in _ROBUST_MODES
 
-    t0 = _clock(dev)
-    p, mean_nu, res_0, em_traces, em_quality, plans = _em_phase(
-        data, cdata, p0, config, generator)
-    t1 = _clock(dev)
+    # the EM and the joint LBFGS as spans on the synchronized clock, so
+    # phase_seconds and the spans are the same stamps
+    tracer = get_tracer()
+    stamps = [_clock(dev)]
+    with _synced_span(tracer, "sage.em", dev, stamps):
+        p, mean_nu, res_0, em_traces, em_quality, plans = _em_phase(
+            data, cdata, p0, config, generator)
     lbfgs_iterations, lbfgs_trace = 0, None
-    if config.max_lbfgs > 0:
-        if config.use_fused_predict:
-            cost_fn = _make_fused_joint_cost(data, cdata, M, nchunk_max, n8,
-                                             robust, mean_nu, config.coh_dtype)
-        else:
-            def cost_fn(pflat):
-                model = predict_full_model(pflat.reshape(M, nchunk_max, n8),
-                                           cdata, data)
-                diff = (data.vis - model) * data.mask[..., None, :]
-                e2 = diff.real ** 2 + diff.imag ** 2
-                if robust:
-                    return torch.log1p(e2 / mean_nu).sum()
-                return e2.sum()
+    with _synced_span(tracer, "sage.lbfgs", dev, stamps):
+        if config.max_lbfgs > 0:
+            if config.use_fused_predict:
+                cost_fn = _make_fused_joint_cost(
+                    data, cdata, M, nchunk_max, n8, robust, mean_nu,
+                    config.coh_dtype)
+            else:
+                def cost_fn(pflat):
+                    model = predict_full_model(
+                        pflat.reshape(M, nchunk_max, n8), cdata, data)
+                    diff = (data.vis - model) * data.mask[..., None, :]
+                    e2 = diff.real ** 2 + diff.imag ** 2
+                    if robust:
+                        return torch.log1p(e2 / mean_nu).sum()
+                    return e2.sum()
 
-        if config.param_bound > 0.0:
-            fit = lbfgsb_fit(cost_fn, None, p.reshape(-1),
-                             lb=-config.param_bound, ub=config.param_bound,
-                             itmax=config.max_lbfgs, M=config.lbfgs_m)
-        else:
-            fit = lbfgs_fit(cost_fn, None, p.reshape(-1),
-                            itmax=config.max_lbfgs, M=config.lbfgs_m,
-                            collect_trace=config.collect_telemetry)
-            lbfgs_trace = fit.trace
-        p = fit.p.reshape(M, nchunk_max, n8).to(p0.dtype)
-        lbfgs_iterations = fit.iterations
-    t2 = _clock(dev)
-    res = _finalize(data, cdata, p, res_0, mean_nu, config, lbfgs_trace,
-                    em_traces, em_quality, plans)
-    res.phase_seconds = {"em": t1 - t0, "lbfgs": t2 - t1}
+            if config.param_bound > 0.0:
+                fit = lbfgsb_fit(cost_fn, None, p.reshape(-1),
+                                 lb=-config.param_bound,
+                                 ub=config.param_bound,
+                                 itmax=config.max_lbfgs, M=config.lbfgs_m)
+            else:
+                fit = lbfgs_fit(cost_fn, None, p.reshape(-1),
+                                itmax=config.max_lbfgs, M=config.lbfgs_m,
+                                collect_trace=config.collect_telemetry)
+                lbfgs_trace = fit.trace
+            p = fit.p.reshape(M, nchunk_max, n8).to(p0.dtype)
+            lbfgs_iterations = fit.iterations
+    t0, t1, t2 = stamps
+    with tracer.span("sage.finalize"):
+        res = _finalize(data, cdata, p, res_0, mean_nu, config, lbfgs_trace,
+                        em_traces, em_quality, plans)
+    res.phase_seconds = {"em": (t1 - t0) * 1e-9, "lbfgs": (t2 - t1) * 1e-9}
     res.lbfgs_iterations = lbfgs_iterations
     return res
 
@@ -754,7 +797,7 @@ def sagefit_batched_fused(data: VisData, cdata: ClusterData, p0,
         p=p_b, res_0=torch.stack([r.res_0 for r in fins]),
         res_1=torch.stack([r.res_1 for r in fins]), mean_nu=mean_nu_b,
         diverged=torch.stack([r.diverged for r in fins]),
-        phase_seconds={"em": t1 - t0, "lbfgs": t2 - t1},
+        phase_seconds={"em": (t1 - t0) * 1e-9, "lbfgs": (t2 - t1) * 1e-9},
         lbfgs_iterations=iterations, quality=quality)
 
 

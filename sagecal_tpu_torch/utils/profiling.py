@@ -4,10 +4,12 @@
 :class:`PhaseTimer` sums the wall seconds of each named phase (load and
 coherencies, solve, residual, write, ...) per tile and per run; each
 phase is annotated with ``torch.profiler.record_function`` so a
-``torch.profiler`` trace attributes device work to it, and with
-``SAGECAL_TRACE=1`` each phase is a span of kind ``phase``
-(``obs/trace.py``; its exit also feeds the flight recorder's stall
-clock).  With telemetry
+``torch.profiler`` trace attributes device work to it, and while the
+tracer records (``obs/trace.py``: ``SAGECAL_TRACE=1``, or an app run
+started under a ``torch.profiler`` capture) each phase is a span of
+kind ``phase``, its seconds the span's own stamps (its exit also feeds
+the flight recorder's stall clock); off, the phase reads the same
+clock, ``obs/trace.py::clock_ns``.  With telemetry
 on, every phase's seconds are observed into the ``phase_seconds``
 histogram of the process-wide registry and its memory watermark is
 sampled (``obs/perf.py::record_memory_watermark``).  A phase's time is
@@ -28,14 +30,13 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
 
 from sagecal_tpu_torch.obs.registry import get_registry, telemetry_enabled
-from sagecal_tpu_torch.obs.trace import get_tracer
+from sagecal_tpu_torch.obs.trace import clock_ns, get_tracer
 
 _TRACE_DIR_ENV = "SAGECAL_PROFILE_DIR"
 _active_trace: Optional[dict] = None
@@ -104,12 +105,18 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
         # the disabled tracer hands back one shared no-op span
-        with get_tracer().span(name, kind="phase"):
+        t0 = clock_ns()
+        span = get_tracer().span(name, kind="phase").start(t0)
+        try:
             with torch.profiler.record_function(name):
                 yield
-        dt = time.perf_counter() - t0
+        except BaseException as e:
+            span.stop(error=type(e))
+            raise
+        t1 = clock_ns()
+        span.stop(t1)
+        dt = (t1 - t0) * 1e-9
         self.totals[name] += dt
         self.counts[name] += 1
         self._tile[name] = self._tile.get(name, 0.0) + dt

@@ -190,7 +190,7 @@ def files(tmp_path_factory):
         for band, sec in enumerate((1.0, 1.1, 2.5)):
             tr.add_span("xstep", sec, parent_id=root_id, start_unix=1.0,
                         band=band, lane=f"band{band}")
-        os.close(tr._fd)
+        tr.close()  # the spans are written as the tracer closes
         json.dump({"reason": "stall", "pid": 7, "run_id": "r1", "ts": 5.0,
                    "last_activity_age": 61.5,
                    "exception": {"type": "RuntimeError", "value": "x"},

@@ -159,10 +159,24 @@ class TestChromeTrace:
 
 
 def _patched_clock(monkeypatch):
-    """time.time / time.monotonic from one deterministic counter."""
+    """time.time / time.time_ns / time.monotonic from one deterministic
+    counter."""
     tick = itertools.count()
     monkeypatch.setattr(time, "time", lambda: 1.7e9 + 0.25 * next(tick))
+    monkeypatch.setattr(time, "time_ns", lambda: (
+        1_700_000_000_000_000_000 + 250_000_000 * next(tick)))
     monkeypatch.setattr(time, "monotonic", lambda: 100.0 + 0.25 * next(tick))
+
+
+# the stamps each package takes from its own clocks: the port stamps a
+# span's start and end with time.time_ns (obs/trace.py::clock_ns), the
+# JAX package with time.time and time.monotonic
+_CLOCKED = ("ts", "dur", "mono")
+_SYNTHETIC = ("admm", "admm.band", "serve.request")
+
+
+def _unclocked(records, keys=_CLOCKED):
+    return [{k: v for k, v in r.items() if k not in keys} for r in records]
 
 
 def _span_script(tr):
@@ -198,10 +212,28 @@ def test_same_span_sequence_same_files_as_jax(tmp_path, monkeypatch):
     (jspans, jchrome), (tspans, tchrome) = out["jax"], out["port"]
     assert len(tspans) == len(jspans) == 15
     # the span ids come from per-tracer counters and the process id, so
-    # in one process even they agree
-    assert tspans == jspans
-    assert tchrome == jchrome
+    # in one process even they agree; every field but the clocks' stamps
+    assert _unclocked(tspans) == _unclocked(jspans)
+    assert ([e for e in tchrome["traceEvents"] if e["ph"] != "X"]
+            == [e for e in jchrome["traceEvents"] if e["ph"] != "X"])
+    assert (_unclocked([e for e in tchrome["traceEvents"] if e["ph"] == "X"],
+                       ("ts", "dur"))
+            == _unclocked([e for e in jchrome["traceEvents"]
+                           if e["ph"] == "X"], ("ts", "dur")))
     assert band_seconds_from_spans(tspans) == {0: 2.0, 1: 1.0, 2: 0.0}
+    # given seconds are kept as given; the port's live spans are whole
+    # ticks of its one clock, each inside its parent on that clock
+    by_id = {s["span_id"]: s for s in tspans}
+    for t, j in zip(tspans, jspans):
+        if t["name"] in _SYNTHETIC:
+            assert t["dur"] == j["dur"]
+            continue
+        assert t["dur"] / 0.25 == pytest.approx(round(t["dur"] / 0.25))
+        assert t["dur"] > 0.0
+        parent = by_id.get(t["parent_id"])
+        if parent is not None:
+            assert parent["ts"] <= t["ts"]
+            assert t["ts"] + t["dur"] <= parent["ts"] + parent["dur"] + 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -504,9 +536,27 @@ def _shape(spans):
                   for s in spans)
 
 
+# the port's app phases that are the reference's, under the reference's
+# names; the port's other spans (the reader's wait, the solutions, the
+# solve's inner spans and the host reads) have no counterpart
+_JAX_PHASES = {"fullbatch": "fullbatch", "tile": "tile",
+               "coherencies": "load+coh", "solve": "solve",
+               "app.readback": "solve-wait", "residual": "residual",
+               "app.write": "write"}
+
+
+_SOLVE_SPANS = ("sage.", "lbfgs.", "read:")
+
+
+def _as_jax(spans):
+    return [dict(s, name=_JAX_PHASES[s["name"]]) for s in spans
+            if s["name"] in _JAX_PHASES]
+
+
 def test_fullbatch_spans_match_jax(tmp_path, monkeypatch):
     """The fullbatch app traced: a ``fullbatch`` run span, a ``tile`` span
-    per tile and the PhaseTimer's phases under them, in both packages;
+    per tile and the PhaseTimer's phases under them, in both packages
+    (the port's under their own names, beside its own spans);
     tracing leaves the port's results as they were; the flight recorder
     leaves its closing heartbeat."""
     import shutil
@@ -546,10 +596,15 @@ def test_fullbatch_spans_match_jax(tmp_path, monkeypatch):
     assert open(tmp_path / "on.sol").read() == open(tmp_path / "off.sol").read()
     tspans = read_spans(str(tmp_path / "t.jsonl"))
     jspans = read_spans(str(tmp_path / "j.jsonl"))
-    assert _shape(tspans) == _shape(jspans)
+    assert _shape(_as_jax(tspans)) == _shape(jspans)
     names = [s["name"] for s in tspans]
     assert names.count("tile") == 2 and names.count("fullbatch") == 1
-    assert {"load+coh", "solve", "residual", "write"} <= set(names)
+    assert {"app.prefetch_wait", "coherencies", "solve", "app.readback",
+            "app.solutions", "residual", "app.write", "sage.em",
+            "sage.em.cluster", "sage.lbfgs", "lbfgs.iter", "sage.finalize",
+            "read:lm.done", "read:fullbatch.readback",
+            "read:fullbatch.solutions", "read:fullbatch.residual"
+            } <= set(names)
     with open(tmp_path / "t.trace.json") as f:
         assert len([e for e in json.load(f)["traceEvents"]
                     if e["ph"] == "X"]) == len(tspans)
@@ -582,6 +637,11 @@ def test_service_lifecycle_spans_match_jax(tmp_path, monkeypatch):
                       requests=load(manifest), log=lambda *a: None, **kw)
         runs[name] = (summary, read_spans(str(tmp_path / f"{name}.jsonl")))
     (jsum, jspans), (tsum, tspans) = runs["jax"], runs["port"]
+    # the port's solve spans and host reads have no counterpart
+    inner = [s for s in tspans if s["name"].startswith(_SOLVE_SPANS)]
+    assert {"sage.em", "sage.em.cluster", "sage.lbfgs", "read:lm.done"} <= {
+        s["name"] for s in inner}
+    tspans = [s for s in tspans if not s["name"].startswith(_SOLVE_SPANS)]
     assert _shape(tspans) == _shape(jspans)
     roots = [s for s in tspans if s["name"] == "serve.request"]
     assert len(roots) == 3
